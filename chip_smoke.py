@@ -1,0 +1,641 @@
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py        # from the repo root, on a machine with a card
+
+Phases, in order; any failed check exits non-zero:
+
+1. device  — requires CUDA; prints the card's name and power limit; turns
+             TF32 off for float32 matmuls and convolutions.
+2. build   — builds (or loads) the CUDA kernels from ``src/repro_torch/csrc``.
+3. kernels — each hand-written kernel against its plain PyTorch version on
+             the card at the shapes the serving path gives it, then timed
+             beside its plain version, its bound and, where one PyTorch call
+             computes the same function, that call: CUDA events, medians
+             after warm-up, around CUDA-graph replays for the microsecond
+             fused adapter (inputs rotated past the L2, as decode finds
+             them) and around eager calls for the millisecond aggregation.
+4. serve   — qwen1.5-0.5b at full published width with random weights:
+             4 hard-mask profiles, 8 requests of 4-16 prompt tokens and 16
+             new tokens on 4 slots (max_seq 128, sync_every 8), through the
+             port's ServeEngine; both kernels' launch counters must move.
+             The same requests are served again with kernel_impl="ref" (the
+             plain versions); the prefill logits and the decode-step logits
+             under teacher forcing (both runs fed the ref run's tokens) are
+             compared, and every greedy token where the runs part is shown
+             to be a flip that the logit difference explains. Last, a decode
+             step is timed on the host clock and profiled (torch.profiler)
+             for the device time by kernel.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it the
+card's name and power limit; before that one JSON line of kernel numbers.
+"""
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# Tolerances, stated before any run:
+# - mask aggregation: the kernel and its plain version do the same rounded
+#   multiply then rounded add per term, in the same order -> atol 1e-6
+#   (bitwise agreement expected; the error is printed).
+# - fused adapter, bf16: both sum in fp32 (in other orders) and round once
+#   to bf16, so an element may differ by one bf16 rounding step:
+#   |kernel - plain| <= 2^-7 * |plain| + 1e-5. fp32 inputs: rtol 1e-4,
+#   atol 1e-5.
+# - end to end, kernel run vs ref run, the prefill logits and the decode-
+#   step logits under teacher forcing: max |d logit| <= E2E_STEPS bf16
+#   steps at the largest logit (the logits are bf16 products, and adapter
+#   outputs one bf16 step apart propagate through 24 bf16 layers), and
+#   <= E2E_SHARE_REL of the adapters' share of the logits (max |ref run -
+#   the same run with the adapter left out|), so an adapter that comes
+#   out wrong by half of itself or more (a wrong layer or slot row, a
+#   dropped term) fails even where that share is smaller than the bf16
+#   bound. Both set from the readings on an H100 (PERF.md): decode logits
+#   2 bf16 steps apart, 0.31 of a 0.199 share; prefill logits equal.
+#   Finer faults (a wrong activation form moves h by ~1e-3) are the
+#   kernel phases' to catch.
+# - a greedy token may differ between the two runs only where the ref
+#   run's top-2 gap at that step is <= 2 * that step's max |d logit|.
+AGG_ATOL = 1e-6
+FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
+FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
+E2E_STEPS = 4
+E2E_SHARE_REL = 0.5
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def device_ms(torch, fn, calls, reps=7):
+    """Median device time of one ``fn()`` call: ``calls`` calls captured in
+    a CUDA graph, replayed ``reps`` times between CUDA events (no host
+    launch cost inside the timed span)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def eager_ms(torch, fn, calls, reps=5):
+    """Median time of one call issued from Python, host cost included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def rotating(fn, arg_sets):
+    """A no-argument call that applies ``fn`` to the next argument set."""
+    i = [0]
+
+    def call():
+        args = arg_sets[i[0] % len(arg_sets)]
+        i[0] += 1
+        return fn(*args)
+    return call
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ----------------------------------------------------------------------------
+# phase 3a: mask aggregation
+# ----------------------------------------------------------------------------
+
+def agg_inputs(torch, gen, d, b, L=24, N=256, P=96, k=50):
+    """A bank [L*N, d, b] bf16 and P = 4 profiles x L layer-folded index
+    rows of k sorted distinct adapters each, as admission builds them."""
+    dev = "cuda"
+    bank = (torch.randn((L * N, d, b), generator=gen, device=dev)
+            * 0.05).to(torch.bfloat16)
+    sel = torch.rand((P, N), generator=gen, device=dev).argsort(-1)[:, :k]
+    layer = torch.arange(P, device=dev) % L
+    idx = (sel.sort(-1).values + (layer * N)[:, None]).to(torch.int32)
+    w = torch.full((P, k), 1.0 / k, dtype=torch.float32, device=dev)
+    return bank, idx.contiguous(), w
+
+
+def phase_mask_aggregate(torch, KA, ref, F):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = []
+    for label, (d, b) in (("A_hat", (1024, 64)), ("B_hat", (64, 1024))):
+        bank, idx, w = agg_inputs(torch, gen, d, b)
+        P, k = idx.shape
+        got = KA.mask_aggregate_batched(bank, idx, w)
+        want = ref.mask_aggregate_batched_ref(bank, idx, w)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (P, d, b)
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
+            f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} "
+            f"(bitwise {torch.equal(got, want)}; atol {AGG_ATOL})")
+        assert err <= AGG_ATOL, err
+        # padded profile-rows (idx 0, w 0) come out as exact zeros
+        pad = KA.mask_aggregate_batched(bank, torch.zeros_like(idx[:2]),
+                                        torch.zeros_like(w[:2]))
+        assert not pad.abs().max().item()
+
+        # millisecond-scale calls: host launch cost is noise here
+        ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
+            bank, idx, w), calls=3)
+        plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
+            bank, idx, w), calls=1)
+        row_bytes = d * b * bank.element_size()
+        uniq = int(torch.unique(idx).numel())
+        nbytes = uniq * row_bytes + idx.numel() * 4 + w.numel() * 4 \
+            + P * d * b * 4
+        flops = 2 * P * k * d * b
+        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        # yardstick only, never called by the port: embedding_bag with
+        # per-sample weights computes the same weighted sum of rows
+        flat = bank.view(bank.shape[0], -1)
+        w16 = w.to(bank.dtype)
+        lib_ms = eager_ms(torch, lambda: F.embedding_bag(
+            idx, flat, per_sample_weights=w16, mode="sum"), calls=3)
+        log(f"  ms {ms:.4f} | plain {plain_ms:.4f} | embedding_bag "
+            f"{lib_ms:.4f} | bound {bound_ms:.4f} ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {uniq} distinct rows) | "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        results.append(dict(shape=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib_ms))
+        del bank, flat, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+# ----------------------------------------------------------------------------
+# phase 3b: fused adapter
+# ----------------------------------------------------------------------------
+
+def fa_inputs(torch, gen, B, T, d, b, dtype, shared=False):
+    dev = "cuda"
+    lead = () if shared else (B,)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = rnd((B, T, d), 1.0).to(dtype)
+    a = rnd(lead + (d, b), d ** -0.5).to(dtype)
+    bb = rnd(lead + (b, d), 0.05).to(dtype)
+    ls = 1.0 + rnd(lead + (b,), 0.1)
+    lb = rnd(lead + (b,), 0.1)
+    return x, a, bb, ls, lb
+
+
+def check_fa(torch, KF, ref, args, kw, rtol, atol, label):
+    got = KF.fused_adapter_batched(*args, **kw)
+    want = ref.fused_adapter_batched_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= rtol * want.float().abs() + atol).all())
+    log(f"  check {label}: max_abs_err {err:.3e} ok={ok}")
+    assert ok, label
+    return err
+
+
+def phase_fused_adapter(torch, KF, ref):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, d, b = 4, 1024, 64
+    bf16, f32 = torch.bfloat16, torch.float32
+    # coverage first: fp32, shared A/B, the LoRA route, strided layer rows
+    for T in (1, 16):
+        args = fa_inputs(torch, gen, B, T, d, b, f32)
+        check_fa(torch, KF, ref, args, {}, FA_F32_RTOL, FA_F32_ATOL,
+                 f"fp32 T={T}")
+        args = fa_inputs(torch, gen, B, T, d, b, bf16, shared=True)
+        check_fa(torch, KF, ref, args, {}, FA_BF16_RTOL, FA_BF16_ATOL,
+                 f"bf16 shared T={T}")
+        check_fa(torch, KF, ref, args,
+                 dict(activation="identity", use_ln=False), FA_BF16_RTOL,
+                 FA_BF16_ATOL, f"bf16 shared no-LN identity T={T}")
+    # one layer of the engine's [B, L, d, b] slot buffers, at the decode
+    # (T=1) and a prefill (T=16) shape
+    stack = [fa_inputs(torch, gen, B, 1, d, b, bf16)[1:] for _ in range(3)]
+    a3, b3, ls3, lb3 = (torch.stack(t, 1) for t in zip(*stack))
+    for T in (1, 16):
+        x = fa_inputs(torch, gen, B, T, d, b, bf16)[0]
+        check_fa(torch, KF, ref,
+                 (x, a3[:, 1], b3[:, 1], ls3[:, 1], lb3[:, 1]), {},
+                 FA_BF16_RTOL, FA_BF16_ATOL,
+                 f"bf16 layer slice of [B,L,d,b] T={T}")
+
+    results = []
+    for T in (1, 16):
+        # the decode path finds each layer's A_hat/B_hat cold (24 layers of
+        # adapters and all the weights stream between two uses), so the
+        # timed calls rotate over input sets that together exceed the
+        # 50 MB L2
+        sets = [fa_inputs(torch, gen, B, T, d, b, bf16) for _ in range(64)]
+        err = check_fa(torch, KF, ref, sets[0], {}, FA_BF16_RTOL,
+                       FA_BF16_ATOL, f"bf16 per-row T={T}")
+        ms = device_ms(torch, rotating(KF.fused_adapter_batched, sets),
+                       calls=len(sets))
+        plain_ms = device_ms(torch, rotating(ref.fused_adapter_batched_ref,
+                                             sets), calls=len(sets))
+        warm_ms = device_ms(torch, lambda: KF.fused_adapter_batched(
+            *sets[0]), calls=64)
+        host_ms = eager_ms(torch, rotating(KF.fused_adapter_batched, sets),
+                           calls=len(sets))
+        nbytes = sum(t.numel() * t.element_size() for t in sets[0]) \
+            + sets[0][0].numel() * 2
+        flops = 4 * B * T * d * b
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        log(f"fused_adapter_batched B={B} T={T} d={d} b={b} bf16: ms "
+            f"{ms:.5f} (cold) | warm {warm_ms:.5f} | plain {plain_ms:.5f} "
+            f"(cold) | eager call (host included) {host_ms:.5f} | bound "
+            f"{bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.3f} MB)")
+        results.append(dict(shape=f"T={T}", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            warm_ms=warm_ms, eager_ms=host_ms))
+        del sets
+    return results
+
+
+# ----------------------------------------------------------------------------
+# phase 4: serve
+# ----------------------------------------------------------------------------
+
+def make_requests(Request, vocab, n=8, max_new=16, profiles=4):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, vocab,
+                                               size=rng.integers(4, 17)),
+                    profile_id=i % profiles, max_new_tokens=max_new)
+            for i in range(n)]
+
+
+def prefill_logits(torch, eng, reqs, bare=False):
+    """The engine's own prefill of every request (one padded bucket) with
+    the aggregated entries its admission left in the profile cache, or
+    with no adapter (``bare``)."""
+    pad = 16
+    toks = torch.zeros((len(reqs), pad), dtype=torch.int32)
+    lens = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = torch.from_numpy(r.prompt)
+    rows = [eng.profile_cache.peek(r.profile_id) for r in reqs]
+    masks = {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
+    logits, _ = eng.prefill_logits(toks.to(eng.device),
+                                   None if bare else masks,
+                                   lens.to(eng.device))
+    return logits
+
+
+def forced_decode(torch, MDL, ServeEngine, Request, run_cfg, params, store,
+                  reqs, forced, bare=False):
+    """Decode-step logits [R, n-1, V] of a fresh engine serving ``reqs``
+    in waves of 4 slots, each step fed the token ``forced[uid]`` holds at
+    that step (teacher forcing) instead of its own greedy pick. The
+    engine's admission, slot state and per-slot cache positions drive the
+    steps; the model call is the engine's decode step with the logits
+    kept (``bare``: with the adapter left out)."""
+    rows = []
+    for w0 in range(0, len(reqs), 4):
+        wave = [Request(uid=r.uid, prompt=r.prompt, profile_id=r.profile_id,
+                        max_new_tokens=r.max_new_tokens)
+                for r in reqs[w0:w0 + 4]]
+        teach = torch.tensor([forced[r.uid] for r in wave],
+                             dtype=torch.int32, device=params["embed"].device)
+        eng = ServeEngine(run_cfg, params, store, max_slots=len(wave),
+                          max_seq=128, sync_every=8)
+        kept = []
+
+        def decode_fn(params, cache, last_tok, lengths, masks, active):
+            s = len(kept)
+            hidden, cache, _ = MDL.forward(
+                params, teach[:, s, None], run_cfg,
+                profile_masks=None if bare else masks, cache=cache,
+                cache_pos=lengths)
+            kept.append(MDL.lm_logits(params, hidden, run_cfg)[:, -1])
+            return teach[:, min(s + 1, teach.shape[1] - 1)], cache
+
+        eng.slots.decode_fn = decode_fn
+        eng.admit_many(wave)
+        while eng.active_count():
+            eng.step()
+        rows.append(torch.stack(kept, 1))
+    return torch.cat(rows)
+
+
+def bf16_step(v):
+    """Spacing of bf16 values at magnitude v (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def e2e_check(label, got, want, bare):
+    """Kernel-run logits against the ref run's, within E2E_STEPS bf16
+    steps and E2E_SHARE_REL of the adapters' share of the logits."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    share = (want - bare).abs().max().item()
+    tol = E2E_STEPS * bf16_step(scale)
+    log(f"  {label}: kernel vs ref max|d logit| {err:.4e}; max|logit| "
+        f"{scale:.4f} (bf16 step {bf16_step(scale):.4e}, tol {tol:.4e}); "
+        f"adapters' share max|ref - no adapter| {share:.4e} (err/share "
+        f"{err / share if share else math.inf:.4e}, tol {E2E_SHARE_REL})")
+    assert err <= tol and err <= E2E_SHARE_REL * share, (label, err, share)
+    return dict(max_abs_err=err, max_logit=scale, adapter_share=share)
+
+
+def explain_divergence(torch, reqs, ref_reqs, pre, dec):
+    """For each request whose greedy tokens part between the kernel and
+    ref runs, the first token where they part: the ref run's top-2 gap
+    there must be within twice that step's max |d logit| (``pre`` /
+    ``dec`` hold (kernel, ref) prefill and teacher-forced decode logits;
+    up to that token both runs saw the same history, so the teacher-
+    forced logits are the free runs' own)."""
+    agree = total = 0
+    for i, (r, q) in enumerate(zip(reqs, ref_reqs)):
+        assert r.uid == q.uid
+        pairs = list(zip(r.generated, q.generated))
+        agree += sum(a == b for a, b in pairs)
+        total += len(pairs)
+        j = next((t for t, (a, b) in enumerate(pairs) if a != b), None)
+        if j is None:
+            continue
+        where, (lk, lr) = ("prefill", (pre[0][i], pre[1][i])) if j == 0 \
+            else (f"decode step {j - 1}", (dec[0][i, j - 1], dec[1][i, j - 1]))
+        top = lr.topk(2)
+        gap = (top.values[0] - top.values[1]).item()
+        d = (lk - lr).abs().max().item()
+        a, b = (int(t) for t in top.indices)
+        log(f"  first greedy divergence: request {r.uid}, generated token "
+            f"{j} ({where}): ref picks {q.generated[j]}, kernel picks "
+            f"{r.generated[j]}; ref top-2 {a}/{b} gap {gap:.4e}, kernel "
+            f"there {lk[a].item():.4f}/{lk[b].item():.4f} vs ref "
+            f"{lr[a].item():.4f}/{lr[b].item():.4f}; the step's max|d logit| "
+            f"{d:.4e}")
+        assert int(lk.argmax()) == r.generated[j], (r.uid, j)
+        assert int(lr.argmax()) == q.generated[j], (r.uid, j)
+        assert gap <= 2 * d, (r.uid, j, gap, d)
+    return agree, total
+
+
+def phase_serve(torch, KA, KF):
+    from repro_torch.configs import get_config
+    from repro_torch.core import xpeft as XP
+    from repro_torch.core.profiles import ProfileStore
+    from repro_torch.models import init_lm
+    from repro_torch.models import model as MDL
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("qwen1.5-0.5b")
+    xp = cfg.xpeft
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for k, v in params.items()
+                   if k not in ("blocks", "final_norm", "xpeft_bank"))
+    n_params += sum(v.numel() for sub in params["blocks"].values()
+                    for v in sub.values())
+    n_bank = sum(v.numel() for v in params["xpeft_bank"].values())
+    log(f"serve: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+        f"H={cfg.num_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"V={cfg.vocab_size} {cfg.dtype}; bank N={xp.num_adapters} "
+        f"b={xp.bottleneck} k={xp.k}; {n_params / 1e6:.1f}M params + "
+        f"{n_bank / 1e6:.1f}M bank values, init "
+        f"{time.perf_counter() - t0:.2f}s")
+    store = ProfileStore(cfg.num_layers, xp.num_adapters, xp.bottleneck,
+                         xp.mask_type, xp.k)
+    table = XP.init_profile_table(cfg.with_xpeft(max_profiles=4), seed=0)
+    for pid in range(4):
+        store.add_profile(pid, {k: v[pid] for k, v in table.items()})
+
+    def serve(run_cfg, reqs):
+        eng = ServeEngine(run_cfg, params, store, max_slots=4, max_seq=128,
+                          sync_every=8)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps = eng.run_until_drained(list(reqs))
+        torch.cuda.synchronize()
+        return eng, steps, time.perf_counter() - t
+
+    serve(cfg, make_requests(Request, cfg.vocab_size, n=4, max_new=4))
+    torch.cuda.reset_peak_memory_stats()
+
+    reqs = make_requests(Request, cfg.vocab_size)
+    KA.mask_aggregate_batched.launches = 0
+    KF.fused_adapter_batched.launches = 0
+    eng, steps, dt = serve(cfg, reqs)
+    launches = {"mask_aggregate_batched": KA.mask_aggregate_batched.launches,
+                "fused_adapter_batched": KF.fused_adapter_batched.launches}
+    toks = sum(len(r.generated) for r in reqs)
+    st = eng.serve_stats()
+    log(f"serve (kernels): {len(reqs)} requests / {toks} tokens in {steps} "
+        f"engine steps, {dt:.3f}s = {toks / dt:.1f} tok/s; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  stats: host_syncs {st['host_syncs']}, device_steps "
+        f"{st['device_steps']}, decode_tokens {st['decode_tokens']}, "
+        f"prefill_batches {st['prefill_batches']}, prefill_occupancy "
+        f"{st['prefill_occupancy']}, cache hit rate "
+        f"{st['profile_cache']['hit_rate']}, syncs/token "
+        f"{st['syncs_per_token']}")
+    assert all(r.done and len(r.generated) == 16 for r in reqs)
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+    assert launches["mask_aggregate_batched"] > 0, launches
+    assert launches["fused_adapter_batched"] > 0, launches
+
+    ref_cfg = cfg.with_xpeft(kernel_impl="ref")
+    ref_reqs = make_requests(Request, cfg.vocab_size)
+    KA.mask_aggregate_batched.launches = 0
+    KF.fused_adapter_batched.launches = 0
+    ref_eng, _, ref_dt = serve(ref_cfg, ref_reqs)
+    assert KA.mask_aggregate_batched.launches == 0
+    assert KF.fused_adapter_batched.launches == 0
+    ref_toks = sum(len(r.generated) for r in ref_reqs)
+    log(f"serve (kernel_impl=ref): {ref_toks} tokens, {ref_dt:.3f}s = "
+        f"{ref_toks / ref_dt:.1f} tok/s")
+
+    bitwise = True
+    for pid in range(4):
+        a, b = eng.profile_cache.peek(pid), ref_eng.profile_cache.peek(pid)
+        for key in a:
+            bitwise &= torch.equal(a[key], b[key])
+            gap = (a[key].float() - b[key].float()).abs()
+            assert (gap <= 2.0 ** -7 * b[key].float().abs() + 1e-6).all()
+    log(f"  kernel vs ref: admission aggregates bitwise {bitwise}")
+    pre = [prefill_logits(torch, e, rs) for e, rs in
+           ((eng, reqs), (ref_eng, ref_reqs))]
+    assert torch.isfinite(pre[0]).all()
+    assert pre[0].shape == (8, cfg.vocab_size)
+    e2e_check("prefill logits", *pre,
+              prefill_logits(torch, ref_eng, ref_reqs, bare=True))
+    forced = {q.uid: q.generated for q in ref_reqs}
+    dec = [forced_decode(torch, MDL, ServeEngine, Request, c, params, store,
+                         reqs, forced, bare=bare)
+           for c, bare in ((cfg, False), (ref_cfg, False), (ref_cfg, True))]
+    assert torch.isfinite(dec[0]).all()
+    assert dec[0].shape == (8, 15, cfg.vocab_size)
+    ref_tokens = torch.tensor([q.generated[1:] for q in ref_reqs],
+                              device=dec[1].device)
+    replay = (dec[1].argmax(-1) == ref_tokens).sum().item()
+    log(f"  teacher-forced ref decode reproduces {replay}/"
+        f"{ref_tokens.numel()} of the ref run's decode tokens")
+    e2e_check("decode-step logits, teacher-forced (8 requests x 15 steps)",
+              *dec)
+    agree, total = explain_divergence(torch, reqs, ref_reqs, pre, dec[:2])
+    log(f"  greedy tokens agree {agree / total:.3f} ({agree}/{total})")
+    step = profile_decode(torch, ServeEngine, Request, cfg, params, store)
+    return launches, dict(tok_s=toks / dt, **step)
+
+
+def profile_decode(torch, ServeEngine, Request, cfg, params, store):
+    """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
+    the host clock without the profiler, then 8 steps under torch.profiler
+    for the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
+                      sync_every=8)
+    eng.submit(make_requests(Request, cfg.vocab_size, n=4))
+    eng.admit_many(eng.scheduler.next_batch(4))
+    for _ in range(3):
+        eng.step()
+    eng.sync()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    eng.sync()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / 4 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in rows) / 1e3 / 8
+    n_kernels = sum(e.count for e in rows) / 8
+    log(f"decode step (B=4, T=1): host wall {wall:.3f} ms/step without the "
+        f"profiler; device {dev:.4f} ms/step in {n_kernels:.0f} kernels -> "
+        f"device busy share {dev / wall:.4f}; top kernels by device time:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / 8:.4f} ms/step "
+            f"{e.count / 8:5.0f} launches/step  {e.key[:72]}")
+    return dict(decode_wall_ms=wall, decode_device_ms=dev,
+                decode_kernels=n_kernels)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_adapter_batched as KF
+    from repro_torch.kernels import mask_aggregate as KA
+    from repro_torch.kernels import ref
+
+    # 1. device
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda} | capability "
+        f"{torch.cuda.get_device_capability(0)}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    so = _build.build(verbose=True)
+    _build.load_library()
+    log(f"build: {so.name} in {time.perf_counter() - t0:.2f}s")
+
+    # 3. kernels
+    agg = phase_mask_aggregate(torch, KA, ref, F)
+    fa = phase_fused_adapter(torch, KF, ref)
+
+    # 4. serve
+    launches, serve = phase_serve(torch, KA, KF)
+
+    kernels = []
+    for name, rows, src, tpu in (
+            ("mask_aggregate_batched", agg,
+             "src/repro_torch/csrc/mask_aggregate.cu",
+             "src/repro/kernels/mask_aggregate.py:74"),
+            ("fused_adapter_batched", fa,
+             "src/repro_torch/csrc/fused_adapter.cu",
+             "src/repro/kernels/fused_adapter_batched.py:65")):
+        main_row = rows[0]  # A_hat aggregation / the T=1 decode shape
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": tpu, "launches": launches[name]}
+        entry.update({k: main_row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
+        entry["shape"] = main_row["shape"]
+        entry["other_shapes"] = rows[1:]
+        kernels.append(entry)
+    log(json.dumps({"kernels": kernels, "serve": serve}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

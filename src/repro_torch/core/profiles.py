@@ -1,0 +1,137 @@
+"""ProfileStore: byte-level persistence of per-profile X-PEFT state.
+
+Host-side (numpy) records, byte-equal to ``repro.core.profiles``'s for the
+same mask logits: hard masks bit-packed, LN affines fp16, a per-field
+crc32 sidecar verified at every hydration. Serving hydrates through the
+vectorized public API (``batch_sparse_indices``, ``ln_affines``).
+
+Ported here: hard-mask records, integrity checks, change notifications.
+Soft-mask records, ``save``/``load``, ``merge_from`` and the quantized
+aggregated records wait for ROADMAP queue 1, items 3 and 6.
+"""
+from __future__ import annotations
+
+import weakref
+from typing import Dict, Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.core import masks as M
+from repro_torch.resilience.integrity import RecordIntegrityError, \
+    array_crc, record_crc
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.array(a)
+
+
+class ProfileStore:
+    def __init__(self, num_layers: int, num_adapters: int, bottleneck: int,
+                 mask_type: str = "hard", k: int = 50):
+        if mask_type != "hard":
+            raise NotImplementedError("soft-mask records are not ported "
+                                      "(ROADMAP queue 1, item 3)")
+        self.L = num_layers
+        self.N = num_adapters
+        self.b = bottleneck
+        self.mask_type = mask_type
+        self.k = k
+        self._rec: Dict[int, dict] = {}
+        # integrity sidecar, parallel to _rec and never inside it
+        self._crc: Dict[int, Dict[str, int]] = {}
+        self._quarantined: Dict[int, str] = {}
+        self.corrupt_detected = 0
+        self._listeners: list = []
+
+    # -------------------------------------------------------- invalidation
+    def subscribe(self, fn) -> None:
+        """Register ``fn(pid)``, called whenever a record is added or
+        replaced. Bound methods are held weakly (a store outlives the
+        engines serving from it); plain functions strongly."""
+        if hasattr(fn, "__self__"):
+            self._listeners.append(weakref.WeakMethod(fn))
+        else:
+            self._listeners.append(lambda _fn=fn: _fn)
+
+    def _notify(self, pid: int) -> None:
+        live = []
+        for ref in self._listeners:
+            fn = ref()
+            if fn is not None:
+                fn(pid)
+                live.append(ref)
+        self._listeners = live
+
+    # ------------------------------------------------------------------ add
+    def add_profile(self, pid: int, profile_params: dict) -> None:
+        """Freeze a profile (mask logits mA/mB [L, N] + LN affines [L, b],
+        tensors or arrays) into its byte-level record."""
+        rec = {
+            "ln_scale": _host(profile_params["ln_scale"]).astype(np.float16),
+            "ln_bias": _host(profile_params["ln_bias"]).astype(np.float16),
+            "mA": M.pack_mask(M.binarize(
+                torch.as_tensor(_host(profile_params["mA"])), self.k)),
+            "mB": M.pack_mask(M.binarize(
+                torch.as_tensor(_host(profile_params["mB"])), self.k)),
+        }
+        if "head_w" in profile_params:
+            rec["head_w"] = _host(profile_params["head_w"]).astype(np.float16)
+            rec["head_b"] = _host(profile_params["head_b"]).astype(np.float16)
+        self._rec[int(pid)] = rec
+        self._crc[int(pid)] = record_crc(rec)
+        self._quarantined.pop(int(pid), None)
+        self._notify(int(pid))
+
+    # ------------------------------------------------------------- integrity
+    def check_record(self, pid: int) -> None:
+        """Verify one record against its checksums; a mismatch quarantines
+        the record (never served until re-added) and raises
+        ``RecordIntegrityError``."""
+        pid = int(pid)
+        if pid in self._quarantined:
+            raise RecordIntegrityError(pid, (), self._quarantined[pid])
+        rec = self._rec[pid]
+        want = self._crc[pid]
+        bad = [k for k in sorted(set(rec) | set(want))
+               if k not in rec or k not in want
+               or array_crc(np.asarray(rec[k])) != want[k]]
+        if not bad:
+            return
+        self.corrupt_detected += 1
+        self._quarantined[pid] = f"checksum mismatch ({', '.join(bad)})"
+        self._notify(pid)
+        raise RecordIntegrityError(pid, bad)
+
+    # ---------------------------------------------------------------- fetch
+    def sparse_indices(self, pid: int):
+        """([L, k] int32 idx, [L, k] fp32 w) x2 for sparse aggregation."""
+        self.check_record(pid)
+        rec = self._rec[int(pid)]
+        ia = M.mask_indices(M.unpack_mask(rec["mA"], self.N), self.k)
+        ib = M.mask_indices(M.unpack_mask(rec["mB"], self.N), self.k)
+        w = torch.full(tuple(ia.shape), 1.0 / self.k, dtype=torch.float32)
+        return ia, w, ib, w
+
+    def batch_sparse_indices(self, pids: Iterable[int]):
+        """Stacked ([R, L, k] idx, [R, L, k] w) x2 (host tensors)."""
+        parts = [self.sparse_indices(pid) for pid in pids]
+        return tuple(torch.stack([p[i] for p in parts]) for i in range(4))
+
+    def ln_affines(self, pids: Iterable[int]):
+        """Stacked adapter-LN affines ([R, L, b] scale, [R, L, b] bias) as
+        float32 host tensors."""
+        pids = list(pids)
+        for pid in pids:
+            self.check_record(pid)
+        scales = np.stack([self._rec[int(pid)]["ln_scale"] for pid in pids])
+        biases = np.stack([self._rec[int(pid)]["ln_bias"] for pid in pids])
+        return (torch.from_numpy(scales.astype(np.float32)),
+                torch.from_numpy(biases.astype(np.float32)))
+
+    # ------------------------------------------------------------- accounting
+    def bytes_per_profile(self, include_ln: bool = False) -> int:
+        core = M.bytes_per_profile(self.N, self.L, self.mask_type)
+        if include_ln:
+            core += 2 * self.b * self.L * 2  # fp16 LN affine
+        return core

@@ -1,0 +1,99 @@
+"""CUDA kernel wrapper: batched fused bottleneck adapter.
+
+Replaces the Pallas TPU kernel
+``src/repro/kernels/fused_adapter_batched.py:65``
+(``fused_adapter_batched``): ``y = x + act(LN(x·Â))·B̂`` per batch row,
+with per-row or shared Â/B̂/LN. The kernel (``csrc/fused_adapter.cu``) is
+bound by bytes on the H100: at decode (T=1) it is a GEMV pair per slot
+that must read the slot's 2·d·b Â/B̂ values; at prefill a small grouped
+GEMM. Its design keeps the [T, b] intermediate in shared memory and takes
+``kernels/ref.py``'s numerics (fp32 inside, one rounding to x's dtype);
+the source says where the Pallas body rounds differently and why.
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
+it launches the kernel or raises. ``fused_adapter_batched.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import load_library
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ACTS = {"identity": 0, "gelu": 1}
+MAX_B = 256
+
+
+def _row_stride(t, inner, name):
+    """Batch stride (elements) of a per-row [B, *inner] operand, or 0 for a
+    shared [*inner] one; the inner dims must be dense (row slices of a
+    larger buffer, e.g. one layer of [B, L, d, b], are fine)."""
+    if t.ndim not in (len(inner), len(inner) + 1) \
+            or tuple(t.shape[-len(inner):]) != tuple(inner):
+        raise ValueError(f"{name} must end in {inner}, got {tuple(t.shape)}")
+    expect = 1
+    for dim in range(t.ndim - 1, t.ndim - 1 - len(inner), -1):
+        if t.shape[dim] > 1 and t.stride(dim) != expect:
+            raise ValueError(f"{name} inner dims must be contiguous")
+        expect *= t.shape[dim]
+    return t.stride(0) if t.ndim == len(inner) + 1 else 0
+
+
+def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
+                          activation: str = "gelu", use_ln: bool = True):
+    """x [B, T, d]; a_hat [B, d, b] or [d, b]; b_hat [B, b, d] or [b, d]
+    (x, a_hat and b_hat in one dtype, bf16 or fp32); ln_* [B, b] or [b]
+    fp32 -> [B, T, d] in x's dtype."""
+    if x.device.type == "cpu":
+        return ref.fused_adapter_batched_ref(
+            x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
+            use_ln=use_ln)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [B, T, d], got "
+                         f"{tuple(x.shape)}")
+    B, T, d = x.shape
+    nb = a_hat.shape[-1]
+    if activation not in _ACTS:
+        raise ValueError(f"activation {activation!r} not in {list(_ACTS)}")
+    if x.dtype not in _DTYPES or not x.dtype == a_hat.dtype == b_hat.dtype:
+        raise TypeError(f"x/a_hat/b_hat dtypes {x.dtype}/{a_hat.dtype}/"
+                        f"{b_hat.dtype}: all three must be one of bfloat16 "
+                        "or float32")
+    if ln_scale.dtype != torch.float32 or ln_bias.dtype != torch.float32:
+        raise TypeError("LN affines must be float32")
+    if not 1 <= nb <= MAX_B:
+        raise ValueError(f"bottleneck {nb} outside [1, {MAX_B}]")
+    for name, t in (("a_hat", a_hat), ("b_hat", b_hat),
+                    ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    a_bs = _row_stride(a_hat, (d, nb), "a_hat")
+    b_bs = _row_stride(b_hat, (nb, d), "b_hat")
+    ln_bs = _row_stride(ln_scale, (nb,), "ln_scale")
+    if _row_stride(ln_bias, (nb,), "ln_bias") != ln_bs:
+        raise ValueError("ln_scale and ln_bias must share one layout")
+    for name, t, bs in (("a_hat", a_hat, a_bs), ("b_hat", b_hat, b_bs),
+                        ("ln_scale", ln_scale, ln_bs)):
+        if bs and t.shape[0] != B:
+            raise ValueError(f"{name} has {t.shape[0]} rows for batch {B}")
+    out = torch.empty_like(x)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xpeft_fused_adapter_batched(
+            x.data_ptr(), a_hat.data_ptr(), b_hat.data_ptr(),
+            ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
+            B, T, d, nb, a_bs, b_bs, ln_bs, _DTYPES[x.dtype], int(use_ln),
+            _ACTS[activation], stream)
+    if err:
+        raise RuntimeError(f"fused_adapter_batched launch failed: CUDA "
+                           f"error {err}")
+    fused_adapter_batched.launches += 1
+    return out
+
+
+fused_adapter_batched.launches = 0

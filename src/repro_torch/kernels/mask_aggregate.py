@@ -1,0 +1,79 @@
+"""CUDA kernel wrapper: batched k-sparse adapter-bank aggregation.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/mask_aggregate.py:74``
+(``mask_aggregate_batched``). The kernel (``csrc/mask_aggregate.cu``) is
+bound by bytes on the H100: it reads the k selected bank rows of every
+output row once and writes the fp32 output once, for about half a flop
+per byte. Its design — one block row per output row, the block's own
+indices in shared memory in place of the TPU's scalar prefetch, 16-byte
+loads along the row, fp32 accumulation in k order — is described in the
+source.
+
+On a CPU tensor the wrapper computes the plain version
+(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
+``mask_aggregate_batched.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import load_library
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_K = 1024
+
+
+def _check(bank, idx, w):
+    if bank.ndim != 3:
+        raise ValueError(f"bank must be [N, d, b], got {tuple(bank.shape)}")
+    if idx.ndim != 2 or tuple(w.shape) != tuple(idx.shape):
+        raise ValueError(f"idx/w must both be [P, k], got "
+                         f"{tuple(idx.shape)} / {tuple(w.shape)}")
+    if bank.dtype not in _DTYPES:
+        raise TypeError(f"bank dtype {bank.dtype} not in {list(_DTYPES)}")
+    if idx.dtype != torch.int32 or w.dtype != torch.float32:
+        raise TypeError(f"idx must be int32 and w float32, got "
+                        f"{idx.dtype} / {w.dtype}")
+    for name, t in (("bank", bank), ("idx", idx), ("w", w)):
+        if t.device != bank.device:
+            raise ValueError(f"{name} on {t.device}, bank on {bank.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if idx.shape[0] < 1 or idx.shape[1] > MAX_K:
+        raise ValueError(f"need 1 <= P and k <= {MAX_K}, got "
+                         f"{tuple(idx.shape)}")
+    vec = 16 // bank.element_size()
+    if (bank.shape[1] * bank.shape[2]) % vec or bank.data_ptr() % 16:
+        raise ValueError(f"bank rows must be whole 16-byte vectors ({vec} "
+                         f"values) from a 16-byte aligned base, got "
+                         f"{tuple(bank.shape[1:])} at {bank.data_ptr():#x}")
+
+
+def mask_aggregate_batched(bank, idx, w):
+    """bank [N, d, b] (bf16/fp32), idx [P, k] int32, w [P, k] fp32 ->
+    [P, d, b] fp32: out[p] = Σ_j w[p, j] · bank[idx[p, j]]."""
+    if bank.device.type == "cpu":
+        return ref.mask_aggregate_batched_ref(bank, idx, w)
+    if bank.device.type != "cuda":
+        raise ValueError(f"no kernel for device {bank.device}")
+    _check(bank, idx, w)
+    N = bank.shape[0]
+    row = bank.shape[1] * bank.shape[2]
+    P, k = idx.shape
+    out = torch.empty((P,) + tuple(bank.shape[1:]), dtype=torch.float32,
+                      device=bank.device)
+    lib = load_library()
+    with torch.cuda.device(bank.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xpeft_mask_aggregate_batched(
+            bank.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            row, P, k, N, _DTYPES[bank.dtype], stream)
+    if err:
+        raise RuntimeError(f"mask_aggregate_batched launch failed: CUDA "
+                           f"error {err}")
+    mask_aggregate_batched.launches += 1
+    return out
+
+
+mask_aggregate_batched.launches = 0

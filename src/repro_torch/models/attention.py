@@ -1,0 +1,142 @@
+"""Attention: MHA/GQA with RoPE and a KV cache (the dense path).
+
+The counterpart of ``repro.models.attention.attention`` for full causal
+attention: the cacheless self-attention, the cache write at a scalar
+``cache_pos`` and at a per-slot vector ``cache_pos``, and the dense
+softmax over the whole ``[T, S]`` logits. The chunked online-softmax path
+the JAX package takes for T > 512 (``_sdpa_chunked``) computes the same
+function and is left for a later slice (ROADMAP queue 1, item 2), as are
+``extra_kv`` / ``front_skip`` (heterogeneous prefix rows) and sliding
+windows.
+
+Unlike the functional JAX cache, the port writes the cache IN PLACE (one
+KV cache per engine instead of a fresh copy per layer-step) and returns
+the same dict.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import apply_rope, dense_init, softcap
+
+NEG_INF = -2.0e38
+
+
+def init_attention(cfg, dtype, *, generator: torch.Generator, device) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(generator=generator, device=device)
+    p = {
+        "wq": dense_init((d, H, hd), d, dtype, **kw),
+        "wk": dense_init((d, KV, hd), d, dtype, **kw),
+        "wv": dense_init((d, KV, hd), d, dtype, **kw),
+        "wo": dense_init((H, hd, d), H * hd, dtype, **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), dtype=torch.float32, device=device)
+        p["bk"] = torch.zeros((KV, hd), dtype=torch.float32, device=device)
+        p["bv"] = torch.zeros((KV, hd), dtype=torch.float32, device=device)
+    return p
+
+
+def _mask(q_pos, k_pos, *, causal, kv_valid):
+    """q_pos [B,Tq], k_pos [S], kv_valid [B] -> bool [B,Tq,S]."""
+    qp = q_pos[:, :, None]
+    kp = k_pos[None, None, :]
+    m = kp < kv_valid.reshape(-1, 1, 1)
+    if causal:
+        m = m & (kp <= qp)
+    return m
+
+
+def _sdpa_dense(q, k, v, mask, scale, cap):
+    """q [B,KV,G,Tq,hd], k/v [B,KV,S,hd], mask [B,Tq,S].
+
+    Logits accumulate in fp32 (JAX's ``preferred_element_type``): the
+    inputs are upcast first, so bf16 products are exact in fp32."""
+    logits = torch.einsum("bkgth,bksh->bkgts", q.float(), k.float()) * scale
+    logits = softcap(logits, cap)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(NEG_INF, dtype=torch.float32,
+                                      device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bkgts,bksh->bkgth", w.to(v.dtype), v)
+
+
+def _write_cache(buf, new, cache_pos):
+    """Write ``new [B,T,KV,hd]`` into ``buf [B,S,KV,hd]`` in place.
+
+    Scalar ``cache_pos``: one slice, its start clamped so the slice fits
+    (``lax.dynamic_update_slice`` semantics). Vector ``cache_pos [B]``:
+    each slot writes at its own offset and positions past S are dropped
+    (JAX's ``mode="drop"``) without a host sync: a dropped position is
+    sent to ``pos % S`` carrying that row's current contents, which T <= S
+    keeps clear of every position this call really writes."""
+    B, T = new.shape[:2]
+    S = buf.shape[1]
+    new = new.to(buf.dtype)
+    if not torch.is_tensor(cache_pos) or cache_pos.ndim == 0:
+        start = min(max(int(cache_pos), 0), S - T)
+        buf[:, start:start + T] = new
+        return
+    pos = cache_pos[:, None].long() + torch.arange(T, device=buf.device)
+    valid = (pos < S)[:, :, None, None]
+    tgt = pos % S
+    rows = torch.arange(B, device=buf.device)[:, None]
+    buf[rows, tgt] = torch.where(valid, new, buf[rows, tgt])
+
+
+def attention(params, x, *, positions, cfg, cache=None, cache_pos=None):
+    """x [B,T,d] -> (y [B,T,d], cache).
+
+    cache: {"k","v": [B, S, KV, hd]}, written in place at ``cache_pos``
+    (scalar, or [B] per-slot offsets); the keys are then read back through
+    the cache dtype and ``kv_valid = cache_pos + T`` bounds what each row
+    attends. Without a cache, keys = queries (self-attention)."""
+    if cfg.attn_type != "full":
+        raise NotImplementedError(
+            f"attn_type {cfg.attn_type!r}: only full attention is ported "
+            "(ROADMAP queue 1, item 2)")
+    B, T, d = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // KV
+
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    if cfg.pos == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        _write_cache(cache["k"], k, cache_pos)
+        _write_cache(cache["v"], v, cache_pos)
+        keys, vals = cache["k"].to(k.dtype), cache["v"].to(v.dtype)
+        S = keys.shape[1]
+        if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:
+            kv_valid = cache_pos.to(torch.int64) + T
+        else:
+            kv_valid = torch.full((B,), int(cache_pos) + T,
+                                  dtype=torch.int64, device=x.device)
+    else:
+        keys, vals = k, v
+        S = T
+        kv_valid = torch.full((B,), T, dtype=torch.int64, device=x.device)
+    k_pos = torch.arange(S, device=x.device)
+
+    keys = keys.permute(0, 2, 1, 3)                    # [B, KV, S, hd]
+    vals = vals.permute(0, 2, 1, 3)
+    qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)  # [B,KV,G,T,hd]
+
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid)
+    out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
+
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return y, cache
+

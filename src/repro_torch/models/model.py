@@ -1,0 +1,186 @@
+"""The LM: a loop over stacked transformer layers with X-PEFT adapter hooks.
+
+The port of ``repro.models.model`` for ``block_pattern="attn"``, non-MoE,
+full attention. Params are plain dicts of tensors in the JAX package's
+layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
+becomes a Python loop over that axis. Every other block pattern, MoE,
+sliding windows, the decode megakernel and the mask routes other than the
+admission-time aggregated ``a_hat`` one raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.adapters import init_adapter_bank
+from repro_torch.kernels import ops
+from repro_torch.models import attention as ATT
+from repro_torch.models import mlp as MLP
+from repro_torch.models.common import dense_init, init_norm, norm_apply, \
+    softcap
+from repro_torch.utils import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise NotImplementedError(f"dtype {name!r} is not ported "
+                                  "(ROADMAP queue 1, item 2)")
+    return _DTYPES[name]
+
+
+def check_supported(cfg) -> None:
+    """Raise for configurations outside the ported slice."""
+    if cfg.block_pattern != "attn":
+        raise NotImplementedError(
+            f"block_pattern {cfg.block_pattern!r} is not ported (ROADMAP "
+            "queue 1, item 10)")
+    if cfg.moe:
+        raise NotImplementedError("MoE blocks are not ported (ROADMAP "
+                                  "queue 1, item 10)")
+    if cfg.attn_type != "full":
+        raise NotImplementedError(
+            f"attn_type {cfg.attn_type!r} is not ported (ROADMAP queue 1, "
+            "item 2)")
+    if cfg.decode_fused:
+        raise NotImplementedError("the decode megakernel route is not "
+                                  "ported (ROADMAP queue 1, item 5)")
+    if cfg.frontend != "none" or cfg.pos == "learned" or cfg.embed_scale:
+        raise NotImplementedError(
+            "frontends, learned positions and embedding scaling are not "
+            "ported (ROADMAP queue 1, item 2)")
+    if cfg.xpeft.enabled and cfg.xpeft.is_hetero:
+        raise NotImplementedError("heterogeneous banks are not ported "
+                                  "(ROADMAP queue 1, item 7)")
+
+
+# ----------------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------------
+
+def _init_block(cfg, dtype, gen, device) -> dict:
+    return {
+        "attn": ATT.init_attention(cfg, dtype, generator=gen, device=device),
+        "n1": init_norm(cfg.norm, cfg.d_model, device=device),
+        "n2": init_norm(cfg.norm, cfg.d_model, device=device),
+        "mlp": MLP.init_mlp(cfg, dtype, generator=gen, device=device),
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
+    """Random weights drawn on ``device`` (the card unless ``"cpu"``) from
+    one ``torch.Generator`` seeded with ``seed``; same tree and layouts as
+    ``repro.models.init_lm``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=gen, device=device)
+    params = {
+        "embed": dense_init((cfg.vocab_size, cfg.d_model), cfg.d_model,
+                            dtype, **kw),
+        "blocks": _stack([_init_block(cfg, dtype, gen, device)
+                          for _ in range(cfg.num_layers)]),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
+                                       cfg.d_model, dtype, **kw)
+    if cfg.xpeft.enabled:
+        params["xpeft_bank"] = init_adapter_bank(
+            cfg.num_layers, cfg.xpeft.num_adapters, cfg.d_model,
+            cfg.xpeft.bottleneck, dtype, **kw)
+    return params
+
+
+# ----------------------------------------------------------------------------
+# KV cache
+# ----------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
+    check_supported(cfg)
+    dtype = dtype or torch_dtype(cfg.cache_dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ----------------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------------
+
+def _xpeft_apply(x, masks_l, cfg):
+    if masks_l is None or not cfg.xpeft.enabled:
+        return x
+    if "a_hat" not in masks_l or any(
+            key in masks_l for key in ("a_q", "lora_a", "ia3_s", "w_a")):
+        raise NotImplementedError(
+            f"mask route with keys {sorted(masks_l)}: only the admission-"
+            "time aggregated a_hat route is ported (dense/sparse masks: "
+            "ROADMAP queue 1, item 2; quantized: item 6; hetero: item 7)")
+    return ops.fused_adapter(x, masks_l["a_hat"], masks_l["b_hat"],
+                             masks_l["ln_scale"], masks_l["ln_bias"],
+                             activation=cfg.xpeft.adapter_activation,
+                             impl=cfg.xpeft.kernel_impl)
+
+
+def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos):
+    h = norm_apply(x, block["n1"], cfg.norm)
+    h, _ = ATT.attention(block["attn"], h, positions=positions, cfg=cfg,
+                         cache=cache_l, cache_pos=cache_pos)
+    x = x + h
+    h = norm_apply(x, block["n2"], cfg.norm)
+    return x + MLP.mlp_apply(block["mlp"], h, cfg)
+
+
+def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
+            cache_pos=0, positions=None):
+    """tokens [B,T] -> (hidden [B,T,d], cache, aux_loss).
+
+    profile_masks: {"a_hat" [B,L,d,b], "b_hat" [B,L,b,d], "ln_scale",
+    "ln_bias" [B,L,b]} (admission-time aggregated adapters), or None.
+    cache: from ``init_cache``, written IN PLACE at ``cache_pos`` (a
+    scalar, or [B] per-slot offsets) and returned; None runs uncached."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    x = params["embed"][tokens.long()]
+    if positions is None:
+        if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:
+            positions = cache_pos[:, None] + torch.arange(
+                T, dtype=torch.int32, device=x.device)
+        else:
+            positions = (int(cache_pos) + torch.arange(
+                T, dtype=torch.int32, device=x.device))[None].expand(B, T)
+    blocks = params["blocks"]
+    for l in range(cfg.num_layers):
+        block = {name: {k: v[l] for k, v in sub.items()}
+                 for name, sub in blocks.items()}
+        cache_l = None if cache is None else \
+            {"k": cache["k"][l], "v": cache["v"][l]}
+        x = _attn_block_apply(block, x, cfg, positions=positions,
+                              cache_l=cache_l, cache_pos=cache_pos)
+        masks_l = None if profile_masks is None else \
+            {k: v[:, l] for k, v in profile_masks.items()}
+        x = _xpeft_apply(x, masks_l, cfg)
+    x = norm_apply(x, params["final_norm"], cfg.norm)
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ----------------------------------------------------------------------------
+# Heads
+# ----------------------------------------------------------------------------
+
+def lm_logits(params, hidden, cfg):
+    if cfg.tie_embeddings:
+        logits = hidden @ params["embed"].T
+    else:
+        logits = hidden @ params["lm_head"]
+    return softcap(logits.float(), cfg.logit_softcap)

@@ -1,0 +1,346 @@
+"""Serving engine orchestrator: scheduler + slot state + profile cache.
+
+The port of ``repro.serve.engine.ServeEngine`` in windowed mode with
+admission-time aggregation (``continuous=False``, ``precompute=True``),
+hard-mask profiles and an unquantized, type-pure bank. Admission of a wave:
+
+1. hydrate: per-request profile-cache lookup; only MISSING profiles are
+   aggregated against the bank — k-sparse, the top-k rows only — in ONE
+   batched call padded to a pow2 profile count (pad rows carry idx 0 and
+   w 0 and come out as zeros); results are cached and the wave's rows
+   gathered;
+2. ONE scatter of the stacked rows into the per-slot mask buffers;
+3. batched bucketed prefill: every same-length-bucket group goes through
+   ONE prefill call (stacked [B, pad] batch, per-request last-token argmax
+   on the device), then one batched KV-cache insert per group.
+
+Decode then advances every slot one token per ``step()``; the host syncs
+every ``sync_every`` steps, bounded by the tokens any live request can
+still emit. Constructor options outside this slice raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import xpeft as XP
+from repro_torch.core.profiles import ProfileStore
+from repro_torch.models import model as MDL
+from repro_torch.serve.profile_cache import ProfileCache
+from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.slots import SlotState
+from repro_torch.serve.steps import greedy_next
+from repro_torch.utils import pow2_count
+
+ENTRY_KEYS = ("a_hat", "b_hat", "ln_scale", "ln_bias")
+
+
+def _rate(num, den, nd: int = 4) -> float:
+    """Rate field for serve_stats(): 0.0 when the denominator never
+    ticked."""
+    return round(num / den, nd) if den else 0.0
+
+
+def _check_slice(cfg, store, *, precompute, continuous, mesh, fault_plan,
+                 obs) -> None:
+    MDL.check_supported(cfg)
+    if continuous:
+        raise NotImplementedError("continuous batching is not ported "
+                                  "(ROADMAP queue 1, item 5)")
+    if not precompute or not cfg.xpeft.enabled:
+        raise NotImplementedError(
+            "per-step mask serving (precompute=False) and X-PEFT-disabled "
+            "serving are not ported (ROADMAP queue 1, item 2)")
+    if cfg.xpeft.bank_quant != "none":
+        raise NotImplementedError("quantized banks are not ported "
+                                  "(ROADMAP queue 1, item 6)")
+    if cfg.spec_enable:
+        raise NotImplementedError("speculative decoding is not ported "
+                                  "(ROADMAP queue 1, item 5)")
+    if store.mask_type != "hard":
+        raise NotImplementedError("soft-mask serving is not ported "
+                                  "(ROADMAP queue 1, item 2)")
+    if mesh is not None:
+        raise NotImplementedError("multi-device serving is not ported "
+                                  "(ROADMAP queue 1, item 11)")
+    if fault_plan is not None or obs is not None:
+        raise NotImplementedError("fault plans and observability are not "
+                                  "ported (ROADMAP queue 1, item 9)")
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, store: ProfileStore, *,
+                 max_slots: int = 4, max_seq: int = 256,
+                 precompute: bool = True, sync_every: int = 8,
+                 cache_bytes: Optional[int] = 64 << 20,
+                 continuous: bool = False, mesh=None, fault_plan=None,
+                 obs=None):
+        _check_slice(cfg, store, precompute=precompute,
+                     continuous=continuous, mesh=mesh,
+                     fault_plan=fault_plan, obs=obs)
+        self.cfg = cfg
+        self.store = store
+        self.params = params
+        self.device = params["embed"].device
+        self.S = max_seq
+        self.n_slots = max_slots
+        self.sync_every = sync_every
+        self.cache = MDL.init_cache(cfg, max_slots, max_seq,
+                                    device=self.device)
+        self.slot_req: List[Optional[Request]] = [None] * max_slots
+        self.scheduler = Scheduler(cfg.block_pattern, policy="fifo")
+        self.profile_cache = ProfileCache(cache_bytes)
+        # re-graduation hook: a re-added profile never serves a stale
+        # cached aggregate (the store holds this bound method weakly)
+        store.subscribe(self.invalidate_profile)
+        xp = cfg.xpeft
+        L, b, d = cfg.num_layers, xp.bottleneck, cfg.d_model
+        dt = MDL.torch_dtype(cfg.dtype)
+        dev = self.device
+        self.masks = {
+            "a_hat": torch.zeros((max_slots, L, d, b), dtype=dt, device=dev),
+            "b_hat": torch.zeros((max_slots, L, b, d), dtype=dt, device=dev),
+            "ln_scale": torch.ones((max_slots, L, b), dtype=torch.float32,
+                                   device=dev),
+            "ln_bias": torch.zeros((max_slots, L, b), dtype=torch.float32,
+                                   device=dev),
+        }
+
+        def decode_fn(params, cache, last_tok, lengths, masks, active):
+            hidden, cache, _ = MDL.forward(params, last_tok[:, None], cfg,
+                                           profile_masks=masks, cache=cache,
+                                           cache_pos=lengths)
+            return greedy_next(MDL.lm_logits(params, hidden, cfg)), cache
+
+        self.slots = SlotState(max_slots, max_seq, sync_every, decode_fn,
+                               device=dev)
+        self.decode_tokens = 0
+        self.prefill_batches = 0
+        self.prefill_rows = 0
+        self.prefill_real = 0
+        self._window = sync_every
+
+    # --------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill_logits(self, tokens, masks, lengths):
+        """Batched prefill of one length bucket: tokens [B, pad], per-row
+        aggregated masks [B, ...], lengths [B] -> (logits [B, V] at each
+        row's last prompt token, mini KV cache [L, B, S, ...])."""
+        B, P = tokens.shape
+        mini = MDL.init_cache(self.cfg, B, self.S, device=self.device)
+        hidden, mini, _ = MDL.forward(self.params, tokens, self.cfg,
+                                      profile_masks=masks, cache=mini,
+                                      cache_pos=0)
+        idx = torch.clamp(lengths.long() - 1, 0, P - 1)
+        last_h = hidden[torch.arange(B, device=hidden.device), idx][:, None]
+        return MDL.lm_logits(self.params, last_h, self.cfg)[:, -1], mini
+
+    def _insert(self, mini, slots) -> None:
+        """Copy the real rows of a prefill's mini cache into the slots
+        (batch is axis 1 of the stacked cache; padded rows are dropped)."""
+        B = slots.shape[0]
+        for key, big in self.cache.items():
+            big[:, slots] = mini[key][:, :B].to(big.dtype)
+
+    # ------------------------------------------------------------- hydration
+    @torch.no_grad()
+    def _hydrate_stacked(self, reqs: List[Request]) -> dict:
+        """Stacked [R, ...] aggregated mask rows for an admission wave:
+        profile-cache hits first; every missing profile aggregates
+        k-sparse against the bank in ONE call padded to a pow2 count."""
+        pids = [int(r.profile_id) for r in reqs]
+        entries = {}
+        missing: List[int] = []  # unique uncached pids, admission order
+        for pid in pids:
+            entry = self.profile_cache.get(pid)
+            if entry is not None:
+                entries[pid] = entry
+            elif pid not in missing:
+                missing.append(pid)
+        if missing:
+            M = len(missing)
+            Mp = pow2_count(M)
+            ia, wa, ib, wb = self.store.batch_sparse_indices(missing)
+            pad_i = torch.zeros((Mp - M,) + tuple(ia.shape[1:]),
+                                dtype=ia.dtype)
+            pad_w = torch.zeros((Mp - M,) + tuple(wa.shape[1:]),
+                                dtype=wa.dtype)
+            # one host->device transfer of the wave's indices and weights
+            dev = self.device
+            idx = torch.stack([torch.cat([ia, pad_i]),
+                               torch.cat([ib, pad_i])]).to(dev)
+            w = torch.stack([torch.cat([wa, pad_w]),
+                             torch.cat([wb, pad_w])]).to(dev)
+            a_hat, b_hat = XP.precompute_effective_adapters_sparse(
+                self.params["xpeft_bank"], idx[0], w[0], idx[1], w[1],
+                self.cfg.xpeft)
+            ln_s, ln_b = (t.to(dev) for t in self.store.ln_affines(missing))
+            for i, pid in enumerate(missing):
+                # own copies: a view would pin the whole padded batch and
+                # the cache's byte budget would undercount it
+                entry = {"a_hat": a_hat[i].clone(), "b_hat": b_hat[i].clone(),
+                         "ln_scale": ln_s[i].clone(),
+                         "ln_bias": ln_b[i].clone()}
+                self.profile_cache.put(pid, entry)
+                entries[pid] = entry
+        return {key: torch.stack([entries[pid][key] for pid in pids])
+                for key in ENTRY_KEYS}
+
+    # ---------------------------------------------------------------- public
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def active_count(self) -> int:
+        """Host-visible count of occupied slots (refreshed at syncs)."""
+        return sum(r is not None for r in self.slot_req)
+
+    @torch.no_grad()
+    def admit_many(self, reqs: List[Request]) -> int:
+        """Admit up to len(free_slots()) requests: one cache-aware batched
+        hydration, one mask scatter, one prefill per length bucket, one
+        slot-state scatter. Returns #admitted."""
+        if self.slots.buf_fill:
+            self.sync()  # flush the window before touching slot state
+        free = self.free_slots()
+        if len(reqs) > len(free):
+            self.scheduler.requeue_front(reqs[len(free):])
+            reqs = reqs[:len(free)]
+        if not reqs:
+            return 0
+        assigned = free[:len(reqs)]
+        stacked = self._hydrate_stacked(reqs)
+        # ONE scatter into the per-slot buffers for the whole wave
+        slot_t = torch.tensor(assigned, dtype=torch.long, device=self.device)
+        for key, buf in self.masks.items():
+            buf[slot_t] = stacked[key].to(buf.dtype)
+
+        slot_of = {id(r): s for r, s in zip(reqs, assigned)}
+        idx_of = {id(r): i for i, r in enumerate(reqs)}
+        groups = self.scheduler.group_by_bucket(reqs)
+        next_toks = {}
+        for pad, group in sorted(groups.items()):
+            B = len(group)
+            Bp = pow2_count(B)
+            toks = np.zeros((Bp, pad), np.int32)
+            lens = np.ones((Bp,), np.int32)  # pad rows prefill at length 1
+            for j, r in enumerate(group):
+                toks[j, :len(r.prompt)] = r.prompt
+                lens[j] = len(r.prompt)
+            sel = torch.tensor([idx_of[id(r)] for r in group]
+                               + [0] * (Bp - B), device=self.device)
+            rows = {key: t[sel] for key, t in stacked.items()}
+            logits, mini = self.prefill_logits(
+                torch.from_numpy(toks).to(self.device), rows,
+                torch.from_numpy(lens).to(self.device))
+            self._insert(mini, torch.tensor(
+                [slot_of[id(r)] for r in group], device=self.device))
+            nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
+            for j, r in enumerate(group):
+                next_toks[id(r)] = int(nxt_h[j])
+            self.prefill_batches += 1
+            self.prefill_rows += Bp
+            self.prefill_real += B
+
+        toks_all = [next_toks[id(r)] for r in reqs]
+        self.slots.admit(assigned, toks_all, [len(r.prompt) for r in reqs],
+                         [r.max_new_tokens for r in reqs])
+        for r, slot in zip(reqs, assigned):
+            r.generated.append(next_toks[id(r)])
+            if r.max_new_tokens <= 1 or len(r.prompt) >= self.S - 1:
+                r.done = True  # budget spent by the prefill token
+            else:
+                self.slot_req[slot] = r
+        self._refresh_window()
+        return len(reqs)
+
+    def step(self) -> int:
+        """One device decode step for all slots. Host state refreshes only
+        at the window's sync; returns the host-visible active count as of
+        the last sync (an upper bound on live slots)."""
+        active = self.active_count()
+        if not active:
+            return 0
+        self.cache = self.slots.step(self.params, self.cache, self.masks)
+        if self.slots.buf_fill >= self._window:
+            self.sync()
+        return active
+
+    def sync(self) -> int:
+        """Device→host sync: hand the window's tokens to their requests,
+        mark finished requests done and free their slots. Returns the
+        number of still-active slots."""
+        s = self.slots.sync()
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            c = int(s.counts[i])
+            if c:
+                toks = s.tokens[i, :c]
+                if (toks < 0).any():
+                    raise RuntimeError("non-contiguous slot activity")
+                req.generated.extend(int(t) for t in toks)
+                self.decode_tokens += c
+            if not s.active[i]:
+                req.done = True
+                self.slot_req[i] = None
+        self._refresh_window()
+        return self.active_count()
+
+    def _refresh_window(self) -> None:
+        # device capacity stop is lengths >= S-1 post-increment with
+        # lengths = prompt + generated - 1, so a slot can still emit
+        # S - prompt - generated tokens; the window is bounded by the MAX
+        # remaining, so slots never dead-step after everyone finished
+        remaining = [min(r.max_new_tokens - len(r.generated),
+                         self.S - len(r.prompt) - len(r.generated))
+                     for r in self.slot_req if r is not None]
+        bound = max(remaining) if remaining else self.sync_every
+        self._window = max(1, min(self.sync_every, bound))
+
+    def submit(self, reqs) -> None:
+        """Queue requests with the scheduler (admitted as slots free up)."""
+        self.scheduler.submit(reqs)
+
+    def invalidate_profile(self, pid: int) -> bool:
+        """Drop a profile's cached Â/B̂ (called by the store whenever the
+        profile's record is added or replaced)."""
+        return self.profile_cache.invalidate(pid)
+
+    def run_until_drained(self, queue: Optional[List[Request]] = None,
+                          max_steps: int = 10_000) -> int:
+        """Serve until the queue and all slots are empty. Admission happens
+        whenever the host view shows free slots (i.e. after syncs)."""
+        if queue:
+            self.scheduler.submit(list(queue))
+        steps = 0
+        while steps < max_steps:
+            free = self.free_slots()
+            if free and self.scheduler.pending():
+                self.admit_many(self.scheduler.next_batch(len(free)))
+            if not self.active_count():
+                if not self.scheduler.pending():
+                    break
+                continue
+            self.step()
+            steps += 1
+        if self.slots.buf_fill:
+            self.sync()
+        return steps
+
+    def serve_stats(self) -> dict:
+        """Counters the launcher prints (a subset of the JAX engine's)."""
+        return {
+            "host_syncs": self.slots.host_syncs,
+            "device_steps": self.slots.device_steps,
+            "decode_tokens": self.decode_tokens,
+            "syncs_per_token": _rate(self.slots.host_syncs,
+                                     self.decode_tokens),
+            "sync_every": self.sync_every,
+            "prefill_batches": self.prefill_batches,
+            "prefill_occupancy": _rate(self.prefill_real,
+                                       self.prefill_rows),
+            "profile_cache": self.profile_cache.stats(),
+        }

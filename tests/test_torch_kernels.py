@@ -1,0 +1,223 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+On a CPU tensor each port wrapper computes its plain PyTorch version
+(``repro_torch/kernels/ref.py``); these tests hold that version, and the
+``ops`` dispatch around it, against the JAX oracle (``repro.kernels.ref``)
+and against the Pallas kernel itself in interpret mode, on the same
+inputs made from a seed with numpy. The CUDA kernels are held against the
+same plain versions on the card by ``chip_smoke.py``.
+
+Tolerances: fp32 at rtol = atol = 1e-5 (the two frameworks sum in other
+orders; the inputs are O(1)). With bf16 x/Â/B̂ the output is rounded to
+bf16 once (ref numerics) or, in the Pallas body, also at h and at the
+residual add, so bf16 cases compare at 2e-2 — a few bf16 ulps at O(1).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.fused_adapter_batched import (
+    fused_adapter_batched as pallas_fused)
+from repro.kernels.mask_aggregate import (
+    mask_aggregate_batched as pallas_agg)
+from repro_torch.configs import XPeftConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fused_adapter_batched import fused_adapter_batched
+from repro_torch.kernels.mask_aggregate import mask_aggregate_batched
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np32(x):
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ----------------------------------------------------------------------------
+# mask_aggregate_batched
+# ----------------------------------------------------------------------------
+
+def _agg_inputs(seed, N=24, d=16, b=8, P=6, k=3, n_pad=2):
+    rng = np.random.default_rng(seed)
+    bank = rng.normal(size=(N, d, b)).astype(np.float32)
+    idx = np.stack([rng.choice(N, size=k, replace=False)
+                    for _ in range(P)]).astype(np.int32)
+    w = rng.uniform(0.1, 1.0, size=(P, k)).astype(np.float32)
+    idx[P - n_pad:] = 0          # padded profile-rows: idx 0, w 0
+    w[P - n_pad:] = 0.0
+    return bank, idx, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mask_aggregate_batched_matches_jax(dtype):
+    bank, idx, w = _agg_inputs(0)
+    jbank = jnp.asarray(bank, dtype)
+    tbank = _t(bank, getattr(torch, dtype))
+    want_ref = jref.mask_aggregate_batched_ref(jbank, jnp.asarray(idx),
+                                               jnp.asarray(w))
+    want_pallas = pallas_agg(jbank, jnp.asarray(idx), jnp.asarray(w),
+                             interpret=True)
+    got = mask_aggregate_batched(tbank, _t(idx), _t(w))
+    assert got.dtype == torch.float32 and got.shape == (6, 16, 8)
+    # bf16 bank values are exact in fp32 and the sum is fp32 either way
+    np.testing.assert_allclose(got.numpy(), _np32(want_ref), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), _np32(want_pallas), **F32_TOL)
+    # padded rows come out as exact zeros
+    assert not got[-2:].abs().max().item()
+
+
+def test_mask_aggregate_dispatch_and_counter():
+    """``auto`` on a CPU tensor and ``ref`` both take the plain version,
+    bit for bit; neither moves the kernel's launch counter."""
+    bank, idx, w = _agg_inputs(1)
+    tb, ti, tw = _t(bank), _t(idx), _t(w)
+    before = mask_aggregate_batched.launches
+    auto = ops.mask_aggregate_batched(tb, ti, tw, impl="auto")
+    plain = ops.mask_aggregate_batched(tb, ti, tw, impl="ref")
+    assert torch.equal(auto, plain)
+    assert torch.equal(plain, tref.mask_aggregate_batched_ref(tb, ti, tw))
+    assert mask_aggregate_batched.launches == before
+
+
+@pytest.mark.parametrize("impl", ["pallas", "interpret", "tpu"])
+def test_pallas_impls_raise(impl):
+    bank, idx, w = _agg_inputs(2)
+    with pytest.raises(ValueError):
+        ops.mask_aggregate_batched(_t(bank), _t(idx), _t(w), impl=impl)
+    with pytest.raises(ValueError):
+        XPeftConfig(kernel_impl=impl)
+
+
+# ----------------------------------------------------------------------------
+# fused_adapter_batched
+# ----------------------------------------------------------------------------
+
+def _fa_inputs(seed, B=3, T=8, d=32, b=8, shared=False):
+    rng = np.random.default_rng(seed)
+    lead = () if shared else (B,)
+    x = rng.normal(size=(B, T, d)).astype(np.float32)
+    a = (rng.normal(size=lead + (d, b)) / np.sqrt(d)).astype(np.float32)
+    bb = (rng.normal(size=lead + (b, d)) * 0.3).astype(np.float32)
+    ls = (1 + 0.1 * rng.normal(size=lead + (b,))).astype(np.float32)
+    lb = (0.1 * rng.normal(size=lead + (b,))).astype(np.float32)
+    return x, a, bb, ls, lb
+
+
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("activation", ["gelu", "identity"])
+@pytest.mark.parametrize("use_ln", [True, False])
+@pytest.mark.parametrize("shared", [False, True])
+def test_fused_adapter_batched_matches_jax_f32(shared, use_ln, activation, T):
+    x, a, bb, ls, lb = _fa_inputs(3, T=T, shared=shared)
+    kw = dict(activation=activation, use_ln=use_ln)
+    jargs = [jnp.asarray(v) for v in (x, a, bb, ls, lb)]
+    want_ref = jref.fused_adapter_batched_ref(*jargs, **kw)
+    want_pallas = pallas_fused(*jargs, interpret=True, **kw)
+    got = fused_adapter_batched(*[_t(v) for v in (x, a, bb, ls, lb)], **kw)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), _np32(want_ref), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), _np32(want_pallas), **F32_TOL)
+
+
+@pytest.mark.parametrize("T", [1, 8])
+@pytest.mark.parametrize("shared", [False, True])
+def test_fused_adapter_batched_matches_jax_bf16(shared, T):
+    x, a, bb, ls, lb = _fa_inputs(4, T=T, shared=shared)
+    jargs = [jnp.asarray(v, jnp.bfloat16) for v in (x, a, bb)] + \
+        [jnp.asarray(ls), jnp.asarray(lb)]
+    targs = [_t(v, torch.bfloat16) for v in (x, a, bb)] + [_t(ls), _t(lb)]
+    got = fused_adapter_batched(*targs)
+    assert got.dtype == torch.bfloat16
+    want_ref = jref.fused_adapter_batched_ref(*jargs)
+    want_pallas = pallas_fused(*jargs, interpret=True)
+    np.testing.assert_allclose(_np32(got), _np32(want_ref), **BF16_TOL)
+    np.testing.assert_allclose(_np32(got), _np32(want_pallas), **BF16_TOL)
+
+
+def test_fused_adapter_layer_slices_and_dispatch():
+    """One layer of a stacked [B, L, d, b] buffer (a strided row slice, as
+    the model passes it) gives the same result as a contiguous copy, and
+    ``auto``/``ref`` agree on the CPU without counting a launch."""
+    rng = np.random.default_rng(5)
+    B, L, T, d, b = 2, 3, 8, 32, 8
+    x = _t(rng.normal(size=(B, T, d)).astype(np.float32))
+    a = _t((rng.normal(size=(B, L, d, b)) / np.sqrt(d)).astype(np.float32))
+    bb = _t((rng.normal(size=(B, L, b, d)) * 0.3).astype(np.float32))
+    ls = _t((1 + 0.1 * rng.normal(size=(B, L, b))).astype(np.float32))
+    lb = _t((0.1 * rng.normal(size=(B, L, b))).astype(np.float32))
+    before = fused_adapter_batched.launches
+    for layer in range(L):
+        args = (x, a[:, layer], bb[:, layer], ls[:, layer], lb[:, layer])
+        auto = ops.fused_adapter(*args, impl="auto")
+        plain = ops.fused_adapter(*args, impl="ref")
+        dense = tref.fused_adapter_batched_ref(
+            *[t.contiguous() for t in args])
+        assert torch.equal(auto, plain) and torch.equal(plain, dense)
+    assert fused_adapter_batched.launches == before
+    with pytest.raises(NotImplementedError):
+        ops.fused_adapter(x[0], a[0, 0], bb[0, 0], ls[0, 0], lb[0, 0])
+
+
+# ----------------------------------------------------------------------------
+# the Python half of the CUDA path: layouts, validation, build identity
+# ----------------------------------------------------------------------------
+
+def test_row_stride_layouts():
+    """What the wrapper hands the kernel as batch strides: the row stride
+    of a per-row operand (a layer slice of [B, L, d, b] included), 0 for
+    a shared one; inner dims that are not dense raise."""
+    from repro_torch.kernels.fused_adapter_batched import _row_stride
+    B, L, d, b = 3, 4, 16, 8
+    stacked = torch.zeros((B, L, d, b))
+    assert _row_stride(stacked[:, 2], (d, b), "a") == L * d * b
+    assert _row_stride(torch.zeros((d, b)), (d, b), "a") == 0
+    assert _row_stride(torch.zeros((B, b)), (b,), "ln") == b
+    with pytest.raises(ValueError):
+        _row_stride(torch.zeros((B, b, d)).transpose(1, 2), (d, b), "a")
+    with pytest.raises(ValueError):
+        _row_stride(torch.zeros((B, d, b + 1)), (d, b), "a")
+    with pytest.raises(ValueError):
+        _row_stride(torch.zeros((2, B, d, b)), (d, b), "a")
+
+
+def test_mask_aggregate_input_checks():
+    from repro_torch.kernels.mask_aggregate import _check
+    bank, idx, w = (_t(a) for a in _agg_inputs(6))
+    _check(bank, idx, w)
+    for bad in ((bank, idx.long(), w), (bank, idx, w.double()),
+                (bank.double(), idx, w), (bank, idx[:, :2], w),
+                (bank[0], idx, w), (bank, idx.t(), w.t()),
+                (bank[:, :3, :5].contiguous(), idx, w)):
+        with pytest.raises((TypeError, ValueError)):
+            _check(*bad)
+
+
+def test_build_identity_tracks_sources(tmp_path, monkeypatch):
+    """The library's name hashes every source: editing one names a new
+    library (rebuilt at first use); a missing nvcc raises, never falls
+    back."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    assert before == _build.library_path()
+    assert before.parent == _build.BUILD_DIR
+    src = sorted(csrc.glob("*.cu"))[0]
+    src.write_text(src.read_text() + "\n// edit\n")
+    assert _build.library_path() != before
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
