@@ -12,8 +12,15 @@ Phases, in order; any failed check exits non-zero:
              beside its plain version, its bound and, where one PyTorch call
              computes the same function, that call: CUDA events, medians
              after warm-up, around CUDA-graph replays for the microsecond
-             fused adapter (inputs rotated past the L2, as decode finds
-             them) and around eager calls for the millisecond aggregation.
+             kernels (inputs rotated past the L2, as decode finds them) and
+             around eager calls for the millisecond aggregation. The decode
+             megakernel is checked at qwen1.5-0.5b's layer widths, B=4 slots,
+             S=128, positions [3, 0, 77, 130] (130 >= S: nothing substituted,
+             the row dropped later), biases, norm scales and LN affines drawn
+             at random, on routes none and bf16 and a GQA shape (KV=4), and
+             once at B=8 (its instantiation for 5 to 8 slots). The
+             unbatched adapter (x [256, 1024]) and the one-profile aggregation
+             (bank [256, 1024, 64], k=50) are checked and timed too.
 4. serve   — qwen1.5-0.5b at full published width with random weights:
              4 hard-mask profiles, 8 requests of 4-16 prompt tokens and 16
              new tokens on 4 slots (max_seq 128, sync_every 8), through the
@@ -22,9 +29,15 @@ Phases, in order; any failed check exits non-zero:
              plain versions); the prefill logits and the decode-step logits
              under teacher forcing (both runs fed the ref run's tokens) are
              compared, and every greedy token where the runs part is shown
-             to be a flip that the logit difference explains. Last, a decode
-             step is timed on the host clock and profiled (torch.profiler)
-             for the device time by kernel.
+             to be a flip that the logit difference explains. A decode step
+             is timed on the host clock and profiled (torch.profiler) for
+             the device time by kernel. Then the entry points of the
+             unbatched adapter and the one-profile aggregation are driven
+             over the 24 layers of an admitted profile. Last, the same
+             serving with ``decode_fused=True``: the megakernel must launch
+             24 times per decode step and the fused adapter 24 times per
+             prefill batch; the same comparisons with its kernel_impl="ref"
+             run, and the same profile of a decode step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -65,7 +78,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #   kernel phases' to catch.
 # - a greedy token may differ between the two runs only where the ref
 #   run's top-2 gap at that step is <= 2 * that step's max |d logit|.
+# - decode megakernel vs its plain version (same rounding points, fp32
+#   sums in other orders, cosf/expf/rsqrtf against PyTorch's): y and the
+#   K/V rows within DEC_STEPS bf16 steps at each output's largest |value|
+#   (an element rounded one step apart upstream moves what follows by
+#   about one step).
 AGG_ATOL = 1e-6
+DEC_STEPS = 4
+DEC_POS = [3, 0, 77, 130, 127, 1, 50, 128]  # per slot; S = 128
 FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
 FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
 E2E_STEPS = 4
@@ -309,6 +329,238 @@ def phase_fused_adapter(torch, KF, ref):
 
 
 # ----------------------------------------------------------------------------
+# phase 3c: the decode megakernel
+# ----------------------------------------------------------------------------
+
+def dec_layers(torch, gen, d, H, KV, hd, ff, L):
+    """L layers of decoder weights at init_lm's scales, with the QKV
+    biases and the norm scales (zero at init) drawn at random, so the bias
+    add and the (1 + scale) factor are exercised."""
+    def w(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                / math.sqrt(fan_in)).to(torch.bfloat16)
+
+    def f(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    return [{"n1": {"scale": f((d,), 0.1)}, "n2": {"scale": f((d,), 0.1)},
+             "attn": {"wq": w((d, H, hd), d), "wk": w((d, KV, hd), d),
+                      "wv": w((d, KV, hd), d), "wo": w((H, hd, d), H * hd),
+                      "bq": f((H, hd), 0.1), "bk": f((KV, hd), 0.1),
+                      "bv": f((KV, hd), 0.1)},
+             "mlp": {"wg": w((d, ff), d), "wu": w((d, ff), d),
+                     "wd": w((ff, d), ff)}} for _ in range(L)]
+
+
+def dec_inputs(torch, gen, cfg, KV, L=24, B=4, S=128):
+    """Decode-step inputs at qwen1.5-0.5b's widths: x [B,1,d], pos the
+    first B of DEC_POS (130 and 128 >= S: the drop case), and per layer its
+    weights, its [B,S,KV,hd] cache slice and one layer of the engine's
+    [B,L,d,b] adapter buffers (strided rows)."""
+    d, H, hd, ff = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
+    nb = cfg.xpeft.bottleneck
+    dev = "cuda"
+    x = torch.randn((B, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(DEC_POS[:B], dtype=torch.int32, device=dev)
+    kc = torch.randn((L, B, S, KV, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, B, S, KV, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    masks = {
+        "a_hat": (torch.randn((B, L, d, nb), generator=gen, device=dev)
+                  / math.sqrt(d)).to(torch.bfloat16),
+        "b_hat": (torch.randn((B, L, nb, d), generator=gen, device=dev)
+                  * 0.05).to(torch.bfloat16),
+        "ln_scale": 1.0 + 0.1 * torch.randn((B, L, nb), generator=gen,
+                                            device=dev),
+        "ln_bias": 0.1 * torch.randn((B, L, nb), generator=gen, device=dev),
+    }
+    layers = dec_layers(torch, gen, d, H, KV, hd, ff, L)
+    return [(x, pos, layers[l], kc[l], vc[l],
+             {k: v[:, l] for k, v in masks.items()}) for l in range(L)]
+
+
+def dec_bytes(args, route):
+    """Bytes one call must move: every weight, norm and bias read once,
+    the K/V cache rows this data attends (rows s <= min(pos, S-1), minus
+    the row the new one replaces), the route's adapter rows, x, and the
+    outputs written once."""
+    x, pos, block, kc, vc, masks_l = args
+    B, S = kc.shape[:2]
+    row = kc[0, 0].numel() * kc.element_size()
+    n = sum(t.numel() * t.element_size() for sub in block.values()
+            for t in sub.values())
+    rows = sum(min(p + 1, S) - (p < S) for p in pos.tolist())
+    n += 2 * rows * row + pos.numel() * 4
+    if route == "bf16":
+        n += sum(t[0].numel() * t.element_size() * B
+                 for t in masks_l.values())
+    n += 2 * x.numel() * x.element_size() + 2 * B * row
+    return n
+
+
+def dec_flops(args, route):
+    x, pos, block, kc, vc, masks_l = args
+    B, S = kc.shape[:2]
+    w = sum(t.numel() for sub in block.values() for t in sub.values()
+            if t.dim() > 1)
+    H, hd = block["attn"]["wq"].shape[1:]
+    n = 2 * B * w + sum(4 * H * hd * min(p + 1, S) for p in pos.tolist())
+    if route == "bf16":
+        n += 4 * B * masks_l["a_hat"][0].numel()
+    return n
+
+
+def check_dec(torch, KD, ref, args, kw, label):
+    """Kernel vs plain version on the card: y and the K/V rows within
+    DEC_STEPS bf16 steps at each output's largest magnitude."""
+    got = KD.decode_block_fused(*args, **kw)
+    want = ref.decode_block_ref(*args, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for g, w, name in zip(got, want, ("y", "k_rows", "v_rows")):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all(), (label, name)
+        diff = (g.float() - w.float()).abs()
+        err = diff.max().item()
+        tol = DEC_STEPS * bf16_step(w.float().abs().max().item())
+        log(f"  check {label} {name}: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}; {int((diff > 0).sum())} of {diff.numel()} "
+            f"elements differ)")
+        assert err <= tol, (label, name, err, tol)
+        errs.append(err)
+    return max(errs)
+
+
+def phase_decode_block(torch, KD, ref, cfg):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kw = dict(norm=cfg.norm, qkv_bias=cfg.qkv_bias,
+              use_rope=cfg.pos == "rope", theta=cfg.rope_theta,
+              cap=cfg.logit_softcap, mlp_type=cfg.mlp_type, act_name=cfg.act,
+              adapter_act=cfg.xpeft.adapter_activation)
+    results = []
+    for KV, route in ((cfg.num_kv_heads, "none"), (cfg.num_kv_heads, "bf16"),
+                      (4, "bf16")):
+        sets = dec_inputs(torch, gen, cfg, KV)
+        rkw = dict(kw, adapter=route)
+        label = f"KV={KV} route={route}"
+        err = check_dec(torch, KD, ref, sets[0], rkw, label)
+        # a second layer's inputs, then the kernel's own run-to-run equality
+        check_dec(torch, KD, ref, sets[7], rkw, label + " layer 7")
+        again = KD.decode_block_fused(*sets[0], **rkw)
+        first = KD.decode_block_fused(*sets[0], **rkw)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+        # cold: the calls rotate over the 24 layers' weights, cache slices
+        # and adapter rows (~660 MB), as the decode path reads them
+        ms = device_ms(torch, rotating(
+            lambda *a: KD.decode_block_fused(*a, **rkw), sets),
+            calls=len(sets))
+        plain_ms = device_ms(torch, rotating(
+            lambda *a: ref.decode_block_ref(*a, **rkw), sets),
+            calls=len(sets))
+        host_ms = eager_ms(torch, rotating(
+            lambda *a: KD.decode_block_fused(*a, **rkw), sets),
+            calls=len(sets))
+        nbytes = dec_bytes(sets[0], route)
+        bound_ms, bound_by = bound(nbytes, dec_flops(sets[0], route),
+                                   "bfloat16")
+        log(f"decode_block_fused B=4 S=128 d={cfg.d_model} H="
+            f"{cfg.num_heads} KV={KV} ff={cfg.d_ff} route={route}: ms "
+            f"{ms:.5f} (cold) | plain {plain_ms:.5f} (cold) | eager call "
+            f"(host included) {host_ms:.5f} | bound {bound_ms:.5f} "
+            f"({bound_by}: {nbytes / 1e6:.2f} MB) | "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        results.append(dict(shape=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            eager_ms=host_ms))
+        del sets
+        torch.cuda.empty_cache()
+    # the instantiation for 5 to 8 slots (an engine with max_slots 8),
+    # checked only: the serve path runs 4
+    sets = dec_inputs(torch, gen, cfg, cfg.num_kv_heads, L=1, B=8)
+    check_dec(torch, KD, ref, sets[0], dict(kw, adapter="bf16"),
+              f"B=8 KV={cfg.num_kv_heads} route=bf16")
+    return results
+
+
+# ----------------------------------------------------------------------------
+# phase 3d: the unbatched adapter (#3) and one-profile aggregation (#4)
+# ----------------------------------------------------------------------------
+
+def phase_unbatched(torch, KA, KF1, ref, F):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = {}
+    # 3: x [256, 1024] bf16 through one shared A_hat/B_hat (b=64)
+    T, d, b = 256, 1024, 64
+    sets = [tuple(t[0] if i == 0 else t for i, t in enumerate(
+        fa_inputs(torch, gen, 1, T, d, b, torch.bfloat16, shared=True)))
+        for _ in range(64)]
+    got = KF1.fused_adapter(*sets[0])
+    want = ref.fused_adapter_ref(*sets[0])
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= FA_BF16_RTOL * want.float().abs()
+               + FA_BF16_ATOL).all())
+    log(f"fused_adapter (unbatched) T={T} d={d} b={b} bf16: max_abs_err "
+        f"{err:.3e} ok={ok}")
+    assert ok and got.shape == (T, d)
+    ms = device_ms(torch, rotating(KF1.fused_adapter, sets), calls=len(sets))
+    plain_ms = device_ms(torch, rotating(ref.fused_adapter_ref, sets),
+                         calls=len(sets))
+    nbytes = sum(t.numel() * t.element_size() for t in sets[0]) \
+        + sets[0][0].numel() * 2
+    bound_ms, bound_by = bound(nbytes, 4 * T * d * b, "bfloat16")
+    log(f"  ms {ms:.5f} (cold) | plain {plain_ms:.5f} (cold) | bound "
+        f"{bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.3f} MB)")
+    results["fused_adapter"] = dict(
+        shape=f"T={T}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    del sets
+
+    # 4: bank [256, 1024, 64] bf16, one profile's k=50 rows
+    N, k = 256, 50
+    bank = (torch.randn((N, d, b), generator=gen, device="cuda")
+            * 0.05).to(torch.bfloat16)
+    idx = torch.rand((N,), generator=gen, device="cuda").argsort()[:k]
+    idx = idx.sort().values.to(torch.int32).contiguous()
+    w = torch.full((k,), 1.0 / k, dtype=torch.float32, device="cuda")
+    got = KA.mask_aggregate(bank, idx, w)
+    want = ref.mask_aggregate_ref(bank, idx, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"mask_aggregate (one profile) bank {tuple(bank.shape)} k={k} "
+        f"bf16: max_abs_err {err:.3e} (bitwise {torch.equal(got, want)}; "
+        f"atol {AGG_ATOL})")
+    assert err <= AGG_ATOL and got.shape == (d, b)
+    # the bank (32 MB) would sit in the 50 MB L2 between calls; rotate
+    # over 8 banks so each call reads its k rows from HBM
+    banks = [bank] + [(torch.randn((N, d, b), generator=gen, device="cuda")
+                       * 0.05).to(torch.bfloat16) for _ in range(7)]
+    sets = [(bk, idx, w) for bk in banks]
+    ms = device_ms(torch, rotating(KA.mask_aggregate, sets), calls=64)
+    plain_ms = device_ms(torch, rotating(ref.mask_aggregate_ref, sets),
+                         calls=8)
+    flats = [(idx[None], bk.view(N, -1), w[None].to(bk.dtype))
+             for bk in banks]
+    lib_ms = device_ms(torch, rotating(
+        lambda i, fl, ww: F.embedding_bag(i, fl, per_sample_weights=ww,
+                                          mode="sum"), flats), calls=64)
+    nbytes = k * d * b * 2 + k * 8 + d * b * 4
+    bound_ms, bound_by = bound(nbytes, 2 * k * d * b, "float32")
+    log(f"  ms {ms:.5f} (cold) | plain {plain_ms:.5f} | embedding_bag "
+        f"{lib_ms:.5f} | bound {bound_ms:.5f} ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB)")
+    results["mask_aggregate"] = dict(
+        shape=f"N={N} k={k}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    del banks, sets, flats, bank
+    torch.cuda.empty_cache()
+    return results
+
+
+# ----------------------------------------------------------------------------
 # phase 4: serve
 # ----------------------------------------------------------------------------
 
@@ -533,11 +785,133 @@ def phase_serve(torch, KA, KF):
               *dec)
     agree, total = explain_divergence(torch, reqs, ref_reqs, pre, dec[:2])
     log(f"  greedy tokens agree {agree / total:.3f} ({agree}/{total})")
-    step = profile_decode(torch, ServeEngine, Request, cfg, params, store)
-    return launches, dict(tok_s=toks / dt, **step)
+    step = profile_decode(torch, ServeEngine, Request, cfg, params, store,
+                          "composed")
+    ctx = dict(cfg=cfg, params=params, store=store, serve=serve, reqs=reqs,
+               engine=eng)
+    return launches, dict(tok_s=toks / dt, **step), ctx
 
 
-def profile_decode(torch, ServeEngine, Request, cfg, params, store):
+def phase_entry_points(torch, KA, KF1, ctx):
+    """The entry points of TPU kernels #3 and #4, each driven over the 24
+    layers of an admitted profile: ``ops.mask_aggregate`` (one profile,
+    P=1) must give the engine's batched admission aggregates bit for bit,
+    and ``core.xpeft.apply_precomputed_layer`` (x [T, d]) its plain
+    version within the fused-adapter tolerance."""
+    from repro_torch.core import xpeft as XP
+    from repro_torch.kernels import ops
+
+    cfg, params, store = ctx["cfg"], ctx["params"], ctx["store"]
+    entry = ctx["engine"].profile_cache.peek(0)
+    ia, wa, ib, wb = (t.cuda() for t in store.sparse_indices(0))
+    bank = params["xpeft_bank"]
+    req = ctx["reqs"][0]
+    h = params["embed"][torch.from_numpy(req.prompt).long().cuda()]
+    xp, ref_xp = cfg.xpeft, cfg.with_xpeft(kernel_impl="ref").xpeft
+    KA.mask_aggregate.launches = 0
+    KF1.fused_adapter.launches = 0
+    errs, bitwise = [], True
+    for l in range(cfg.num_layers):
+        for key, bank_l, i, w in (("a_hat", bank["bank_a"][l], ia[l], wa[l]),
+                                  ("b_hat", bank["bank_b"][l], ib[l], wb[l])):
+            agg = ops.mask_aggregate(bank_l, i.contiguous(), w.contiguous(),
+                                     impl=xp.kernel_impl)
+            bitwise &= torch.equal(agg.to(entry[key].dtype), entry[key][l])
+        eff = {k: v[l] for k, v in entry.items()}
+        got = XP.apply_precomputed_layer(h, eff, xp)
+        want = XP.apply_precomputed_layer(h, eff, ref_xp)
+        diff = (got.float() - want.float()).abs()
+        assert (diff <= FA_BF16_RTOL * want.float().abs()
+                + FA_BF16_ATOL).all(), l
+        errs.append(diff.max().item())
+    torch.cuda.synchronize()
+    launches = {"mask_aggregate": KA.mask_aggregate.launches,
+                "fused_adapter": KF1.fused_adapter.launches}
+    log(f"entry points over {cfg.num_layers} layers of profile 0: "
+        f"ops.mask_aggregate launches {launches['mask_aggregate']}, equal "
+        f"to the admission aggregates bit for bit: {bitwise}; "
+        f"apply_precomputed_layer (x [{h.shape[0]}, {h.shape[1]}]) launches "
+        f"{launches['fused_adapter']}, max_abs_err vs plain {max(errs):.3e}")
+    assert bitwise
+    assert launches == {"mask_aggregate": 2 * cfg.num_layers,
+                        "fused_adapter": cfg.num_layers}, launches
+    return launches
+
+
+def phase_serve_fused(torch, KA, KF, KD, ctx):
+    """The same 8 requests served with ``decode_fused=True``: each decode
+    step runs the megakernel once per layer; prefill stays composed (the
+    fused adapter) and admission runs the aggregation. Then again with
+    kernel_impl="ref", holding the teacher-forced decode-step logits to
+    that run and explaining every greedy flip, as the composed phase."""
+    from repro_torch.models import model as MDL
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = ctx["cfg"].with_(decode_fused=True)
+    params, store, serve = ctx["params"], ctx["store"], ctx["serve"]
+    counters = (("mask_aggregate_batched", KA.mask_aggregate_batched),
+                ("fused_adapter_batched", KF.fused_adapter_batched),
+                ("decode_block_fused", KD.decode_block_fused))
+    serve(cfg, make_requests(Request, cfg.vocab_size, n=4, max_new=4))
+
+    reqs = make_requests(Request, cfg.vocab_size)
+    for _, fn in counters:
+        fn.launches = 0
+    eng, steps, dt = serve(cfg, reqs)
+    launches = {name: fn.launches for name, fn in counters}
+    toks = sum(len(r.generated) for r in reqs)
+    st = eng.serve_stats()
+    L = cfg.num_layers
+    same = sum(a == b for r, q in zip(reqs, ctx["reqs"])
+               for a, b in zip(r.generated, q.generated))
+    log(f"serve decode_fused=True (kernels): {len(reqs)} requests / {toks} "
+        f"tokens in {steps} engine steps, {dt:.3f}s = {toks / dt:.1f} "
+        f"tok/s; launches {launches}; device_steps {st['device_steps']}, "
+        f"prefill_batches {st['prefill_batches']}; tokens equal to the "
+        f"composed kernel run {same / toks:.3f} ({same}/{toks})")
+    assert all(r.done and len(r.generated) == 16 for r in reqs)
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+    assert launches["decode_block_fused"] == L * st["device_steps"] > 0
+    assert launches["fused_adapter_batched"] == L * st["prefill_batches"]
+    assert launches["mask_aggregate_batched"] > 0, launches
+
+    ref_cfg = cfg.with_xpeft(kernel_impl="ref")
+    ref_reqs = make_requests(Request, cfg.vocab_size)
+    for _, fn in counters:
+        fn.launches = 0
+    ref_eng, _, ref_dt = serve(ref_cfg, ref_reqs)
+    assert not any(fn.launches for _, fn in counters)
+    ref_toks = sum(len(r.generated) for r in ref_reqs)
+    log(f"serve decode_fused=True (kernel_impl=ref): {ref_toks} tokens, "
+        f"{ref_dt:.3f}s = {ref_toks / ref_dt:.1f} tok/s")
+    pre = [prefill_logits(torch, e, rs) for e, rs in
+           ((eng, reqs), (ref_eng, ref_reqs))]
+    e2e_check("prefill logits (composed prefill)", *pre,
+              prefill_logits(torch, ref_eng, ref_reqs, bare=True))
+    forced = {q.uid: q.generated for q in ref_reqs}
+    dec = [forced_decode(torch, MDL, ServeEngine, Request, c, params, store,
+                         reqs, forced, bare=bare)
+           for c, bare in ((cfg, False), (ref_cfg, False), (ref_cfg, True))]
+    assert torch.isfinite(dec[0]).all()
+    assert dec[0].shape == (8, 15, cfg.vocab_size)
+    ref_tokens = torch.tensor([q.generated[1:] for q in ref_reqs],
+                              device=dec[1].device)
+    replay = (dec[1].argmax(-1) == ref_tokens).sum().item()
+    log(f"  teacher-forced ref decode reproduces {replay}/"
+        f"{ref_tokens.numel()} of the ref run's decode tokens")
+    e2e = e2e_check("fused decode-step logits, teacher-forced (8 requests "
+                    "x 15 steps)", *dec)
+    agree, total = explain_divergence(torch, reqs, ref_reqs, pre, dec[:2])
+    log(f"  greedy tokens agree {agree / total:.3f} ({agree}/{total})")
+    step = profile_decode(torch, ServeEngine, Request, cfg, params, store,
+                          "decode_fused")
+    return launches, dict(tok_s=toks / dt, ref_tok_s=ref_toks / ref_dt,
+                          tokens_equal_composed=same / toks,
+                          greedy_agree_ref=agree / total,
+                          decode_logit_err=e2e["max_abs_err"], **step)
+
+
+def profile_decode(torch, ServeEngine, Request, cfg, params, store, label):
     """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
     the host clock without the profiler, then 8 steps under torch.profiler
     for the device time by kernel."""
@@ -567,8 +941,9 @@ def profile_decode(torch, ServeEngine, Request, cfg, params, store):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     dev = sum(e.self_device_time_total for e in rows) / 1e3 / 8
     n_kernels = sum(e.count for e in rows) / 8
-    log(f"decode step (B=4, T=1): host wall {wall:.3f} ms/step without the "
-        f"profiler; device {dev:.4f} ms/step in {n_kernels:.0f} kernels -> "
+    log(f"decode step {label} (B=4, T=1): host wall {wall:.3f} ms/step "
+        f"without the profiler; device {dev:.4f} ms/step in "
+        f"{n_kernels:.0f} kernels -> "
         f"device busy share {dev / wall:.4f}; top kernels by device time:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"  {e.self_device_time_total / 1e3 / 8:.4f} ms/step "
@@ -586,7 +961,10 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_fused as KD
+    from repro_torch.kernels import fused_adapter as KF1
     from repro_torch.kernels import fused_adapter_batched as KF
     from repro_torch.kernels import mask_aggregate as KA
     from repro_torch.kernels import ref
@@ -608,28 +986,50 @@ def main():
     # 3. kernels
     agg = phase_mask_aggregate(torch, KA, ref, F)
     fa = phase_fused_adapter(torch, KF, ref)
+    dec = phase_decode_block(torch, KD, ref, get_config("qwen1.5-0.5b"))
+    one = phase_unbatched(torch, KA, KF1, ref, F)
 
-    # 4. serve
-    launches, serve = phase_serve(torch, KA, KF)
+    # 4. serve: the composed decode path, the entry points of #3 and #4,
+    # then the decode megakernel path
+    launches, serve, ctx = phase_serve(torch, KA, KF)
+    entry_launches = phase_entry_points(torch, KA, KF1, ctx)
+    fused_launches, serve_fused = phase_serve_fused(torch, KA, KF, KD, ctx)
 
     kernels = []
-    for name, rows, src, tpu in (
+    for name, rows, src, tpu, n in (
             ("mask_aggregate_batched", agg,
              "src/repro_torch/csrc/mask_aggregate.cu",
-             "src/repro/kernels/mask_aggregate.py:74"),
+             "src/repro/kernels/mask_aggregate.py:74",
+             launches["mask_aggregate_batched"]),
             ("fused_adapter_batched", fa,
              "src/repro_torch/csrc/fused_adapter.cu",
-             "src/repro/kernels/fused_adapter_batched.py:65")):
-        main_row = rows[0]  # A_hat aggregation / the T=1 decode shape
+             "src/repro/kernels/fused_adapter_batched.py:65",
+             launches["fused_adapter_batched"]),
+            ("fused_adapter", [one["fused_adapter"]],
+             "src/repro_torch/csrc/fused_adapter.cu",
+             "src/repro/kernels/fused_adapter.py:46",
+             entry_launches["fused_adapter"]),
+            ("mask_aggregate", [one["mask_aggregate"]],
+             "src/repro_torch/csrc/mask_aggregate.cu",
+             "src/repro/kernels/mask_aggregate.py:47",
+             entry_launches["mask_aggregate"]),
+            # the path's own shape first: route bf16 at qwen's KV heads
+            ("decode_block_fused", [dec[1], dec[0], dec[2]],
+             "src/repro_torch/csrc/decode_fused.cu",
+             "src/repro/kernels/decode_fused.py:219",
+             fused_launches["decode_block_fused"])):
+        main_row = rows[0]
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": tpu, "launches": launches[name]}
+                 "replaces": tpu, "launches": n}
         entry.update({k: main_row[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
         entry["shape"] = main_row["shape"]
         entry["other_shapes"] = rows[1:]
         kernels.append(entry)
-    log(json.dumps({"kernels": kernels, "serve": serve}))
+    serve_fused["launches"] = fused_launches
+    log(json.dumps({"kernels": kernels, "serve": serve,
+                    "serve_decode_fused": serve_fused}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

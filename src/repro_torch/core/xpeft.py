@@ -2,8 +2,10 @@
 
 Serving aggregates each admitted profile's k selected adapters into one
 Â/B̂ pair per layer (``precompute_effective_adapters_sparse``), through
-the kernel dispatch layer. The dense / soft-mask / heterogeneous paths of
-``repro.core.xpeft`` wait for ROADMAP queue 1, items 2 and 7.
+the kernel dispatch layer, and ``apply_precomputed_layer`` applies one
+layer of such a record to a [T, d] sequence. The dense / soft-mask /
+heterogeneous paths of ``repro.core.xpeft`` wait for ROADMAP queue 1,
+items 2 and 7.
 """
 from __future__ import annotations
 
@@ -55,3 +57,13 @@ def precompute_effective_adapters_sparse(bank: dict, idx_a, w_a, idx_b, w_b,
     dt = bank["bank_a"].dtype
     return (a_hat.reshape(*batch, L, d, b).to(dt),
             b_hat.reshape(*batch, L, b, d).to(dt))
+
+
+def apply_precomputed_layer(x, eff_l: dict, xp):
+    """Apply an admission-time-aggregated adapter slice (per layer)."""
+    from repro_torch.kernels import ops
+
+    return ops.fused_adapter(x, eff_l["a_hat"], eff_l["b_hat"],
+                             eff_l["ln_scale"], eff_l["ln_bias"],
+                             activation=xp.adapter_activation,
+                             impl=xp.kernel_impl)

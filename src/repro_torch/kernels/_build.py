@@ -25,6 +25,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types: every pointer and the stream
 # are c_void_p (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
@@ -33,6 +34,10 @@ SIGNATURES = {
     "xpeft_fused_adapter_batched":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
          _P],
+    "xpeft_decode_block_config":
+        [_I] * 7 + [ctypes.POINTER(_I)],
+    "xpeft_decode_block":
+        [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,207 @@
+"""CUDA kernel wrapper: the T=1 decode megakernel.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/decode_fused.py:219``
+(``decode_block_pallas``, ``pallas_call`` at ``:274``): one whole decoder
+block (norm1, QKV with bias, RoPE, attention over the slot's cache with
+the new K/V row substituted at ``pos``, out-projection, norm2, the GLU
+MLP) and the X-PEFT adapter, for every slot, returning ``(y, k_rows,
+v_rows)``; the caller scatters the rows into the cache.
+
+The kernel (``csrc/decode_fused.cu``) is bound by bytes on the H100: a
+layer-step must read the layer's weights once (25.7 MB at qwen1.5-0.5b)
+plus the slots' K/V rows and Â/B̂, ~8 µs at 3.35 TB/s. The TPU grid (one
+program per slot, each streaming all the weights) would run 4 blocks on
+132 SMs and read the weights 4 times; the design is instead ONE
+cooperative launch per layer over as many blocks as fit on the card at
+once, its phases separated by grid-wide barriers, each weight tile read
+once for all slots. Its numerics are ``decode_block_row``'s (the
+roundings the Pallas body makes), not the fused-adapter kernel's.
+
+On a CPU tensor the wrapper computes the plain version
+(``kernels/ref.py`` ``decode_block_ref``); on a CUDA tensor it launches
+the kernel or raises. ``decode_block_fused.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import load_library
+from repro_torch.kernels.fused_adapter_batched import _row_stride
+
+MAX_SLOTS = 8
+_ROUTES = {"none": 0, "bf16": 1}
+_ADAPTER_ACTS = {"identity": 0, "gelu": 1}
+
+
+def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
+    """The variants the kernel does not build (nothing launches them yet):
+    a reason naming the ROADMAP item, or None."""
+    if adapter in ("int8", "int4"):
+        return (f"adapter route {adapter!r} needs the quantized bank "
+                "(ROADMAP queue 1, item 6)")
+    if adapter not in _ROUTES:
+        return f"adapter route {adapter!r}"
+    if adapter == "bf16" and adapter_act not in _ADAPTER_ACTS:
+        return f"adapter activation {adapter_act!r}"
+    if norm != "rmsnorm" or mlp_type != "glu" or act_name != "silu" \
+            or not use_rope:
+        return (f"norm {norm!r}, mlp {mlp_type!r}, act {act_name!r}, "
+                f"rope {use_rope}: only RMSNorm, GLU-SiLU and RoPE are "
+                "built (ROADMAP queue 1, item 10)")
+    return None
+
+
+# the plain version's own RoPE table, made once per shape and device
+_inv_freq = functools.lru_cache(maxsize=16)(ref.rope_inv_freq)
+
+
+@functools.lru_cache(maxsize=64)
+def _grid(device_index: int, B, d, H, KV, hd, ff, S):
+    """The co-resident block count a cooperative launch at these shapes
+    may use, asked of the CUDA runtime once."""
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = load_library().xpeft_decode_block_config(
+            B, d, H, KV, hd, ff, S, ctypes.byref(grid))
+    if err:
+        raise RuntimeError(f"decode_block_fused: no cooperative launch "
+                           f"configuration (CUDA error {err})")
+    return grid.value
+
+
+def _need(t, name, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name} must be {tuple(shape)} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return t
+
+
+def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
+                       norm: str, qkv_bias: bool, use_rope: bool,
+                       theta: float, cap: float, mlp_type: str,
+                       act_name: str, adapter: str, adapter_act: str):
+    """x [B, 1, d] bf16, pos [B] int32, block one layer's params, k/v_cache
+    [B, S, KV, hd] bf16 (read, not written), masks_l the slots' adapter
+    leaves of route ``adapter`` ("none" or "bf16") -> (y [B, 1, d],
+    k_rows [B, KV, hd], v_rows [B, KV, hd])."""
+    kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
+              cap=cap, mlp_type=mlp_type, act_name=act_name,
+              adapter=adapter, adapter_act=adapter_act)
+    if x.device.type == "cpu":
+        return ref.decode_block_ref(x, pos, block, k_cache, v_cache,
+                                    masks_l, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    why = _unsupported(norm, use_rope, mlp_type, act_name, adapter,
+                       adapter_act)
+    if why:
+        raise NotImplementedError(f"decode megakernel: {why}")
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    if x.dtype != bf16 or k_cache.dtype != bf16 or v_cache.dtype != bf16:
+        raise NotImplementedError(
+            f"decode megakernel: x/cache dtypes {x.dtype}/{k_cache.dtype}; "
+            "only bfloat16 is built (ROADMAP queue 1, item 2)")
+    if x.ndim != 3 or x.shape[1] != 1:
+        raise ValueError(f"x must be [B, 1, d], got {tuple(x.shape)}")
+    B, _, d = x.shape
+    if not 1 <= B <= MAX_SLOTS:
+        raise NotImplementedError(
+            f"decode megakernel: {B} slots; instantiations are built for "
+            f"1 to {MAX_SLOTS}")
+    _, S, KV, hd = k_cache.shape
+    attn, mlp = block["attn"], block["mlp"]
+    H = attn["wq"].shape[1]
+    ff = mlp["wg"].shape[1]
+    _need(x, "x", (B, 1, d), bf16, dev)
+    _need(pos, "pos", (B,), torch.int32, dev)
+    _need(k_cache, "k_cache", (B, S, KV, hd), bf16, dev)
+    _need(v_cache, "v_cache", (B, S, KV, hd), bf16, dev)
+    for name, shape in (("wq", (d, H, hd)), ("wk", (d, KV, hd)),
+                        ("wv", (d, KV, hd)), ("wo", (H, hd, d))):
+        _need(attn[name], name, shape, bf16, dev)
+    for name, shape in (("wg", (d, ff)), ("wu", (d, ff)), ("wd", (ff, d))):
+        _need(mlp[name], name, shape, bf16, dev)
+    n1 = _need(block["n1"]["scale"], "n1.scale", (d,), f32, dev)
+    n2 = _need(block["n2"]["scale"], "n2.scale", (d,), f32, dev)
+    if qkv_bias:
+        biases = [_need(attn[n], n, s, f32, dev) for n, s in
+                  (("bq", (H, hd)), ("bk", (KV, hd)), ("bv", (KV, hd)))]
+    else:
+        biases = [n1, n1, n1]  # never read
+    if H % KV or hd not in (16, 32, 64, 128, 256) \
+            or any(n % 16 for n in (d, H * hd, KV * hd, ff)):
+        raise NotImplementedError(
+            f"decode megakernel shapes d={d} H={H} KV={KV} hd={hd} "
+            f"ff={ff}: needs H % KV == 0, hd a power of two in [16, 256] "
+            "and widths that are multiples of 16")
+
+    a_bs = b_bs = ln_bs = 0
+    nb = 0
+    ad = [n1, n1, n1, n1]  # never read on route none
+    if adapter == "bf16":
+        a_hat, b_hat = masks_l["a_hat"], masks_l["b_hat"]
+        ls, lb = masks_l["ln_scale"], masks_l["ln_bias"]
+        nb = a_hat.shape[-1]
+        if a_hat.dtype != bf16 or b_hat.dtype != bf16 \
+                or ls.dtype != f32 or lb.dtype != f32:
+            raise TypeError("a_hat/b_hat must be bfloat16, ln_* float32")
+        if nb % 16 or nb > 256:
+            raise NotImplementedError(
+                f"decode megakernel bottleneck {nb}: needs a multiple of "
+                "16 up to 256")
+        a_bs = _row_stride(a_hat, (d, nb), "a_hat")
+        b_bs = _row_stride(b_hat, (nb, d), "b_hat")
+        ln_bs = _row_stride(ls, (nb,), "ln_scale")
+        if _row_stride(lb, (nb,), "ln_bias") != ln_bs:
+            raise ValueError("ln_scale and ln_bias must share one layout")
+        for name, t, bs in (("a_hat", a_hat, a_bs), ("b_hat", b_hat, b_bs),
+                            ("ln_scale", ls, ln_bs), ("ln_bias", lb, ln_bs)):
+            if t.device != dev:
+                raise ValueError(f"{name} on {t.device}, x on {dev}")
+            if bs and t.shape[0] != B:
+                raise ValueError(f"{name} has {t.shape[0]} rows for {B}")
+            if t.dtype == bf16 and (t.data_ptr() % 16 or bs % 8):
+                raise ValueError(f"{name} rows must be 16-byte aligned")
+        ad = [a_hat, b_hat, ls, lb]
+
+    grid = _grid(dev.index if dev.index is not None
+                 else torch.cuda.current_device(), B, d, H, KV, hd, ff, S)
+    nq, nkv = H * hd, KV * hd
+    scratch = torch.empty(B * (nq + 2 * nkv + nq + 2 * d + ff + nb),
+                          dtype=f32, device=dev)
+    y = torch.empty_like(x)
+    k_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
+    v_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
+    freqs = _inv_freq(hd, float(theta), dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.xpeft_decode_block(
+            x.data_ptr(), pos.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+            attn["wq"].data_ptr(), attn["wk"].data_ptr(),
+            attn["wv"].data_ptr(), attn["wo"].data_ptr(),
+            *(t.data_ptr() for t in biases),
+            mlp["wg"].data_ptr(), mlp["wu"].data_ptr(), mlp["wd"].data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(),
+            *(t.data_ptr() for t in ad), a_bs, b_bs, ln_bs,
+            freqs.data_ptr(), y.data_ptr(), k_rows.data_ptr(),
+            v_rows.data_ptr(), scratch.data_ptr(), B, d, H, KV, hd, ff, S,
+            nb, int(qkv_bias), _ROUTES[adapter],
+            _ADAPTER_ACTS.get(adapter_act, 0), float(cap or 0.0),
+            ref.attn_scale(hd), grid, stream)
+    if err:
+        raise RuntimeError(f"decode_block_fused launch failed: CUDA error "
+                           f"{err}")
+    decode_block_fused.launches += 1
+    return y, k_rows, v_rows
+
+
+decode_block_fused.launches = 0

@@ -50,6 +50,15 @@ def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
         return ref.fused_adapter_batched_ref(
             x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
             use_ln=use_ln)
+    out = launch(x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
+                 use_ln=use_ln)
+    fused_adapter_batched.launches += 1
+    return out
+
+
+def launch(x, a_hat, b_hat, ln_scale, ln_bias, *, activation, use_ln):
+    """Check the operands and launch the kernel on x's device (uncounted:
+    each entry point counts its own launches)."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.ndim != 3 or not x.is_contiguous():
@@ -90,9 +99,7 @@ def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
             B, T, d, nb, a_bs, b_bs, ln_bs, _DTYPES[x.dtype], int(use_ln),
             _ACTS[activation], stream)
     if err:
-        raise RuntimeError(f"fused_adapter_batched launch failed: CUDA "
-                           f"error {err}")
-    fused_adapter_batched.launches += 1
+        raise RuntimeError(f"fused_adapter launch failed: CUDA error {err}")
     return out
 
 

@@ -1,7 +1,9 @@
-"""CUDA kernel wrapper: batched k-sparse adapter-bank aggregation.
+"""CUDA kernel wrappers: k-sparse adapter-bank aggregation, batched and
+for one profile.
 
-Replaces the Pallas TPU kernel ``src/repro/kernels/mask_aggregate.py:74``
-(``mask_aggregate_batched``). The kernel (``csrc/mask_aggregate.cu``) is
+Replaces the Pallas TPU kernels ``src/repro/kernels/mask_aggregate.py:74``
+(``mask_aggregate_batched``) and ``:47`` (``mask_aggregate``, the P=1
+form, run on the same kernel). The kernel (``csrc/mask_aggregate.cu``) is
 bound by bytes on the H100: it reads the k selected bank rows of every
 output row once and writes the fp32 output once, for about half a flop
 per byte. Its design — one block row per output row, the block's own
@@ -9,9 +11,10 @@ indices in shared memory in place of the TPU's scalar prefetch, 16-byte
 loads along the row, fp32 accumulation in k order — is described in the
 source.
 
-On a CPU tensor the wrapper computes the plain version
+On a CPU tensor each wrapper computes the plain version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
-``mask_aggregate_batched.launches`` counts kernel launches.
+``mask_aggregate_batched.launches`` and ``mask_aggregate.launches`` count
+kernel launches, each of its own entry point.
 """
 from __future__ import annotations
 
@@ -55,6 +58,29 @@ def mask_aggregate_batched(bank, idx, w):
     [P, d, b] fp32: out[p] = Σ_j w[p, j] · bank[idx[p, j]]."""
     if bank.device.type == "cpu":
         return ref.mask_aggregate_batched_ref(bank, idx, w)
+    out = _launch(bank, idx, w)
+    mask_aggregate_batched.launches += 1
+    return out
+
+
+def mask_aggregate(bank, idx, w):
+    """The one-profile form (replaces the Pallas TPU kernel
+    ``src/repro/kernels/mask_aggregate.py:47``, ``mask_aggregate``):
+    bank [N, d, b], idx [k] int32, w [k] fp32 -> [d, b] fp32, the batched
+    kernel at P=1 on views of idx/w (no copy).
+    ``mask_aggregate.launches`` counts its launches."""
+    if bank.device.type == "cpu":
+        return ref.mask_aggregate_ref(bank, idx, w)
+    if idx.ndim != 1 or w.ndim != 1:
+        raise ValueError(f"idx/w must both be [k], got {tuple(idx.shape)} "
+                         f"/ {tuple(w.shape)}")
+    out = _launch(bank, idx[None], w[None])[0]
+    mask_aggregate.launches += 1
+    return out
+
+
+def _launch(bank, idx, w):
+    """Check the operands and launch on bank's device (uncounted)."""
     if bank.device.type != "cuda":
         raise ValueError(f"no kernel for device {bank.device}")
     _check(bank, idx, w)
@@ -70,10 +96,9 @@ def mask_aggregate_batched(bank, idx, w):
             bank.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
             row, P, k, N, _DTYPES[bank.dtype], stream)
     if err:
-        raise RuntimeError(f"mask_aggregate_batched launch failed: CUDA "
-                           f"error {err}")
-    mask_aggregate_batched.launches += 1
+        raise RuntimeError(f"mask_aggregate launch failed: CUDA error {err}")
     return out
 
 
 mask_aggregate_batched.launches = 0
+mask_aggregate.launches = 0

@@ -1,8 +1,10 @@
 """Kernel dispatch layer: the port's counterpart of ``repro.kernels.ops``.
 
 Every model/serve hot path that applies or aggregates adapters routes
-through here (``models/model.py`` ``_xpeft_apply``, ``core/xpeft.py``
-admission). Callers pass ``impl`` — normally ``cfg.xpeft.kernel_impl``:
+through here (``models/model.py`` ``_xpeft_apply`` and
+``_decode_fused_apply``, ``core/xpeft.py`` admission and
+``apply_precomputed_layer``). Callers pass ``impl`` — normally
+``cfg.xpeft.kernel_impl``:
 
 - ``auto`` — the hand-written CUDA kernel on a CUDA tensor (launched or
   raising, never falling back), the plain PyTorch version on a CPU tensor.
@@ -14,10 +16,14 @@ The Pallas backends (``pallas``, ``interpret``) have no counterpart.
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_fused import (
+    decode_block_fused as _decode_cuda)
+from repro_torch.kernels.fused_adapter import fused_adapter as _fused_cuda
 from repro_torch.kernels.fused_adapter_batched import (
-    fused_adapter_batched as _fused_cuda)
+    fused_adapter_batched as _fused_cuda_batched)
+from repro_torch.kernels.mask_aggregate import mask_aggregate as _agg_cuda
 from repro_torch.kernels.mask_aggregate import (
-    mask_aggregate_batched as _agg_cuda)
+    mask_aggregate_batched as _agg_cuda_batched)
 
 IMPLS = ("auto", "ref")
 
@@ -28,27 +34,56 @@ def resolve_impl(impl: str) -> str:
     return impl
 
 
+def mask_aggregate(bank, idx, w, *, impl: str = "auto"):
+    """k-sparse bank aggregation. bank [N,d,b], idx [k], w [k] -> [d,b]
+    fp32."""
+    if resolve_impl(impl) == "ref":
+        return ref.mask_aggregate_ref(bank, idx, w)
+    return _agg_cuda(bank, idx, w)
+
+
 def mask_aggregate_batched(bank, idx, w, *, impl: str = "auto"):
     """bank [N,d,b], idx [P,k], w [P,k] -> [P,d,b] fp32 (one launch)."""
     if resolve_impl(impl) == "ref":
         return ref.mask_aggregate_batched_ref(bank, idx, w)
-    return _agg_cuda(bank, idx, w)
+    return _agg_cuda_batched(bank, idx, w)
 
 
 def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
                   activation: str = "gelu", impl: str = "auto",
                   use_ln: bool = True):
-    """Fused bottleneck adapter y = x + B̂(act(LN(Â x))) over a batch:
-    x [B,T,d] with per-row a_hat [B,d,b] (b_hat / ln_* likewise) or
-    shared 2-D ones. The unbatched [T,d] form is TPU kernel #3
-    (``kernels/fused_adapter.py``), still to port (ROADMAP queue 2)."""
-    if x.ndim != 3:
-        raise NotImplementedError(
-            "unbatched fused_adapter ([T, d] x) is not ported yet "
-            "(ROADMAP queue 2, item 4); pass x as [1, T, d]")
+    """Fused bottleneck adapter y = x + B̂(act(LN(Â x))).
+
+    x [T,d] with a_hat [d,b], or x [B,T,d] with per-row a_hat [B,d,b]
+    (b_hat / ln_* likewise; 2-D adapter args broadcast across the batch).
+    ``use_ln=False`` with the identity is the LoRA route."""
+    plain = resolve_impl(impl) == "ref"
+    kw = dict(activation=activation, use_ln=use_ln)
+    if x.ndim == 3:
+        if plain:
+            return ref.fused_adapter_batched_ref(x, a_hat, b_hat, ln_scale,
+                                                 ln_bias, **kw)
+        return _fused_cuda_batched(x, a_hat, b_hat, ln_scale, ln_bias, **kw)
+    if plain:
+        return ref.fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias,
+                                     **kw)
+    return _fused_cuda(x, a_hat, b_hat, ln_scale, ln_bias, **kw)
+
+
+def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
+                       norm: str, qkv_bias: bool, use_rope: bool,
+                       theta: float, cap: float, mlp_type: str,
+                       act_name: str, adapter: str, adapter_act: str,
+                       impl: str = "auto"):
+    """Decode megakernel (``ModelConfig.decode_fused``): one launch per
+    layer applying norm/attention/MLP AND the X-PEFT adapter over the
+    [B, 1, d] activations. ``adapter`` picks the fused route ("none",
+    "bf16"; "int8"/"int4" raise); returns (y, k_rows, v_rows) — the
+    caller scatters the K/V rows into the cache."""
+    kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
+              cap=cap, mlp_type=mlp_type, act_name=act_name,
+              adapter=adapter, adapter_act=adapter_act)
     if resolve_impl(impl) == "ref":
-        return ref.fused_adapter_batched_ref(
-            x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
-            use_ln=use_ln)
-    return _fused_cuda(x, a_hat, b_hat, ln_scale, ln_bias,
-                       activation=activation, use_ln=use_ln)
+        return ref.decode_block_ref(x, pos, block, k_cache, v_cache,
+                                    masks_l, **kw)
+    return _decode_cuda(x, pos, block, k_cache, v_cache, masks_l, **kw)

@@ -63,7 +63,7 @@ def _sdpa_dense(q, k, v, mask, scale, cap):
     return torch.einsum("bkgts,bksh->bkgth", w.to(v.dtype), v)
 
 
-def _write_cache(buf, new, cache_pos):
+def write_cache(buf, new, cache_pos):
     """Write ``new [B,T,KV,hd]`` into ``buf [B,S,KV,hd]`` in place.
 
     Scalar ``cache_pos``: one slice, its start clamped so the slice fits
@@ -113,8 +113,8 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None):
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
-        _write_cache(cache["k"], k, cache_pos)
-        _write_cache(cache["v"], v, cache_pos)
+        write_cache(cache["k"], k, cache_pos)
+        write_cache(cache["v"], v, cache_pos)
         keys, vals = cache["k"].to(k.dtype), cache["v"].to(v.dtype)
         S = keys.shape[1]
         if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:

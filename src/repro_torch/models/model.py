@@ -3,10 +3,12 @@
 The port of ``repro.models.model`` for ``block_pattern="attn"``, non-MoE,
 full attention. Params are plain dicts of tensors in the JAX package's
 layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
-becomes a Python loop over that axis. Every other block pattern, MoE,
-sliding windows, the decode megakernel and the mask routes other than the
-admission-time aggregated ``a_hat`` one raise ``NotImplementedError``
-naming their ROADMAP item.
+becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
+cached decode step runs the decode megakernel once per layer in place of
+attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
+Every other block pattern, MoE, sliding windows and the mask routes other
+than the admission-time aggregated ``a_hat`` one raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,9 +46,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported (ROADMAP queue 1, "
             "item 2)")
-    if cfg.decode_fused:
-        raise NotImplementedError("the decode megakernel route is not "
-                                  "ported (ROADMAP queue 1, item 5)")
     if cfg.frontend != "none" or cfg.pos == "learned" or cfg.embed_scale:
         raise NotImplementedError(
             "frontends, learned positions and embedding scaling are not "
@@ -132,6 +131,47 @@ def _xpeft_apply(x, masks_l, cfg):
                              impl=cfg.xpeft.kernel_impl)
 
 
+def _decode_fused_route(cfg, masks, use_cache: bool, Tt: int):
+    """Static eligibility of the decode megakernel: returns the adapter
+    route ("none" | "bf16" | "int8" | "int4") or None for the composed
+    path. Only the T=1 cached full-attention decode step qualifies; the
+    on-the-fly mask routes (w_a / idx_a) keep the composed path — the
+    megakernel fuses admission-time aggregated records only."""
+    if not (cfg.decode_fused and use_cache and Tt == 1
+            and cfg.block_pattern == "attn" and not cfg.moe
+            and cfg.attn_type == "full" and cfg.causal):
+        return None
+    if masks is None or not cfg.xpeft.enabled:
+        return "none"
+    if any(key in masks for key in ("lora_a", "lora_b", "ia3_s",
+                                    "prefix_skip")):
+        return None  # heterogeneous entries take the composed per-type path
+    if "a_q" in masks:
+        return cfg.xpeft.bank_quant \
+            if cfg.xpeft.bank_quant in ("int8", "int4") else None
+    if "a_hat" in masks:
+        return "bf16"
+    return None
+
+
+def _decode_fused_apply(block, x, masks_l, cfg, *, positions, cache_l,
+                        cache_pos, route):
+    """Megakernel step: one launch for norm/attn/MLP/adapter, then the K/V
+    row scatter OUTSIDE the kernel, in place, with the cache write's own
+    semantics (a scalar position clamps, per-slot positions past the end
+    are dropped). The kernel reads the cache before the scatter."""
+    y, k_rows, v_rows = ops.decode_block_fused(
+        x, positions[:, 0].contiguous(), block, cache_l["k"], cache_l["v"],
+        masks_l, norm=cfg.norm, qkv_bias=cfg.qkv_bias,
+        use_rope=cfg.pos == "rope", theta=cfg.rope_theta,
+        cap=cfg.logit_softcap, mlp_type=cfg.mlp_type, act_name=cfg.act,
+        adapter=route, adapter_act=cfg.xpeft.adapter_activation,
+        impl=cfg.xpeft.kernel_impl)
+    ATT.write_cache(cache_l["k"], k_rows[:, None], cache_pos)
+    ATT.write_cache(cache_l["v"], v_rows[:, None], cache_pos)
+    return y
+
+
 def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos):
     h = norm_apply(x, block["n1"], cfg.norm)
     h, _ = ATT.attention(block["attn"], h, positions=positions, cfg=cfg,
@@ -160,15 +200,23 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
             positions = (int(cache_pos) + torch.arange(
                 T, dtype=torch.int32, device=x.device))[None].expand(B, T)
     blocks = params["blocks"]
+    fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
+                                      T)
     for l in range(cfg.num_layers):
         block = {name: {k: v[l] for k, v in sub.items()}
                  for name, sub in blocks.items()}
         cache_l = None if cache is None else \
             {"k": cache["k"][l], "v": cache["v"][l]}
-        x = _attn_block_apply(block, x, cfg, positions=positions,
-                              cache_l=cache_l, cache_pos=cache_pos)
         masks_l = None if profile_masks is None else \
             {k: v[:, l] for k, v in profile_masks.items()}
+        if fused_route is not None:
+            # the block and the adapter in one launch: no _xpeft_apply
+            x = _decode_fused_apply(block, x, masks_l, cfg,
+                                    positions=positions, cache_l=cache_l,
+                                    cache_pos=cache_pos, route=fused_route)
+            continue
+        x = _attn_block_apply(block, x, cfg, positions=positions,
+                              cache_l=cache_l, cache_pos=cache_pos)
         x = _xpeft_apply(x, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)

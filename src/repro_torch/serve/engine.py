@@ -2,7 +2,9 @@
 
 The port of ``repro.serve.engine.ServeEngine`` in windowed mode with
 admission-time aggregation (``continuous=False``, ``precompute=True``),
-hard-mask profiles and an unquantized, type-pure bank. Admission of a wave:
+hard-mask profiles and an unquantized, type-pure bank; with
+``cfg.decode_fused`` each decode step runs the decode megakernel once per
+layer (prefill keeps the composed path). Admission of a wave:
 
 1. hydrate: per-request profile-cache lookup; only MISSING profiles are
    aggregated against the bank — k-sparse, the top-k rows only — in ONE
@@ -57,6 +59,11 @@ def _check_slice(cfg, store, *, precompute, continuous, mesh, fault_plan,
     if cfg.xpeft.bank_quant != "none":
         raise NotImplementedError("quantized banks are not ported "
                                   "(ROADMAP queue 1, item 6)")
+    if cfg.spec_enable and cfg.decode_fused:
+        raise ValueError(
+            "spec_enable and decode_fused are exclusive per engine: "
+            "verification runs a T=gamma+1 composed forward, which the T=1 "
+            "megakernel cannot serve")
     if cfg.spec_enable:
         raise NotImplementedError("speculative decoding is not ported "
                                   "(ROADMAP queue 1, item 5)")

@@ -17,16 +17,23 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.configs import XPeftConfig as JXPeftConfig
+from repro.core import xpeft as JXP
 from repro.kernels import ref as jref
+from repro.kernels.fused_adapter import fused_adapter as pallas_fused_1
 from repro.kernels.fused_adapter_batched import (
     fused_adapter_batched as pallas_fused)
+from repro.kernels.mask_aggregate import mask_aggregate as pallas_agg_1
 from repro.kernels.mask_aggregate import (
     mask_aggregate_batched as pallas_agg)
 from repro_torch.configs import XPeftConfig
+from repro_torch.core import xpeft as TXP
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fused_adapter import fused_adapter
 from repro_torch.kernels.fused_adapter_batched import fused_adapter_batched
-from repro_torch.kernels.mask_aggregate import mask_aggregate_batched
+from repro_torch.kernels.mask_aggregate import (mask_aggregate,
+                                                mask_aggregate_batched)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -164,8 +171,74 @@ def test_fused_adapter_layer_slices_and_dispatch():
             *[t.contiguous() for t in args])
         assert torch.equal(auto, plain) and torch.equal(plain, dense)
     assert fused_adapter_batched.launches == before
-    with pytest.raises(NotImplementedError):
-        ops.fused_adapter(x[0], a[0, 0], bb[0, 0], ls[0, 0], lb[0, 0])
+    # the unbatched [T, d] form is the batched one at B=1
+    one = ops.fused_adapter(x[0], a[0, 0], bb[0, 0], ls[0, 0], lb[0, 0])
+    assert torch.equal(one, ops.fused_adapter(
+        x[:1], a[:1, 0], bb[:1, 0], ls[:1, 0], lb[:1, 0])[0])
+
+
+# ----------------------------------------------------------------------------
+# the one-profile aggregation and the unbatched adapter (B=1 / P=1 forms)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mask_aggregate_matches_jax(dtype):
+    bank, idx, w = _agg_inputs(7, d=256, b=8, k=5)
+    jbank = jnp.asarray(bank, dtype)
+    tbank = _t(bank, getattr(torch, dtype))
+    before = mask_aggregate.launches
+    for p in range(idx.shape[0]):
+        ji, jw = jnp.asarray(idx[p]), jnp.asarray(w[p])
+        got = ops.mask_aggregate(tbank, _t(idx[p]), _t(w[p]))
+        assert got.dtype == torch.float32 and got.shape == (256, 8)
+        np.testing.assert_allclose(
+            got.numpy(), _np32(jref.mask_aggregate_ref(jbank, ji, jw)),
+            **F32_TOL)
+        np.testing.assert_allclose(
+            got.numpy(), _np32(pallas_agg_1(jbank, ji, jw, interpret=True)),
+            **F32_TOL)
+        # bit for bit the batched form's row, the kernel's own arithmetic
+        assert torch.equal(got, mask_aggregate(tbank, _t(idx[p]),
+                                               _t(w[p])))
+        assert torch.equal(got, tref.mask_aggregate_batched_ref(
+            tbank, _t(idx), _t(w))[p])
+    assert mask_aggregate.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation,use_ln", [("gelu", True),
+                                               ("identity", False)])
+def test_fused_adapter_unbatched_matches_jax(dtype, activation, use_ln):
+    x, a, bb, ls, lb = _fa_inputs(8, B=1, T=8, shared=True)
+    x = x[0]
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    kw = dict(activation=activation, use_ln=use_ln)
+    jargs = [jnp.asarray(v, dtype) for v in (x, a, bb)] + \
+        [jnp.asarray(ls), jnp.asarray(lb)]
+    targs = [_t(v, getattr(torch, dtype)) for v in (x, a, bb)] + \
+        [_t(ls), _t(lb)]
+    before = fused_adapter.launches
+    got = ops.fused_adapter(*targs, **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == x.shape
+    assert torch.equal(got, fused_adapter(*targs, **kw))
+    assert fused_adapter.launches == before
+    want_ref = jref.fused_adapter_ref(*jargs, **kw)
+    want_pallas = pallas_fused_1(*jargs, interpret=True, **kw)
+    np.testing.assert_allclose(_np32(got), _np32(want_ref), **tol)
+    np.testing.assert_allclose(_np32(got), _np32(want_pallas), **tol)
+
+
+def test_apply_precomputed_layer_matches_jax():
+    """``core/xpeft.py`` ``apply_precomputed_layer``, the unbatched
+    adapter's entry point, on one layer of an aggregated record."""
+    x, a, bb, ls, lb = _fa_inputs(9, B=1, T=6, shared=True)
+    entry = dict(a_hat=a, b_hat=bb, ln_scale=ls, ln_bias=lb)
+    want = JXP.apply_precomputed_layer(
+        jnp.asarray(x[0]), {k: jnp.asarray(v) for k, v in entry.items()},
+        JXPeftConfig())
+    got = TXP.apply_precomputed_layer(
+        _t(x[0]), {k: _t(v) for k, v in entry.items()}, XPeftConfig())
+    np.testing.assert_allclose(got.numpy(), _np32(want), **F32_TOL)
 
 
 # ----------------------------------------------------------------------------
