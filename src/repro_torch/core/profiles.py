@@ -5,9 +5,11 @@ same mask logits: hard masks bit-packed, LN affines fp16, a per-field
 crc32 sidecar verified at every hydration. Serving hydrates through the
 vectorized public API (``batch_sparse_indices``, ``ln_affines``).
 
-Ported here: hard-mask records, integrity checks, change notifications.
-Soft-mask records, ``save``/``load``, ``merge_from`` and the quantized
-aggregated records wait for ROADMAP queue 1, items 3 and 6.
+Ported here: hard-mask records, integrity checks, change notifications,
+and a quantized store's aggregated Â/B̂ records (``quant`` int8/int4:
+graduation may attach them, quantized on write, and serving then admits
+the profile with zero bank reads). Soft-mask records, ``save``/``load``
+and ``merge_from`` wait for ROADMAP queue 1, item 3.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import masks as M
+from repro_torch.quant import schemes as QS
 from repro_torch.resilience.integrity import RecordIntegrityError, \
     array_crc, record_crc
 
@@ -28,7 +31,8 @@ def _host(a) -> np.ndarray:
 
 class ProfileStore:
     def __init__(self, num_layers: int, num_adapters: int, bottleneck: int,
-                 mask_type: str = "hard", k: int = 50):
+                 mask_type: str = "hard", k: int = 50, quant: str = "none",
+                 quant_group: int = 32):
         if mask_type != "hard":
             raise NotImplementedError("soft-mask records are not ported "
                                       "(ROADMAP queue 1, item 3)")
@@ -37,11 +41,16 @@ class ProfileStore:
         self.b = bottleneck
         self.mask_type = mask_type
         self.k = k
+        # quant != "none": graduation may attach the profile's aggregated
+        # Â/B̂, persisted QUANTIZED with the store's scheme
+        self.quant = QS.check_scheme(quant)
+        self.quant_group = quant_group
         self._rec: Dict[int, dict] = {}
         # integrity sidecar, parallel to _rec and never inside it
         self._crc: Dict[int, Dict[str, int]] = {}
         self._quarantined: Dict[int, str] = {}
         self.corrupt_detected = 0
+        self.agg_dropped: list = []  # pids whose corrupt agg payload was shed
         self._listeners: list = []
 
     # -------------------------------------------------------- invalidation
@@ -64,9 +73,16 @@ class ProfileStore:
         self._listeners = live
 
     # ------------------------------------------------------------------ add
-    def add_profile(self, pid: int, profile_params: dict) -> None:
+    def add_profile(self, pid: int, profile_params: dict, *,
+                    agg=None) -> None:
         """Freeze a profile (mask logits mA/mB [L, N] + LN affines [L, b],
-        tensors or arrays) into its byte-level record."""
+        tensors or arrays) into its byte-level record.
+
+        ``agg`` (quantized stores only): the profile's aggregated
+        ``(Â [L, d, b], B̂ [L, b, d])``, quantized on write with the
+        store's scheme into ``agg_a_q``/``agg_a_scale``/``agg_b_q``/
+        ``agg_b_scale``, so serving can admit the profile without reading
+        the bank."""
         rec = {
             "ln_scale": _host(profile_params["ln_scale"]).astype(np.float16),
             "ln_bias": _host(profile_params["ln_bias"]).astype(np.float16),
@@ -78,6 +94,16 @@ class ProfileStore:
         if "head_w" in profile_params:
             rec["head_w"] = _host(profile_params["head_w"]).astype(np.float16)
             rec["head_b"] = _host(profile_params["head_b"]).astype(np.float16)
+        if agg is not None:
+            if self.quant == "none":
+                raise ValueError("aggregated records require a quantized "
+                                 "store (quant='int8'|'int4')")
+            for side, t in zip(("a", "b"), agg):
+                t = t if torch.is_tensor(t) else torch.from_numpy(
+                    np.array(t, np.float32))
+                q = QS.quantize(t, self.quant, group=self.quant_group)
+                rec[f"agg_{side}_q"] = _host(q["q"])
+                rec[f"agg_{side}_scale"] = _host(q["scale"])
         self._rec[int(pid)] = rec
         self._crc[int(pid)] = record_crc(rec)
         self._quarantined.pop(int(pid), None)
@@ -85,9 +111,13 @@ class ProfileStore:
 
     # ------------------------------------------------------------- integrity
     def check_record(self, pid: int) -> None:
-        """Verify one record against its checksums; a mismatch quarantines
-        the record (never served until re-added) and raises
-        ``RecordIntegrityError``."""
+        """Verify one record against its checksums. A mismatch in a core
+        field (masks, LN affines, head) quarantines the record (never
+        served until re-added) and raises ``RecordIntegrityError``. A
+        mismatch confined to the aggregated ``agg_*`` payload is healed
+        instead: those fields are shed (subscribers notified, dropping any
+        cached copy) and the call returns; the intact masks re-hydrate the
+        profile from the bank."""
         pid = int(pid)
         if pid in self._quarantined:
             raise RecordIntegrityError(pid, (), self._quarantined[pid])
@@ -99,6 +129,13 @@ class ProfileStore:
         if not bad:
             return
         self.corrupt_detected += 1
+        if all(k.startswith("agg_") for k in bad):
+            for k in [k for k in rec if k.startswith("agg_")]:
+                rec.pop(k)
+                want.pop(k, None)
+            self.agg_dropped.append(pid)
+            self._notify(pid)
+            return
         self._quarantined[pid] = f"checksum mismatch ({', '.join(bad)})"
         self._notify(pid)
         raise RecordIntegrityError(pid, bad)
@@ -117,6 +154,32 @@ class ProfileStore:
         """Stacked ([R, L, k] idx, [R, L, k] w) x2 (host tensors)."""
         parts = [self.sparse_indices(pid) for pid in pids]
         return tuple(torch.stack([p[i] for p in parts]) for i in range(4))
+
+    def has_quant_record(self, pid: int) -> bool:
+        """True when ``pid`` carries a quantized aggregated Â/B̂ record
+        that passes its checksums; a record whose agg payload was just
+        shed (or whose core fields are quarantined) answers False."""
+        if "agg_a_q" not in self._rec.get(int(pid), {}):
+            return False
+        try:
+            self.check_record(pid)
+        except RecordIntegrityError:
+            return False
+        return "agg_a_q" in self._rec[int(pid)]
+
+    def quant_records(self, pids: Iterable[int]):
+        """Stacked quantized aggregated records of a batch of profiles:
+        {"a_q" [R, L, d, b|b/2], "a_scale", "b_q", "b_scale"} as host
+        tensors, the zero-bank-read admission hydration."""
+        if self.quant == "none":
+            raise ValueError("store has no quantized records")
+        pids = list(pids)
+        return {dst: torch.from_numpy(np.stack(
+                    [self._rec[int(pid)][src] for pid in pids]))
+                for src, dst in (("agg_a_q", "a_q"),
+                                 ("agg_a_scale", "a_scale"),
+                                 ("agg_b_q", "b_q"),
+                                 ("agg_b_scale", "b_scale"))}
 
     def ln_affines(self, pids: Iterable[int]):
         """Stacked adapter-LN affines ([R, L, b] scale, [R, L, b] bias) as

@@ -10,30 +10,36 @@
 //   o = softmax(mask(softcap(q.K^T * scale)), k_pos <= pos) . V
 //   x1 = x + o.Wo;  h = RMSNorm2(x1);  x2 = x1 + (silu(h.Wg) * h.Wu).Wd
 //   adapter "bf16":  y = x2 + act(LN(x2.A_hat)).B_hat;  "none": y = x2
+//   adapter "int8"/"int4":  the same with A_hat/B_hat dequantized from
+//                           their quantized slot records (dequant.cuh)
 //
 // and returns y and the new K/V rows (the caller scatters them into the
-// cache after the launch, so the cache read here is the old one). Routes
-// int8/int4 and the variants qwen1.5-0.5b does not use (layernorm, a
-// vanilla MLP, other activations, no RoPE, fp32) are refused by the
-// wrapper.
+// cache after the launch, so the cache read here is the old one). The
+// variants qwen1.5-0.5b does not use (layernorm, a vanilla MLP, other
+// activations, no RoPE, fp32) are refused by the wrapper.
 //
 // Numerics are decode_block_row's, the oracle the Pallas kernel is held
 // to bitwise: fp32 sums, rounded to bf16 after each norm, after each
 // projection (q, k, v, o.Wo, g, u, m.Wd), at the bias add (the bias itself
 // cast to bf16 first), after RoPE (fp32, no FMA contraction), at the
 // softmax weights before w.V, at w.V, at silu(g) and at silu(g)*u, at each
-// residual add, and in the adapter at h (before B_hat) and at y. The
-// adapter's LN and activation stay fp32. This differs on purpose from the
-// port's fused_adapter.cu, which follows kernels/ref.py's fused-adapter
-// numerics (fp32 inside, one rounding): at bf16 the fused and composed
-// decode paths differ by design, by about a bf16 step per rounding point.
+// residual add, and on route bf16 in the adapter at h (before B_hat) and
+// at y. The adapter's LN and activation stay fp32. Routes int8/int4 keep
+// the adapter fp32 end to end, as decode_block_row's quantized branch
+// does: x2's bf16 value times the exact dequantized A, h NOT rounded
+// before B, and ONE rounding of x2 + y (not rnd(x2 + rnd(y))). Route
+// bf16 differs on purpose from the port's fused_adapter.cu, which follows
+// kernels/ref.py's fused-adapter numerics (fp32 inside, one rounding): at
+// bf16 the fused and composed decode paths differ by design, by about a
+// bf16 step per rounding point.
 // The RoPE frequency table 1/theta^(2i/hd) comes from the wrapper, made by
 // the same PyTorch expression as the plain version.
 //
 // Bound on the H100: bytes. One layer-step must read the layer's weights
 // once (4*d^2 + 3*d*ff bf16 = 25.7 MB at qwen1.5-0.5b), the slots' K/V
-// rows (1 MB at B=4, S=128) and their A_hat/B_hat (1 MB): ~28 MB, ~8 us at
-// 3.35 TB/s, against ~2 flops per weight byte for B=4 slots.
+// rows (1 MB at B=4, S=128) and their A_hat/B_hat (1 MB in bf16, ~0.5 MB
+// in int8, ~0.28 MB in int4): ~28 MB, ~8 us at 3.35 TB/s, against ~2
+// flops per weight byte for B=4 slots.
 //
 // Design (simple and right first; no wgmma, no TMA). The TPU grid (B,) --
 // one program per slot, each streaming all the weights -- would run 4
@@ -53,8 +59,11 @@
 //   7. LN over b (population variance, eps 1e-6), the affine, gelu (tanh
 //      form) or identity, then .B_hat tiles + the residual.
 // A GEMV tile runs 256 threads as 2 column vectors (16 bytes, 8 bf16) x
-// 128 k-lanes; partial sums are reduced by warp shuffles and across warps
-// in shared memory in a fixed order, so results do not vary between runs.
+// 128 k-lanes; on routes int8/int4 the adapter's tiles read each 8-column
+// vector as 8 bytes (int8) or 8 nibbles of one half of a planar int4 row
+// and widen it in registers (gemv_tile_q); partial sums are reduced by
+// warp shuffles and across warps in shared memory in a fixed order, so
+// results do not vary between runs.
 // Intermediates between phases live in an fp32 scratch buffer that the
 // wrapper allocates (read with plain loads: it is written in this launch).
 // grid.sync() builds without relocatable device code (-rdc) under CUDA 12.
@@ -63,7 +72,11 @@
 // launch can hang.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "dequant.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -77,6 +90,7 @@ constexpr int kTile = 16;              // output columns per GEMV task
 constexpr int kKLanes = kThreads / 2;  // two 8-column vectors per row
 constexpr float kNegInf = -2.0e38f;
 constexpr float kNormEps = 1e-6f;
+enum Route { kNone = 0, kBf16 = 1, kInt8 = 2, kInt4 = 3 };
 
 struct Args {
   const bf16* x;       // [B, d]
@@ -100,6 +114,12 @@ struct Args {
   const float* ln_s;   // [B, nb], batch stride ln_bs
   const float* ln_b;
   long long a_bs, b_bs, ln_bs;
+  const uint8_t* a_q;  // routes int8/int4: [B, d, nb | nb/2], stride aq_bs
+  const __half* a_s;   // [B, d, a_groups], stride as_bs
+  const uint8_t* b_q;  // [B, nb, d | d/2], stride bq_bs
+  const __half* b_s;   // [B, nb, b_groups], stride bs_bs
+  long long aq_bs, as_bs, bq_bs, bs_bs;
+  int a_groups, b_groups;
   const float* inv_freq;  // [hd/2]
   bf16* y;             // [B, d]
   bf16* k_row;         // [B, KV, hd]
@@ -207,41 +227,16 @@ __device__ __forceinline__ void fma_row(float (&acc)[R][8], uint4 raw,
   }
 }
 
-// out[r, c] = sum_k in[r, k] * W[k, c0 + c] for r < R, c < kTile, in fp32.
-// in: [R, K] in shared memory; W: [K, N] bf16 row-major, 16-byte aligned
-// rows (N % 8 == 0), read once. part: [kWarps, R, kTile] and out: [R,
-// kTile] in shared memory. Every thread of the block must call it.
+// The reduction that ends every GEMV tile: the 16 k-lanes of each column
+// vector in a warp by shuffles, then the warps in shared memory in a
+// fixed order. acc: this thread's [R][8] partial sums of columns
+// (tid & 1) * 8 .. +7 of the tile.
 template <int R>
-__device__ void gemv_tile(const float* in, int K, const bf16* W, int N,
-                          int c0, float* part, float* out) {
+__device__ void tile_reduce(float (&acc)[R][8], float* part, float* out) {
   const int tid = threadIdx.x;
   const int vec = tid & 1;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float acc[R][8];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-
-  const bf16* wp = W + c0 + vec * 8;
-  int k = tid >> 1;
-  for (; k + 3 * kKLanes < K; k += 4 * kKLanes) {
-    uint4 raw[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      raw[u] = __ldg(reinterpret_cast<const uint4*>(
-          wp + static_cast<long long>(k + u * kKLanes) * N));
-#pragma unroll
-    for (int u = 0; u < 4; ++u) fma_row<R>(acc, raw[u], in, K, k + u * kKLanes);
-  }
-  for (; k < K; k += kKLanes)
-    fma_row<R>(acc,
-               __ldg(reinterpret_cast<const uint4*>(
-                   wp + static_cast<long long>(k) * N)),
-               in, K, k);
-
-  // the 16 k-lanes of each column vector in this warp, then the warps
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -269,11 +264,76 @@ __device__ void gemv_tile(const float* in, int K, const bf16* W, int N,
   __syncthreads();
 }
 
+// out[r, c] = sum_k in[r, k] * W[k, c0 + c] for r < R, c < kTile, in fp32.
+// in: [R, K] in shared memory; W: [K, N] bf16 row-major, 16-byte aligned
+// rows (N % 8 == 0), read once. part: [kWarps, R, kTile] and out: [R,
+// kTile] in shared memory. Every thread of the block must call it.
+template <int R>
+__device__ void gemv_tile(const float* in, int K, const bf16* W, int N,
+                          int c0, float* part, float* out) {
+  const int tid = threadIdx.x;
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+
+  const bf16* wp = W + c0 + (tid & 1) * 8;
+  int k = tid >> 1;
+  for (; k + 3 * kKLanes < K; k += 4 * kKLanes) {
+    uint4 raw[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      raw[u] = __ldg(reinterpret_cast<const uint4*>(
+          wp + static_cast<long long>(k + u * kKLanes) * N));
+#pragma unroll
+    for (int u = 0; u < 4; ++u) fma_row<R>(acc, raw[u], in, K, k + u * kKLanes);
+  }
+  for (; k < K; k += kKLanes)
+    fma_row<R>(acc,
+               __ldg(reinterpret_cast<const uint4*>(
+                   wp + static_cast<long long>(k) * N)),
+               in, K, k);
+  tile_reduce<R>(acc, part, out);
+}
+
+// gemv_tile over a quantized W (routes int8/int4): each thread's 8-column
+// vector of row k is one 8-byte load, widened in registers to exact fp32
+// values (dequant.cuh). W.n % 16 == 0 and 8-byte aligned rows; the
+// wrapper checks.
+template <int R>
+__device__ void gemv_tile_q(const float* in, int K, const xpeft::QMat& W,
+                            int c0, float* part, float* out) {
+  const int tid = threadIdx.x;
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+
+  const int c = c0 + (tid & 1) * 8;
+  int sidx[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sidx[j] = (c + j) / W.g;
+  for (int k = tid >> 1; k < K; k += kKLanes) {
+    float wf[8];
+    xpeft::qmat_load8(W, k, c, sidx, wf);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float hr = in[r * K + k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(hr, wf[j], acc[r][j]);
+    }
+  }
+  tile_reduce<R>(acc, part, out);
+}
+
 // The adapter's hidden row for one slot: LN over nb (population variance),
-// the fp32 affine, gelu (tanh form) or identity, rounded to bf16 -> out.
+// the fp32 affine, gelu (tanh form) or identity -> out, rounded to bf16 on
+// route bf16 (round_bf16) and left fp32 on the quantized routes.
 __device__ void adapter_hidden(const float* hh, const float* ls,
-                               const float* lb, int nb, int gelu, float* out,
-                               float* red) {
+                               const float* lb, int nb, int gelu,
+                               int round_bf16, float* out, float* red) {
   const int tid = threadIdx.x;
   const float v = tid < nb ? hh[tid] : 0.0f;
   const float mu = __fdiv_rn(block_sum(v, red), static_cast<float>(nb));
@@ -284,7 +344,7 @@ __device__ void adapter_hidden(const float* hh, const float* ls,
   if (tid < nb) {
     float t = __fadd_rn(__fmul_rn(__fmul_rn(dv, r), ls[tid]), lb[tid]);
     if (gelu) t = gelu_tanh(t);
-    out[tid] = rnd(t);
+    out[tid] = round_bf16 ? rnd(t) : t;
   }
   __syncthreads();
 }
@@ -488,6 +548,19 @@ __global__ void __launch_bounds__(kThreads, 2) decode_block_kernel(Args p) {
   if (!p.adapter) return;  // uniform over the grid: no block is left waiting
   grid.sync();
 
+  // the slots' quantized records (routes int8/int4): slot b's A is
+  // [d, nb], its B [nb, d], at the batch strides
+  const bool quant = p.adapter == kInt8 || p.adapter == kInt4;
+  const int int4 = p.adapter == kInt4;
+  auto qa = [&](int b) {
+    return xpeft::QMat{p.a_q + b * p.aq_bs, p.a_s + b * p.as_bs, p.nb,
+                       p.a_groups, p.nb / p.a_groups, int4};
+  };
+  auto qb = [&](int b) {
+    return xpeft::QMat{p.b_q + b * p.bq_bs, p.b_s + b * p.bs_bs, d,
+                       p.b_groups, d / p.b_groups, int4};
+  };
+
   // 6. adapter down: hh[b] = x2[b] . A_hat[b], fp32
   {
     const int tpb = p.nb / kTile, ntask = B * tpb;
@@ -495,7 +568,11 @@ __global__ void __launch_bounds__(kThreads, 2) decode_block_kernel(Args p) {
       const int b = t / tpb, c0 = (t % tpb) * kTile;
       for (int i = tid; i < d; i += kThreads) s_vec[i] = g_x2[b * d + i];
       __syncthreads();
-      gemv_tile<1>(s_vec, d, p.a_hat + b * p.a_bs, p.nb, c0, s_part, s_out);
+      if (quant)
+        gemv_tile_q<1>(s_vec, d, qa(b), c0, s_part, s_out);
+      else
+        gemv_tile<1>(s_vec, d, p.a_hat + b * p.a_bs, p.nb, c0, s_part,
+                     s_out);
       if (tid < kTile) g_hh[b * p.nb + c0 + tid] = s_out[tid];
     }
   }
@@ -509,14 +586,20 @@ __global__ void __launch_bounds__(kThreads, 2) decode_block_kernel(Args p) {
       const int b = t / tpb, c0 = (t % tpb) * kTile;
       if (b != cur) {
         adapter_hidden(g_hh + b * p.nb, p.ln_s + b * p.ln_bs,
-                       p.ln_b + b * p.ln_bs, p.nb, p.gelu, s_vec, s_red);
+                       p.ln_b + b * p.ln_bs, p.nb, p.gelu, !quant, s_vec,
+                       s_red);
         cur = b;
       }
-      gemv_tile<1>(s_vec, p.nb, p.b_hat + b * p.b_bs, d, c0, s_part, s_out);
+      if (quant)
+        gemv_tile_q<1>(s_vec, p.nb, qb(b), c0, s_part, s_out);
+      else
+        gemv_tile<1>(s_vec, p.nb, p.b_hat + b * p.b_bs, d, c0, s_part,
+                     s_out);
       if (tid < kTile) {
         const int c = c0 + tid;
-        p.y[b * d + c] =
-            __float2bfloat16_rn(rnd(g_x2[b * d + c] + rnd(s_out[tid])));
+        const float x2 = g_x2[b * d + c];
+        p.y[b * d + c] = __float2bfloat16_rn(
+            quant ? __fadd_rn(x2, s_out[tid]) : rnd(x2 + rnd(s_out[tid])));
       }
     }
   }
@@ -583,10 +666,13 @@ extern "C" int xpeft_decode_block_config(int B, int d, int H, int KV, int hd,
 }
 
 // One cooperative launch of the decode block for B slots on `grid` blocks
-// (from xpeft_decode_block_config). adapter: 0 = none, 1 = bf16; gelu: 0 =
-// identity, 1 = gelu (tanh form); cap <= 0 turns the softcap off. Every
-// matrix is bf16 with 16-byte aligned rows; the wrapper checks shapes,
-// strides and alignment. Returns the launch's cudaError_t.
+// (from xpeft_decode_block_config). adapter: 0 = none, 1 = bf16 (a_hat,
+// b_hat, strides a_bs/b_bs), 2 = int8, 3 = int4 (a_q/a_s/b_q/b_s with
+// their strides and a_groups/b_groups scales per A/B row; dequant.cuh has
+// the layouts); ln_s/ln_b on routes 1-3. gelu: 0 = identity, 1 = gelu
+// (tanh form); cap <= 0 turns the softcap off. Every bf16 matrix has
+// 16-byte aligned rows, every quantized row 8-byte aligned; the wrapper
+// checks shapes, strides and alignment. Returns the launch's cudaError_t.
 extern "C" int xpeft_decode_block(
     const void* x, const void* pos, const void* n1, const void* n2,
     const void* wq, const void* wk, const void* wv, const void* wo,
@@ -596,11 +682,18 @@ extern "C" int xpeft_decode_block(
     long long a_bs, long long b_bs, long long ln_bs, const void* inv_freq,
     void* y, void* k_row, void* v_row, void* scratch, int B, int d, int H,
     int KV, int hd, int ff, int S, int nb, int qkv_bias, int adapter,
-    int gelu, float cap, float scale, int grid, void* stream) {
+    int gelu, float cap, float scale, const void* a_q, const void* a_s,
+    const void* b_q, const void* b_s, long long aq_bs, long long as_bs,
+    long long bq_bs, long long bs_bs, int a_groups, int b_groups, int grid,
+    void* stream) {
   const int bucket = slot_bucket(B);
+  const bool quant = adapter == kInt8 || adapter == kInt4;
   if (!bucket || grid < 1 || H % KV || hd < 2 || kThreads % hd ||
       d % kTile || (H * hd) % kTile || (KV * hd) % kTile || ff % kTile ||
-      (adapter && (nb % kTile || nb > kThreads)))
+      adapter < kNone || adapter > kInt4 ||
+      (adapter && (nb % kTile || nb > kThreads)) ||
+      (quant && (a_groups < 1 || b_groups < 1 || nb % a_groups ||
+                 d % b_groups)))
     return cudaErrorInvalidValue;
   Args a;
   a.x = static_cast<const bf16*>(x);
@@ -626,6 +719,12 @@ extern "C" int xpeft_decode_block(
   a.a_bs = a_bs;
   a.b_bs = b_bs;
   a.ln_bs = ln_bs;
+  a.a_q = static_cast<const uint8_t*>(a_q);
+  a.a_s = static_cast<const __half*>(a_s);
+  a.b_q = static_cast<const uint8_t*>(b_q);
+  a.b_s = static_cast<const __half*>(b_s);
+  a.aq_bs = aq_bs, a.as_bs = as_bs, a.bq_bs = bq_bs, a.bs_bs = bs_bs;
+  a.a_groups = a_groups, a.b_groups = b_groups;
   a.inv_freq = static_cast<const float*>(inv_freq);
   a.y = static_cast<bf16*>(y);
   a.k_row = static_cast<bf16*>(k_row);

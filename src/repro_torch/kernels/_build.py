@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so
-``nvcc`` builds each in seconds. All sources compile at once, one ``nvcc``
+``nvcc`` builds each in seconds; ``csrc/*.cuh`` holds device code they
+share (``dequant.cuh``). All sources compile at once, one ``nvcc``
 process per file, and link into ONE shared library in ``<repo>/build/``
 (listed in .gitignore), loaded with ``ctypes``. The library's name carries
-a hash of the sources and flags: it is built at first use and rebuilt when
-a source changes. Nothing here runs at import; a failed build raises with
-the compiler's output.
+a hash of the sources, headers and flags: it is built at first use and
+rebuilt when a source changes. Nothing here runs at import; a failed
+build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -31,13 +32,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     "xpeft_mask_aggregate_batched":
         [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
+    "xpeft_mask_aggregate_quant_batched":
+        [_P] * 5 + [_I] * 5 + [_LL, _I, _P],
     "xpeft_fused_adapter_batched":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
          _P],
+    "xpeft_fused_adapter_quant_batched":
+        [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 3 + [_P],
     "xpeft_decode_block_config":
         [_I] * 7 + [ctypes.POINTER(_I)],
     "xpeft_decode_block":
-        [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P],
+        [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 11 + [_F, _F]
+        + [_P] * 4 + [_LL] * 4 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -58,9 +64,13 @@ def nvcc() -> str:
     return found
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libxpeft_kernels_{h.hexdigest()[:16]}.so"

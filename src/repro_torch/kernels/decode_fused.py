@@ -15,7 +15,11 @@ program per slot, each streaming all the weights) would run 4 blocks on
 cooperative launch per layer over as many blocks as fit on the card at
 once, its phases separated by grid-wide barriers, each weight tile read
 once for all slots. Its numerics are ``decode_block_row``'s (the
-roundings the Pallas body makes), not the fused-adapter kernel's.
+roundings the Pallas body makes), not the fused-adapter kernel's. Routes
+int8/int4 read the slots' quantized Â/B̂ records and widen them in
+registers with the shared ``csrc/dequant.cuh``; their adapter stays fp32
+from x2 to one rounding of x2 + y, as ``decode_block_row``'s quantized
+branch does.
 
 On a CPU tensor the wrapper computes the plain version
 (``kernels/ref.py`` ``decode_block_ref``); on a CUDA tensor it launches
@@ -31,21 +35,19 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.fused_adapter_batched import _row_stride
+from repro_torch.kernels.mask_aggregate_quant import check_rows
 
 MAX_SLOTS = 8
-_ROUTES = {"none": 0, "bf16": 1}
+_ROUTES = {"none": 0, "bf16": 1, "int8": 2, "int4": 3}
 _ADAPTER_ACTS = {"identity": 0, "gelu": 1}
 
 
 def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
     """The variants the kernel does not build (nothing launches them yet):
     a reason naming the ROADMAP item, or None."""
-    if adapter in ("int8", "int4"):
-        return (f"adapter route {adapter!r} needs the quantized bank "
-                "(ROADMAP queue 1, item 6)")
     if adapter not in _ROUTES:
         return f"adapter route {adapter!r}"
-    if adapter == "bf16" and adapter_act not in _ADAPTER_ACTS:
+    if adapter != "none" and adapter_act not in _ADAPTER_ACTS:
         return f"adapter activation {adapter_act!r}"
     if norm != "rmsnorm" or mlp_type != "glu" or act_name != "silu" \
             or not use_rope:
@@ -84,14 +86,87 @@ def _need(t, name, shape, dtype, device):
     return t
 
 
+def _adapter_operands(masks_l, adapter, x):
+    """The route's adapter operands, checked: pointers and batch strides
+    for the kernel's bf16 slots (a_hat, b_hat, ln_scale, ln_bias; the LN
+    affines serve every route) and its quantized slots (a_q, a_scale,
+    b_q, b_scale), scales per Â/B̂ row, and the bottleneck width. Unused
+    slots get x, which the kernel never reads there."""
+    f32, dev = torch.float32, x.device
+    B, _, d = x.shape
+    out = {"nb": 0, "bf16": [x] * 4, "bf16_strides": [0, 0, 0],
+           "quant": [x] * 4, "quant_strides": [0, 0, 0, 0],
+           "groups": [0, 0]}
+    if adapter == "none":
+        return out
+    ls, lb = masks_l["ln_scale"], masks_l["ln_bias"]
+    if adapter == "bf16":
+        a, b = masks_l["a_hat"], masks_l["b_hat"]
+        if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+            raise TypeError("a_hat/b_hat must be bfloat16")
+        nb = a.shape[-1]
+        quant, row = [x] * 4, 16
+    else:
+        a, b = masks_l["a_q"], masks_l["b_q"]
+        a_s, b_s = masks_l["a_scale"], masks_l["b_scale"]
+        nb, a_groups = check_rows(a, a_s, adapter, "a_q")
+        nd, b_groups = check_rows(b, b_s, adapter, "b_q")
+        if nd != d:
+            raise ValueError(f"b_q rows hold {nd} values, d is {d}")
+        quant, row = [a, a_s, b, b_s], 8
+        out["groups"] = [a_groups, b_groups]
+    if ls.dtype != f32 or lb.dtype != f32:
+        raise TypeError("ln_scale/ln_bias must be float32")
+    if nb % 16 or nb > 256:
+        raise NotImplementedError(
+            f"decode megakernel bottleneck {nb}: needs a multiple of 16 up "
+            "to 256")
+    strides = {}
+    for name, t in (("a", a), ("b", b)):
+        inner = tuple(t.shape[-2:])
+        if t.ndim != 3 or t.shape[0] != B:
+            raise ValueError(f"{name} must be per-slot [{B}, ...], got "
+                             f"{tuple(t.shape)}")
+        strides[name] = _row_stride(t, inner, name)
+        if t.data_ptr() % row or (strides[name] * t.element_size()) % row:
+            raise ValueError(f"{name} rows must be {row}-byte aligned")
+    if tuple(a.shape[:2]) != (B, d) or b.shape[1] != nb:
+        raise ValueError(f"adapter records {tuple(a.shape)} / "
+                         f"{tuple(b.shape)} for d={d}, b={nb}")
+    ln_bs = _row_stride(ls, (nb,), "ln_scale")
+    if _row_stride(lb, (nb,), "ln_bias") != ln_bs or ln_bs == 0 \
+            or ls.shape[0] != B:
+        raise ValueError("ln_scale and ln_bias must be per-slot [B, b] in "
+                         "one layout")
+    if adapter == "bf16":
+        out["bf16"] = [a, b, ls, lb]
+        out["bf16_strides"] = [strides["a"], strides["b"], ln_bs]
+    else:
+        out["bf16"] = [x, x, ls, lb]
+        out["bf16_strides"] = [0, 0, ln_bs]
+        out["quant_strides"] = [strides["a"],
+                                _row_stride(a_s, tuple(a_s.shape[1:]),
+                                            "a_scale"),
+                                strides["b"],
+                                _row_stride(b_s, tuple(b_s.shape[1:]),
+                                            "b_scale")]
+    out["quant"] = quant
+    for t in out["bf16"] + quant:
+        if t.device != dev:
+            raise ValueError(f"adapter operand on {t.device}, x on {dev}")
+    out["nb"] = nb
+    return out
+
+
 def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
                        norm: str, qkv_bias: bool, use_rope: bool,
                        theta: float, cap: float, mlp_type: str,
                        act_name: str, adapter: str, adapter_act: str):
     """x [B, 1, d] bf16, pos [B] int32, block one layer's params, k/v_cache
     [B, S, KV, hd] bf16 (read, not written), masks_l the slots' adapter
-    leaves of route ``adapter`` ("none" or "bf16") -> (y [B, 1, d],
-    k_rows [B, KV, hd], v_rows [B, KV, hd])."""
+    leaves of route ``adapter`` ("none", "bf16", or "int8"/"int4": the
+    quantized records a_q/a_scale/b_q/b_scale) -> (y [B, 1, d], k_rows
+    [B, KV, hd], v_rows [B, KV, hd])."""
     kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
               cap=cap, mlp_type=mlp_type, act_name=act_name,
               adapter=adapter, adapter_act=adapter_act)
@@ -143,38 +218,12 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
             f"ff={ff}: needs H % KV == 0, hd a power of two in [16, 256] "
             "and widths that are multiples of 16")
 
-    a_bs = b_bs = ln_bs = 0
-    nb = 0
-    ad = [n1, n1, n1, n1]  # never read on route none
-    if adapter == "bf16":
-        a_hat, b_hat = masks_l["a_hat"], masks_l["b_hat"]
-        ls, lb = masks_l["ln_scale"], masks_l["ln_bias"]
-        nb = a_hat.shape[-1]
-        if a_hat.dtype != bf16 or b_hat.dtype != bf16 \
-                or ls.dtype != f32 or lb.dtype != f32:
-            raise TypeError("a_hat/b_hat must be bfloat16, ln_* float32")
-        if nb % 16 or nb > 256:
-            raise NotImplementedError(
-                f"decode megakernel bottleneck {nb}: needs a multiple of "
-                "16 up to 256")
-        a_bs = _row_stride(a_hat, (d, nb), "a_hat")
-        b_bs = _row_stride(b_hat, (nb, d), "b_hat")
-        ln_bs = _row_stride(ls, (nb,), "ln_scale")
-        if _row_stride(lb, (nb,), "ln_bias") != ln_bs:
-            raise ValueError("ln_scale and ln_bias must share one layout")
-        for name, t, bs in (("a_hat", a_hat, a_bs), ("b_hat", b_hat, b_bs),
-                            ("ln_scale", ls, ln_bs), ("ln_bias", lb, ln_bs)):
-            if t.device != dev:
-                raise ValueError(f"{name} on {t.device}, x on {dev}")
-            if bs and t.shape[0] != B:
-                raise ValueError(f"{name} has {t.shape[0]} rows for {B}")
-            if t.dtype == bf16 and (t.data_ptr() % 16 or bs % 8):
-                raise ValueError(f"{name} rows must be 16-byte aligned")
-        ad = [a_hat, b_hat, ls, lb]
+    ad = _adapter_operands(masks_l, adapter, x)
 
     grid = _grid(dev.index if dev.index is not None
                  else torch.cuda.current_device(), B, d, H, KV, hd, ff, S)
     nq, nkv = H * hd, KV * hd
+    nb = ad["nb"]
     scratch = torch.empty(B * (nq + 2 * nkv + nq + 2 * d + ff + nb),
                           dtype=f32, device=dev)
     y = torch.empty_like(x)
@@ -191,12 +240,13 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
             *(t.data_ptr() for t in biases),
             mlp["wg"].data_ptr(), mlp["wu"].data_ptr(), mlp["wd"].data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(),
-            *(t.data_ptr() for t in ad), a_bs, b_bs, ln_bs,
+            *(t.data_ptr() for t in ad["bf16"]), *ad["bf16_strides"],
             freqs.data_ptr(), y.data_ptr(), k_rows.data_ptr(),
             v_rows.data_ptr(), scratch.data_ptr(), B, d, H, KV, hd, ff, S,
             nb, int(qkv_bias), _ROUTES[adapter],
             _ADAPTER_ACTS.get(adapter_act, 0), float(cap or 0.0),
-            ref.attn_scale(hd), grid, stream)
+            ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
+            *ad["quant_strides"], *ad["groups"], grid, stream)
     if err:
         raise RuntimeError(f"decode_block_fused launch failed: CUDA error "
                            f"{err}")

@@ -12,6 +12,11 @@ through here (``models/model.py`` ``_xpeft_apply`` and
   lies; on the card this is the end-to-end reference run.
 
 The Pallas backends (``pallas``, ``interpret``) have no counterpart.
+
+The quantized-bank routes (``mask_aggregate_quant_batched``,
+``fused_adapter_quant``; ``XPeftConfig.bank_quant``) take int8 / planar
+int4 payloads with fp16 scales and dequantize in registers; their plain
+versions share the op sequence ``quant.schemes.dequant_block``.
 """
 from __future__ import annotations
 
@@ -22,8 +27,13 @@ from repro_torch.kernels.fused_adapter import fused_adapter as _fused_cuda
 from repro_torch.kernels.fused_adapter_batched import (
     fused_adapter_batched as _fused_cuda_batched)
 from repro_torch.kernels.mask_aggregate import mask_aggregate as _agg_cuda
+from repro_torch.kernels.fused_adapter_quant import (
+    fused_adapter_quant_batched as _fused_cuda_quant)
 from repro_torch.kernels.mask_aggregate import (
     mask_aggregate_batched as _agg_cuda_batched)
+from repro_torch.kernels.mask_aggregate_quant import (
+    mask_aggregate_quant_batched as _agg_cuda_quant)
+from repro_torch.quant.schemes import check_scheme
 
 IMPLS = ("auto", "ref")
 
@@ -77,9 +87,10 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
                        impl: str = "auto"):
     """Decode megakernel (``ModelConfig.decode_fused``): one launch per
     layer applying norm/attention/MLP AND the X-PEFT adapter over the
-    [B, 1, d] activations. ``adapter`` picks the fused route ("none",
-    "bf16"; "int8"/"int4" raise); returns (y, k_rows, v_rows) — the
-    caller scatters the K/V rows into the cache."""
+    [B, 1, d] activations. ``adapter`` picks the fused route: "none",
+    "bf16" (a_hat/b_hat leaves) or "int8"/"int4" (the quantized records
+    a_q/a_scale/b_q/b_scale, dequantized in registers); returns (y,
+    k_rows, v_rows) — the caller scatters the K/V rows into the cache."""
     kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
               cap=cap, mlp_type=mlp_type, act_name=act_name,
               adapter=adapter, adapter_act=adapter_act)
@@ -87,3 +98,38 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
         return ref.decode_block_ref(x, pos, block, k_cache, v_cache,
                                     masks_l, **kw)
     return _decode_cuda(x, pos, block, k_cache, v_cache, masks_l, **kw)
+
+
+# ----------------------------------------------------------------------------
+# Quantized-bank routes (XPeftConfig.bank_quant != "none"). With bank_quant
+# "none" nothing below is reached.
+# ----------------------------------------------------------------------------
+
+def mask_aggregate_quant_batched(q, scale, idx, w, *, scheme: str,
+                                 impl: str = "auto"):
+    """k-sparse aggregation over a quantized bank: q [N,d,b|b/2]
+    int8/uint8, scale [N,d] / [N,d,b/g] fp16, idx [P,k], w [P,k] ->
+    [P,d,b] fp32 (one launch; rows dequantized in registers)."""
+    check_scheme(scheme)
+    if resolve_impl(impl) == "ref":
+        return ref.mask_aggregate_quant_batched_ref(q, scale, idx, w,
+                                                    scheme=scheme)
+    return _agg_cuda_quant(q, scale, idx, w, scheme=scheme)
+
+
+def fused_adapter_quant(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *,
+                        scheme: str, activation: str = "gelu",
+                        impl: str = "auto"):
+    """Dequantizing fused bottleneck adapter: x [B,T,d] with per-row
+    quantized Â/B̂ records. Batched only: quantized records always arrive
+    per slot, from the profile cache or the mask buffers."""
+    check_scheme(scheme)
+    if x.ndim != 3:
+        raise ValueError("fused_adapter_quant is batched-only: x must be "
+                         f"[B, T, d], got ndim={x.ndim}")
+    kw = dict(scheme=scheme, activation=activation)
+    if resolve_impl(impl) == "ref":
+        return ref.fused_adapter_quant_batched_ref(
+            x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, **kw)
+    return _fused_cuda_quant(x, a_q, a_scale, b_q, b_scale, ln_scale,
+                             ln_bias, **kw)

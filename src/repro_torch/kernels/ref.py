@@ -2,10 +2,13 @@
 
 Twins of ``repro.kernels.ref``'s ``mask_aggregate_ref``,
 ``mask_aggregate_batched_ref``, ``fused_adapter_ref``,
-``fused_adapter_batched_ref`` and ``decode_block_ref`` (with the per-slot
-math of ``repro.kernels.decode_fused.decode_block_row``). The CPU path of
-every wrapper, the oracle ``chip_smoke.py`` holds each CUDA kernel to on
-the card, and, under ``kernel_impl="ref"``, the end-to-end reference run.
+``fused_adapter_batched_ref``, ``mask_aggregate_quant_batched_ref``,
+``fused_adapter_quant_batched_ref`` and ``decode_block_ref`` (with the
+per-slot math of ``repro.kernels.decode_fused.decode_block_row``). The
+quantized ones dequantize through ``quant.schemes.dequant_block``. The
+CPU path of every wrapper, the oracle ``chip_smoke.py`` holds each CUDA
+kernel to on the card, and, under ``kernel_impl="ref"``, the end-to-end
+reference run.
 Not a yardstick of speed: they repeat the kernels' arithmetic op by op.
 """
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.quant.schemes import dequant_block
 
 NEG_INF = -2.0e38
 
@@ -90,6 +95,48 @@ def fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias, *,
         eps=eps, use_ln=use_ln)[0]
 
 
+def mask_aggregate_quant_batched_ref(q, scale, idx, w, *, scheme: str):
+    """Quantized bank rows q [N, d, b] int8 (or [N, d, b/2] packed int4)
+    with scale [N, d] (or [N, d, b/g]) fp16, idx [P, k], w [P, k] ->
+    [P, d, b] fp32.
+
+    Each term is ``w · dequant_block(row)`` (exact products), summed in k
+    order as a loop, not an einsum: a rounded multiply then a rounded add
+    per term, the CUDA kernel's exact arithmetic."""
+    P, k = idx.shape
+    idx = idx.long()
+    w = w.float()
+    out = None
+    for j in range(k):
+        term = w[:, j, None, None] * dequant_block(q[idx[:, j]],
+                                                   scale[idx[:, j]], scheme)
+        out = term if out is None else out + term
+    return out
+
+
+def fused_adapter_quant_batched_ref(x, a_q, a_scale, b_q, b_scale, ln_scale,
+                                    ln_bias, *, scheme: str,
+                                    activation: str = "gelu",
+                                    eps: float = 1e-6):
+    """x [B, T, d]; per-row quantized a_q [B, d, b|b/2] with a_scale
+    [B, d] / [B, d, b/g], b_q [B, b, d|d/2] with b_scale [B, b] /
+    [B, b, d/g]; ln_* [B, b] -> [B, T, d] in x's dtype.
+
+    y = x + act(LN(x·Â))·B̂ with Â/B̂ dequantized to fp32, LN over b
+    (mean of squared deviations, eps 1e-6) always on, gelu in its tanh
+    form; fp32 throughout and one rounding at the end."""
+    x32 = x.float()
+    h = x32 @ dequant_block(a_q, a_scale, scheme)
+    mu = h.mean(-1, keepdim=True)
+    var = torch.square(h - mu).mean(-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    h = h * ln_scale.float()[:, None, :] + ln_bias.float()[:, None, :]
+    if activation == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    y = h @ dequant_block(b_q, b_scale, scheme)
+    return (x32 + y).to(x.dtype)
+
+
 # ----------------------------------------------------------------------------
 # decode block (the T=1 megakernel)
 # ----------------------------------------------------------------------------
@@ -125,13 +172,6 @@ def _dot(a, w):
     return (a.float() @ w.float()).to(a.dtype)
 
 
-def _check_route(adapter: str) -> None:
-    if adapter in ("int8", "int4"):
-        raise NotImplementedError(
-            f"decode block adapter route {adapter!r} (quantized bank) is "
-            "not ported (ROADMAP queue 1, item 6)")
-
-
 def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
                      qkv_bias: bool, use_rope: bool, theta: float,
                      cap: float, mlp_type: str, act_name: str,
@@ -143,8 +183,9 @@ def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
     the cache dtype. Rounds to x's dtype where the JAX row math does:
     after each norm, each projection, the bias add, RoPE, the softmax
     weights, w·V, the activation and the gate product, each residual add,
-    and in the adapter at h and at y. Sums are fp32."""
-    _check_route(adapter)
+    and, on route bf16, in the adapter at h and at y. Sums are fp32.
+    Routes int8/int4 dequantize Â/B̂ (``dequant_block``) and keep the
+    adapter fp32 from the bf16 value of x to ONE rounding of x + y."""
     dt = x.dtype
     d = x.shape[-1]
     S, KV, hd = kc.shape
@@ -218,6 +259,17 @@ def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
             hh = F.gelu(hh, approximate="tanh")
         y = hh.to(dt).float() @ ad["b_hat"].float()
         x = x + y.to(dt)
+    elif adapter in ("int8", "int4"):
+        x32 = x.float()
+        hh = x32 @ dequant_block(ad["a_q"], ad["a_scale"], adapter)
+        mu = hh.mean(-1, keepdim=True)
+        var = torch.square(hh - mu).mean(-1, keepdim=True)
+        hh = (hh - mu) * torch.rsqrt(var + 1e-6)
+        hh = hh * ad["ln_scale"].float() + ad["ln_bias"].float()
+        if adapter_act == "gelu":
+            hh = F.gelu(hh, approximate="tanh")
+        y = hh @ dequant_block(ad["b_q"], ad["b_scale"], adapter)
+        x = (x32 + y).to(dt)
     return x, k_row, v_row
 
 
@@ -230,7 +282,6 @@ def decode_block_ref(x, pos, block, k_cache, v_cache, masks_l, *, norm: str,
     ``adapter`` -> (y [B, 1, d], k_rows [B, KV, hd], v_rows [B, KV, hd]).
 
     A loop over slots calling ``decode_block_row``, as the JAX oracle."""
-    _check_route(adapter)
     leaves = ADAPTER_LEAVES[adapter]
     ys, krs, vrs = [], [], []
     for i in range(x.shape[0]):

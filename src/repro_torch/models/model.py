@@ -7,8 +7,9 @@ becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
 attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
 Every other block pattern, MoE, sliding windows and the mask routes other
-than the admission-time aggregated ``a_hat`` one raise
-``NotImplementedError`` naming their ROADMAP item.
+than the admission-time aggregated ones (``a_hat``, or the quantized
+``a_q`` records of a ``bank_quant`` engine) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -119,12 +120,21 @@ def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
 def _xpeft_apply(x, masks_l, cfg):
     if masks_l is None or not cfg.xpeft.enabled:
         return x
-    if "a_hat" not in masks_l or any(
-            key in masks_l for key in ("a_q", "lora_a", "ia3_s", "w_a")):
+    if any(key in masks_l for key in ("lora_a", "ia3_s", "w_a")) \
+            or not ("a_hat" in masks_l) ^ ("a_q" in masks_l):
         raise NotImplementedError(
             f"mask route with keys {sorted(masks_l)}: only the admission-"
-            "time aggregated a_hat route is ported (dense/sparse masks: "
-            "ROADMAP queue 1, item 2; quantized: item 6; hetero: item 7)")
+            "time aggregated a_hat and a_q routes are ported (dense/sparse "
+            "masks: ROADMAP queue 1, item 2; hetero: item 7)")
+    if "a_q" in masks_l:
+        # quantized aggregated records (bank_quant serving): int8 / planar
+        # int4 Â/B̂ with fp16 scales, widened in registers by the kernel
+        return ops.fused_adapter_quant(
+            x, masks_l["a_q"], masks_l["a_scale"], masks_l["b_q"],
+            masks_l["b_scale"], masks_l["ln_scale"], masks_l["ln_bias"],
+            scheme=cfg.xpeft.bank_quant,
+            activation=cfg.xpeft.adapter_activation,
+            impl=cfg.xpeft.kernel_impl)
     return ops.fused_adapter(x, masks_l["a_hat"], masks_l["b_hat"],
                              masks_l["ln_scale"], masks_l["ln_bias"],
                              activation=cfg.xpeft.adapter_activation,
@@ -186,7 +196,9 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     """tokens [B,T] -> (hidden [B,T,d], cache, aux_loss).
 
     profile_masks: {"a_hat" [B,L,d,b], "b_hat" [B,L,b,d], "ln_scale",
-    "ln_bias" [B,L,b]} (admission-time aggregated adapters), or None.
+    "ln_bias" [B,L,b]} (admission-time aggregated adapters), their
+    quantized form {"a_q", "a_scale", "b_q", "b_scale", "ln_scale",
+    "ln_bias"}, or None.
     cache: from ``init_cache``, written IN PLACE at ``cache_pos`` (a
     scalar, or [B] per-slot offsets) and returned; None runs uncached."""
     check_supported(cfg)

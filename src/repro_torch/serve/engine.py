@@ -2,15 +2,20 @@
 
 The port of ``repro.serve.engine.ServeEngine`` in windowed mode with
 admission-time aggregation (``continuous=False``, ``precompute=True``),
-hard-mask profiles and an unquantized, type-pure bank; with
+hard-mask profiles and a type-pure bank, unquantized or quantized
+(``XPeftConfig.bank_quant`` int8/int4: the bank is quantized once at
+construction and dropped from the resident params; admission aggregates
+the quantized rows and the slot buffers hold quantized records). With
 ``cfg.decode_fused`` each decode step runs the decode megakernel once per
 layer (prefill keeps the composed path). Admission of a wave:
 
 1. hydrate: per-request profile-cache lookup; only MISSING profiles are
    aggregated against the bank — k-sparse, the top-k rows only — in ONE
    batched call padded to a pow2 profile count (pad rows carry idx 0 and
-   w 0 and come out as zeros); results are cached and the wave's rows
-   gathered;
+   w 0 and come out as zeros); a quantized engine first takes what the
+   store already holds as quantized aggregated records (zero bank reads)
+   and re-quantizes what it aggregates; results are cached and the wave's
+   rows gathered;
 2. ONE scatter of the stacked rows into the per-slot mask buffers;
 3. batched bucketed prefill: every same-length-bucket group goes through
    ONE prefill call (stacked [B, pad] batch, per-request last-token argmax
@@ -31,13 +36,12 @@ import torch
 from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.models import model as MDL
+from repro_torch.quant import schemes as QS
 from repro_torch.serve.profile_cache import ProfileCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slots import SlotState
 from repro_torch.serve.steps import greedy_next
 from repro_torch.utils import pow2_count
-
-ENTRY_KEYS = ("a_hat", "b_hat", "ln_scale", "ln_bias")
 
 
 def _rate(num, den, nd: int = 4) -> float:
@@ -46,8 +50,30 @@ def _rate(num, den, nd: int = 4) -> float:
     return round(num / den, nd) if den else 0.0
 
 
+def _check_quant(cfg, store, *, precompute) -> None:
+    """The JAX engine's refusals for a quantized bank (ValueError)."""
+    xp = cfg.xpeft
+    if not (xp.enabled and xp.bank_quant != "none"):
+        return
+    if xp.is_hetero:
+        raise ValueError(
+            "bank_quant engines do not serve heterogeneous bank_specs "
+            "(quantize_bank_hetero covers storage; serve with "
+            "bank_quant='none')")
+    if not precompute:
+        # the per-step mask path hydrates against the fp bank every step,
+        # so none of bank_quant's byte/residency savings would exist
+        raise ValueError("bank_quant serving requires precompute admission "
+                         "(per-step mask hydration reads the unquantized "
+                         "bank)")
+    if store.mask_type != "hard":
+        raise ValueError("bank_quant serving requires hard-mask profiles "
+                         "(k-sparse quantized aggregation)")
+
+
 def _check_slice(cfg, store, *, precompute, continuous, mesh, fault_plan,
                  obs) -> None:
+    _check_quant(cfg, store, precompute=precompute)
     MDL.check_supported(cfg)
     if continuous:
         raise NotImplementedError("continuous batching is not ported "
@@ -56,9 +82,6 @@ def _check_slice(cfg, store, *, precompute, continuous, mesh, fault_plan,
         raise NotImplementedError(
             "per-step mask serving (precompute=False) and X-PEFT-disabled "
             "serving are not ported (ROADMAP queue 1, item 2)")
-    if cfg.xpeft.bank_quant != "none":
-        raise NotImplementedError("quantized banks are not ported "
-                                  "(ROADMAP queue 1, item 6)")
     if cfg.spec_enable and cfg.decode_fused:
         raise ValueError(
             "spec_enable and decode_fused are exclusive per engine: "
@@ -90,8 +113,25 @@ class ServeEngine:
                      fault_plan=fault_plan, obs=obs)
         self.cfg = cfg
         self.store = store
-        self.params = params
         self.device = params["embed"].device
+        xp = cfg.xpeft
+        # quantized bank: quantized ONCE here and DROPPED from the resident
+        # params; every admission reads the int8/int4 rows and every step
+        # the quantized Â/B̂ records
+        self.quant = xp.bank_quant
+        self.qbank = None
+        self._qrow_bytes = 0
+        if self.quant != "none":
+            self.qbank = QS.quantize_bank(params["xpeft_bank"], self.quant,
+                                          group=xp.quant_group)
+            params = {k: v for k, v in params.items() if k != "xpeft_bank"}
+            # true quantized bytes of one (l, n) row across both banks and
+            # scales: what one k-sparse selection reads
+            L_, N_ = self.qbank["bank_a_q"].shape[:2]
+            self._qrow_bytes = sum(
+                v.numel() * v.element_size()
+                for v in self.qbank.values()) // (L_ * N_)
+        self.params = params
         self.S = max_seq
         self.n_slots = max_slots
         self.sync_every = sync_every
@@ -103,18 +143,39 @@ class ServeEngine:
         # re-graduation hook: a re-added profile never serves a stale
         # cached aggregate (the store holds this bound method weakly)
         store.subscribe(self.invalidate_profile)
-        xp = cfg.xpeft
         L, b, d = cfg.num_layers, xp.bottleneck, cfg.d_model
         dt = MDL.torch_dtype(cfg.dtype)
         dev = self.device
-        self.masks = {
-            "a_hat": torch.zeros((max_slots, L, d, b), dtype=dt, device=dev),
-            "b_hat": torch.zeros((max_slots, L, b, d), dtype=dt, device=dev),
-            "ln_scale": torch.ones((max_slots, L, b), dtype=torch.float32,
-                                   device=dev),
-            "ln_bias": torch.zeros((max_slots, L, b), dtype=torch.float32,
-                                   device=dev),
-        }
+        if self.quant != "none":
+            # per-slot QUANTIZED Â/B̂ records + fp16 scales, read by the
+            # decode step and widened in registers
+            aq_s, aq_dt, as_s = QS.quant_spec((max_slots, L, d, b),
+                                              self.quant,
+                                              group=xp.quant_group)
+            bq_s, bq_dt, bs_s = QS.quant_spec((max_slots, L, b, d),
+                                              self.quant,
+                                              group=xp.quant_group)
+            adapter = {
+                "a_q": torch.zeros(aq_s, dtype=aq_dt, device=dev),
+                "a_scale": torch.zeros(as_s, dtype=torch.float16,
+                                       device=dev),
+                "b_q": torch.zeros(bq_s, dtype=bq_dt, device=dev),
+                "b_scale": torch.zeros(bs_s, dtype=torch.float16,
+                                       device=dev),
+            }
+        else:
+            adapter = {
+                "a_hat": torch.zeros((max_slots, L, d, b), dtype=dt,
+                                     device=dev),
+                "b_hat": torch.zeros((max_slots, L, b, d), dtype=dt,
+                                     device=dev),
+            }
+        self.masks = dict(
+            adapter,
+            ln_scale=torch.ones((max_slots, L, b), dtype=torch.float32,
+                                device=dev),
+            ln_bias=torch.zeros((max_slots, L, b), dtype=torch.float32,
+                                device=dev))
 
         def decode_fn(params, cache, last_tok, lengths, masks, active):
             hidden, cache, _ = MDL.forward(params, last_tok[:, None], cfg,
@@ -124,6 +185,9 @@ class ServeEngine:
 
         self.slots = SlotState(max_slots, max_seq, sync_every, decode_fn,
                                device=dev)
+        # what the last admission did (path, cache hits, bank bytes,
+        # prefill occupancy), as the JAX engine reports it
+        self.last_admission: Optional[dict] = None
         self.decode_tokens = 0
         self.prefill_batches = 0
         self.prefill_rows = 0
@@ -153,38 +217,69 @@ class ServeEngine:
             big[:, slots] = mini[key][:, :B].to(big.dtype)
 
     # ------------------------------------------------------------- hydration
+    def _lookup(self, pids: List[int]):
+        """Profile-cache hits of a wave, and its unique uncached pids in
+        admission order."""
+        entries = {}
+        hits = misses = 0
+        missing: List[int] = []
+        for pid in pids:
+            entry = self.profile_cache.get(pid)
+            if entry is not None:
+                hits += 1
+                entries[pid] = entry
+            else:
+                misses += 1
+                if pid not in missing:
+                    missing.append(pid)
+        return entries, hits, misses, missing
+
+    def _wave_indices(self, pids: List[int]):
+        """The pids' top-k (idx, w) pairs for both masks, padded with zero
+        rows to a pow2 profile count, moved to the device in one transfer:
+        (idx [2, Mp, L, k], w [2, Mp, L, k])."""
+        M = len(pids)
+        Mp = pow2_count(M)
+        ia, wa, ib, wb = self.store.batch_sparse_indices(pids)
+        pad_i = torch.zeros((Mp - M,) + tuple(ia.shape[1:]), dtype=ia.dtype)
+        pad_w = torch.zeros((Mp - M,) + tuple(wa.shape[1:]), dtype=wa.dtype)
+        idx = torch.stack([torch.cat([ia, pad_i]), torch.cat([ib, pad_i])])
+        w = torch.stack([torch.cat([wa, pad_w]), torch.cat([wb, pad_w])])
+        return idx.to(self.device), w.to(self.device)
+
+    def _admission_stats(self, path, pids, hits, misses, aggregated,
+                         bank_bytes, **extra) -> None:
+        R = len(pids)
+        self.last_admission = dict(
+            path=path, requests=R, cache_hits=hits, cache_misses=misses,
+            unique_profiles=len(set(pids)), aggregated_profiles=aggregated,
+            **extra, degraded=0, bank_bytes_per_request=bank_bytes // R)
+
     @torch.no_grad()
     def _hydrate_stacked(self, reqs: List[Request]) -> dict:
         """Stacked [R, ...] aggregated mask rows for an admission wave:
         profile-cache hits first; every missing profile aggregates
         k-sparse against the bank in ONE call padded to a pow2 count."""
         pids = [int(r.profile_id) for r in reqs]
-        entries = {}
-        missing: List[int] = []  # unique uncached pids, admission order
-        for pid in pids:
-            entry = self.profile_cache.get(pid)
-            if entry is not None:
-                entries[pid] = entry
-            elif pid not in missing:
-                missing.append(pid)
+        if self.quant != "none":
+            return self._hydrate_stacked_quant(pids)
+        entries, hits, misses, missing = self._lookup(pids)
+        bank = self.params["xpeft_bank"]
+        L = self.cfg.num_layers
+        d, b = bank["bank_a"].shape[2:]
+        # Â + B̂ bytes of one (layer, adapter) row
+        slice_bytes = 2 * d * b * bank["bank_a"].element_size()
+        aggregated = bank_bytes = 0
+        path = "cached"
         if missing:
-            M = len(missing)
-            Mp = pow2_count(M)
-            ia, wa, ib, wb = self.store.batch_sparse_indices(missing)
-            pad_i = torch.zeros((Mp - M,) + tuple(ia.shape[1:]),
-                                dtype=ia.dtype)
-            pad_w = torch.zeros((Mp - M,) + tuple(wa.shape[1:]),
-                                dtype=wa.dtype)
-            # one host->device transfer of the wave's indices and weights
-            dev = self.device
-            idx = torch.stack([torch.cat([ia, pad_i]),
-                               torch.cat([ib, pad_i])]).to(dev)
-            w = torch.stack([torch.cat([wa, pad_w]),
-                             torch.cat([wb, pad_w])]).to(dev)
+            idx, w = self._wave_indices(missing)
+            aggregated = idx.shape[1]
             a_hat, b_hat = XP.precompute_effective_adapters_sparse(
-                self.params["xpeft_bank"], idx[0], w[0], idx[1], w[1],
-                self.cfg.xpeft)
-            ln_s, ln_b = (t.to(dev) for t in self.store.ln_affines(missing))
+                bank, idx[0], w[0], idx[1], w[1], self.cfg.xpeft)
+            path = "sparse"
+            bank_bytes = aggregated * idx.shape[-1] * L * slice_bytes
+            ln_s, ln_b = (t.to(self.device)
+                          for t in self.store.ln_affines(missing))
             for i, pid in enumerate(missing):
                 # own copies: a view would pin the whole padded batch and
                 # the cache's byte budget would undercount it
@@ -193,8 +288,79 @@ class ServeEngine:
                          "ln_bias": ln_b[i].clone()}
                 self.profile_cache.put(pid, entry)
                 entries[pid] = entry
+        self._admission_stats(path, pids, hits, misses, aggregated,
+                              bank_bytes)
+        return self._stack(entries, pids)
+
+    def _stack(self, entries, pids) -> dict:
+        """The wave's entries stacked [R, ...], one leaf per slot buffer."""
         return {key: torch.stack([entries[pid][key] for pid in pids])
-                for key in ENTRY_KEYS}
+                for key in self.masks}
+
+    def _aggregate_sparse_quant(self, idx, w):
+        """fp32 (Â, B̂) of the padded wave, from the quantized bank."""
+        return XP.precompute_effective_adapters_sparse_quant(
+            self.qbank, idx[0], w[0], idx[1], w[1], self.cfg.xpeft)
+
+    def _requantize(self, a_hat, b_hat) -> dict:
+        """Freshly aggregated fp32 rows into the cache/slot record layout
+        (per row over the last axis, like the bank)."""
+        group = self.cfg.xpeft.quant_group
+        qa = QS.quantize(a_hat, self.quant, group=group)
+        qb = QS.quantize(b_hat, self.quant, group=group)
+        return {"a_q": qa["q"], "a_scale": qa["scale"],
+                "b_q": qb["q"], "b_scale": qb["scale"]}
+
+    @torch.no_grad()
+    def _hydrate_stacked_quant(self, pids: List[int]) -> dict:
+        """Quantized-bank hydration: cache hits first; missing profiles
+        take the store's quantized aggregated records where it holds them
+        (ZERO bank reads), the rest aggregate k-sparse against the
+        quantized bank and re-quantize. Entries and slot buffers hold the
+        quantized record layout (a_q, a_scale, b_q, b_scale and the LN
+        affines)."""
+        entries, hits, misses, missing = self._lookup(pids)
+        L = self.cfg.num_layers
+        aggregated = bank_bytes = store_hydrated = 0
+        path = "cached"
+        if missing:
+            # persisted records fit only a store of the engine's layout
+            rec_ok = (self.store.quant == self.quant
+                      and self.store.quant_group == self.cfg.xpeft.quant_group)
+            rec_pids = [p for p in missing
+                        if rec_ok and self.store.has_quant_record(p)]
+            agg_pids = [p for p in missing if p not in rec_pids]
+            fresh = {}
+            if agg_pids:
+                idx, w = self._wave_indices(agg_pids)
+                aggregated = idx.shape[1]
+                q = self._requantize(*self._aggregate_sparse_quant(idx, w))
+                # true quantized row bytes read from the bank
+                bank_bytes = aggregated * idx.shape[-1] * L \
+                    * self._qrow_bytes
+                for i, pid in enumerate(agg_pids):
+                    fresh[pid] = {k: v[i].clone() for k, v in q.items()}
+            if rec_pids:
+                store_hydrated = len(rec_pids)
+                recs = self.store.quant_records(rec_pids)
+                for i, pid in enumerate(rec_pids):
+                    fresh[pid] = {k: v[i].to(self.device, copy=True)
+                                  for k, v in recs.items()}
+            order = agg_pids + rec_pids  # the JAX engine's cache order
+            ln_s, ln_b = (t.to(self.device)
+                          for t in self.store.ln_affines(order))
+            for i, pid in enumerate(order):
+                entry = dict(fresh[pid], ln_scale=ln_s[i].clone(),
+                             ln_bias=ln_b[i].clone())
+                self.profile_cache.put(pid, entry)
+                entries[pid] = entry
+            path = ("quant_mixed" if agg_pids and rec_pids
+                    else "quant_sparse" if agg_pids else "quant_store")
+        self._admission_stats(path, pids, hits, misses, aggregated,
+                              bank_bytes,
+                              store_hydrated_profiles=store_hydrated,
+                              scheme=self.quant)
+        return self._stack(entries, pids)
 
     # ---------------------------------------------------------------- public
     def free_slots(self) -> List[int]:
@@ -250,6 +416,10 @@ class ServeEngine:
             self.prefill_batches += 1
             self.prefill_rows += Bp
             self.prefill_real += B
+        self.last_admission["prefill_batches"] = len(groups)
+        self.last_admission["prefill_occupancy"] = round(
+            len(reqs) / max(sum(pow2_count(len(g))
+                                for g in groups.values()), 1), 3)
 
         toks_all = [next_toks[id(r)] for r in reqs]
         self.slots.admit(assigned, toks_all, [len(r.prompt) for r in reqs],
@@ -340,6 +510,7 @@ class ServeEngine:
     def serve_stats(self) -> dict:
         """Counters the launcher prints (a subset of the JAX engine's)."""
         return {
+            "bank_quant": self.quant,
             "host_syncs": self.slots.host_syncs,
             "device_steps": self.slots.device_steps,
             "decode_tokens": self.decode_tokens,

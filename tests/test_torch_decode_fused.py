@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.quant import schemes as JQS
 from repro_torch.kernels import decode_fused as KD
 from repro_torch.kernels import ops
 
@@ -42,10 +43,11 @@ VARIANTS = {
 
 
 def _block_inputs(variant, adapter, seed, B=4, S=16, d=64, hd=16, ff=96,
-                  nb=8):
+                  nb=8, group=4):
     """numpy inputs for one layer: x, pos (slot 3 past the cache's end),
     the block's weights (biases and norm affines drawn at random), the
-    cache rows and the slots' adapter leaves."""
+    cache rows and the slots' adapter leaves (routes int8/int4: Â/B̂
+    quantized by JAX's ``quant.schemes``, int4 at ``group``)."""
     v = VARIANTS[variant]
     H, KV = v["H"], v["KV"]
     rng = np.random.default_rng(seed)
@@ -76,6 +78,15 @@ def _block_inputs(variant, adapter, seed, B=4, S=16, d=64, hd=16, ff=96,
     if adapter == "bf16":
         masks_l = {"a_hat": n(B, d, nb, sc=d ** -0.5),
                    "b_hat": n(B, nb, d, sc=0.3),
+                   "ln_scale": 1 + n(B, nb, sc=0.2),
+                   "ln_bias": n(B, nb, sc=0.2)}
+    elif adapter in ("int8", "int4"):
+        qa = JQS.quantize(n(B, d, nb, sc=d ** -0.5), adapter, group=group)
+        qb = JQS.quantize(n(B, nb, d, sc=0.3), adapter, group=group)
+        masks_l = {"a_q": np.array(qa["q"]),
+                   "a_scale": np.array(qa["scale"]),
+                   "b_q": np.array(qb["q"]),
+                   "b_scale": np.array(qb["scale"]),
                    "ln_scale": 1 + n(B, nb, sc=0.2),
                    "ln_bias": n(B, nb, sc=0.2)}
     x = n(B, 1, d)
@@ -129,7 +140,8 @@ def _f32(a):
 
 @pytest.mark.parametrize("variant,adapter", [
     ("qwen", "none"), ("qwen", "bf16"), ("gqa_bias", "bf16"),
-    ("layernorm_vanilla_cap", "bf16")])
+    ("layernorm_vanilla_cap", "bf16"), ("qwen", "int8"), ("qwen", "int4"),
+    ("gqa_bias", "int4")])
 def test_plain_decode_block_matches_jax_f32(variant, adapter):
     args, kw = _block_inputs(variant, adapter, seed=0)
     before = KD.decode_block_fused.launches
@@ -144,7 +156,7 @@ def test_plain_decode_block_matches_jax_f32(variant, adapter):
                                        err_msg=name, **F32_TOL)
 
 
-@pytest.mark.parametrize("adapter", ["none", "bf16"])
+@pytest.mark.parametrize("adapter", ["none", "bf16", "int8", "int4"])
 def test_plain_decode_block_matches_jax_bf16(adapter):
     args, kw = _block_inputs("gqa_bias", adapter, seed=1)
     got = _run_port(args, kw, torch.bfloat16)
@@ -176,26 +188,19 @@ def test_plain_decode_block_dispatch_and_past_the_end():
     assert not torch.equal(moved[0][3], auto[0][3])
 
 
-@pytest.mark.parametrize("route", ["int8", "int4"])
-def test_quantized_routes_raise(route):
-    args, kw = _block_inputs("qwen", "none", seed=3)
-    kw = dict(kw, adapter=route)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _run_port(args, kw, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _run_port(args, kw, torch.float32, impl="ref")
-
-
 def test_kernel_refuses_unbuilt_variants():
-    """The CUDA path builds RMSNorm, GLU-SiLU and RoPE with routes none
-    and bf16; the wrapper names everything else before touching the
-    card."""
+    """The CUDA path builds RMSNorm, GLU-SiLU and RoPE with routes none,
+    bf16, int8 and int4; the wrapper names everything else before
+    touching the card."""
     base = dict(norm="rmsnorm", use_rope=True, mlp_type="glu",
                 act_name="silu", adapter="bf16", adapter_act="gelu")
     assert KD._unsupported(**base) is None
-    assert KD._unsupported(**dict(base, adapter="none")) is None
-    assert KD._unsupported(**dict(base, adapter_act="identity")) is None
+    for accept in (dict(adapter="none"), dict(adapter_act="identity"),
+                   dict(adapter="int8"), dict(adapter="int4"),
+                   dict(adapter="int4", adapter_act="identity")):
+        assert KD._unsupported(**dict(base, **accept)) is None, accept
     for change in (dict(norm="layernorm"), dict(mlp_type="vanilla"),
                    dict(act_name="gelu"), dict(use_rope=False),
-                   dict(adapter="int8"), dict(adapter_act="relu")):
+                   dict(adapter="int2"), dict(adapter_act="relu"),
+                   dict(adapter="int8", adapter_act="relu")):
         assert KD._unsupported(**dict(base, **change)), change

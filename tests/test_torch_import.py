@@ -28,6 +28,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 25, names
+# the quantized-bank slice's modules are among them
+for name in ("repro_torch.quant", "repro_torch.quant.schemes",
+             "repro_torch.kernels.mask_aggregate_quant",
+             "repro_torch.kernels.fused_adapter_quant"):
+    assert name in names and name in sys.modules, name
 """
 
 

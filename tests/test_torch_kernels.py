@@ -289,7 +289,12 @@ def test_build_identity_tracks_sources(tmp_path, monkeypatch):
     assert before.parent == _build.BUILD_DIR
     src = sorted(csrc.glob("*.cu"))[0]
     src.write_text(src.read_text() + "\n// edit\n")
-    assert _build.library_path() != before
+    edited = _build.library_path()
+    assert edited != before
+    # a shared device header counts too (the .cu files include it)
+    header = csrc / "dequant.cuh"
+    header.write_text(header.read_text() + "\n// edit\n")
+    assert _build.library_path() not in (before, edited)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
