@@ -57,6 +57,23 @@ Phases, in order; any failed check exits non-zero:
              run as above (a reading over the adapters'-share bound is
              reported, see the tolerances), and a decode step of each is
              profiled.
+6. serve from a heterogeneous bank — kernel checks first: the IA3
+             scaling (#7) bitwise against its plain version at B=4, d=1024
+             (T=1 and T=16 on a layer slice of the [B, 24, d] slot buffer,
+             a shared s, fp32 x, mixed dtypes, s = 0 giving x bitwise),
+             timed; the fused adapter's LoRA route (no LN, identity) on
+             layer slices at T=1 and T=16; the aggregation at the typed
+             leaves' shapes (IA3 rows [624, 1024, 1], prefix rows
+             [624, 8, 1024]), bitwise and timed. Then qwen1.5-0.5b with the
+             typed bank bottleneck 102 / LoRA 102 / IA3 26 / prefix 26 and
+             P = 8 prefix rows, composed: the aggregation launches 10 times
+             per aggregating wave, the fused adapter 48 times and #7 24
+             times per decode step and prefill batch, #5, #6 and #8 not at
+             all; one prefill batch holds prefix-on (cache_pos 8) and
+             prefix-off (0) requests; held to its kernel_impl="ref" run and
+             profiled as the other paths. With decode_fused=True the
+             megakernel must not launch (hetero entries stay composed) and
+             the tokens equal the composed run's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -103,7 +120,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #   with the logits 3.1 bf16 steps apart, as on the bf16 route. Beside it
 #   the same teacher-forced decode steps run with the adapter left out in
 #   both runs (prefill keeps it): the part of the difference the decode
-#   steps' adapter does not make.
+#   steps' adapter does not make. The heterogeneous-bank path (phase 6)
+#   asserts both bounds as the bf16 paths do; its "adapter left out" run
+#   drops all four families, the prefix rows included, so the share also
+#   holds the shift of every prefix-on prompt's positions by P.
 # - a greedy token may differ between the two runs only where the ref
 #   run's top-2 gap at that step is <= 2 * that step's max |d logit|.
 # - decode megakernel vs its plain version (same rounding points, fp32
@@ -780,18 +800,28 @@ def make_requests(Request, vocab, n=8, max_new=16, profiles=4):
 
 def prefill_logits(torch, eng, reqs, bare=False):
     """The engine's own prefill of every request (one padded bucket) with
-    the aggregated entries its admission left in the profile cache, or
-    with no adapter (``bare``)."""
+    the aggregated entries its admission left in the profile cache (a
+    prefix-bearing bank's rows written in front of each prefix-on prompt,
+    as admission writes them), or with no adapter (``bare``)."""
     pad = 16
     toks = torch.zeros((len(reqs), pad), dtype=torch.int32)
     lens = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32)
     for i, r in enumerate(reqs):
         toks[i, :len(r.prompt)] = torch.from_numpy(r.prompt)
+    if bare:
+        logits, _ = eng.prefill_logits(toks.to(eng.device), None,
+                                       lens.to(eng.device))
+        return logits
     rows = [eng.profile_cache.peek(r.profile_id) for r in reqs]
-    masks = {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
-    logits, _ = eng.prefill_logits(toks.to(eng.device),
-                                   None if bare else masks,
-                                   lens.to(eng.device))
+    masks = {k: torch.stack([row[k] for row in rows])
+             for k in eng._entry_keys}
+    cpos = prows = None
+    if eng.prefix_len:
+        prows = (masks.pop("prefix_k"), masks.pop("prefix_v"))
+        cpos = torch.tensor([r.prefix_len for r in reqs], dtype=torch.int32,
+                            device=eng.device)
+    logits, _ = eng.prefill_logits(toks.to(eng.device), masks,
+                                   lens.to(eng.device), cpos, prows)
     return logits
 
 
@@ -1221,6 +1251,301 @@ def phase_serve_quant(torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused):
     return launches, stats
 
 
+# ----------------------------------------------------------------------------
+# phase 6: heterogeneous bank (bottleneck / LoRA / IA3 / prefix)
+# ----------------------------------------------------------------------------
+
+# qwen1.5-0.5b's N=256 split in README's 40/40/10/10 proportions, P=8
+HETERO_SPEC = (("bottleneck", 102), ("lora", 102), ("ia3", 26),
+               ("prefix", 26))
+HETERO_P = 8
+
+
+def ia3_inputs(torch, gen, B, T, d, dtype, s_dtype, L=24, shared=False):
+    """x [B, T, d] and one layer's s: a slice of the engine's [B, L, d]
+    slot buffer (batch stride L*d), or a shared [d]."""
+    x = torch.randn((B, T, d), generator=gen, device="cuda").to(dtype)
+    if shared:
+        s = 0.05 * torch.randn((d,), generator=gen, device="cuda")
+        return x, s.to(s_dtype)
+    buf = 0.05 * torch.randn((B, L, d), generator=gen, device="cuda")
+    return x, buf.to(s_dtype)[:, L // 2]
+
+
+def check_ia3(torch, KI, ref, x, s, label):
+    got = KI.ia3_apply_batched(x, s)
+    want = ref.ia3_apply_batched_ref(x, s)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"  check ia3 {label}: max_abs_err {err:.3e} (bitwise "
+        f"{torch.equal(got, want)})")
+    assert torch.equal(got, want), label
+    return err
+
+
+def phase_ia3(torch, KI, ref):
+    """#7 at the hetero path's shapes (B=4, d=1024, bf16 x, s a layer
+    slice of the [B, 24, 1024] slot buffer): bitwise against its plain
+    version at decode (T=1) and prefill (T=16), with a shared s, fp32 x,
+    an fp32 s, and s = 0 (y bitwise x); then timed, beside the one
+    PyTorch call that computes the same function, ``torch.addcmul(x, x,
+    s)`` (x + x·s in fp32, one rounding; x·s and x·(1+s) are exact in
+    fp32 at bf16 inputs, so it is expected bitwise equal)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    B, d = 4, 1024
+    bf16, f32 = torch.bfloat16, torch.float32
+    for T in (1, 16):
+        check_ia3(torch, KI, ref, *ia3_inputs(torch, gen, B, T, d, bf16,
+                                              bf16), f"bf16 slice T={T}")
+    check_ia3(torch, KI, ref, *ia3_inputs(torch, gen, B, 16, d, bf16, bf16,
+                                          shared=True), "bf16 shared s")
+    check_ia3(torch, KI, ref, *ia3_inputs(torch, gen, B, 16, d, f32, f32),
+              "fp32 x, fp32 s")
+    check_ia3(torch, KI, ref, *ia3_inputs(torch, gen, B, 1, d, bf16, f32),
+              "bf16 x, fp32 s")
+    check_ia3(torch, KI, ref, *ia3_inputs(torch, gen, B, 1, d, f32, bf16),
+              "fp32 x, bf16 s")
+    for dt in (bf16, f32):
+        x, s = ia3_inputs(torch, gen, B, 16, d, dt, bf16)
+        zero = KI.ia3_apply_batched(x, torch.zeros_like(s))
+        torch.cuda.synchronize()
+        log(f"  check ia3 s=0 {dt}: y bitwise x {torch.equal(zero, x)}")
+        assert torch.equal(zero, x)
+    results = []
+    for T in (1, 16):
+        sets = [ia3_inputs(torch, gen, B, T, d, bf16, bf16)
+                for _ in range(64)]
+        err = check_ia3(torch, KI, ref, *sets[0], f"bf16 timed T={T}")
+        ms = device_ms(torch, rotating(KI.ia3_apply_batched, sets),
+                       calls=len(sets))
+        plain_ms = device_ms(torch, rotating(ref.ia3_apply_batched_ref,
+                                             sets), calls=len(sets))
+        host_ms = eager_ms(torch, rotating(KI.ia3_apply_batched, sets),
+                           calls=len(sets))
+
+        def library(x, s):
+            return torch.addcmul(x, x, s.unsqueeze(-2))
+        lib_ms = device_ms(torch, rotating(library, sets), calls=len(sets))
+        x, s = sets[0]
+        lib = library(x, s)
+        want = ref.ia3_apply_batched_ref(x, s)
+        lib_bitwise = torch.equal(lib, want)
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        nbytes = 2 * x.numel() * x.element_size() + B * d * s.element_size()
+        bound_ms, bound_by = bound(nbytes, 2 * x.numel(), "float32")
+        log(f"ia3_apply_batched B={B} T={T} d={d} bf16: ms {ms:.5f} | "
+            f"plain {plain_ms:.5f} | addcmul {lib_ms:.5f} (vs plain: "
+            f"bitwise {lib_bitwise}, max_abs_err {lib_err:.3e}) | eager "
+            f"call (host included) {host_ms:.5f} | bound {bound_ms:.6f} "
+            f"({bound_by}: {nbytes / 1e3:.1f} KB)")
+        results.append(dict(shape=f"T={T}", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib_ms,
+                            library_bitwise=lib_bitwise, eager_ms=host_ms))
+    return results
+
+
+def phase_hetero_kernels(torch, KA, KF, ref):
+    """#2's LoRA route (no LN, identity) on layer slices of [B, L, d, b]
+    slot buffers with no LN affines, as ``ops.lora_adapter`` calls it, at
+    T=1 and T=16; #1 at the typed leaves' admission shapes:
+    IA3 [24*26, 1024, 1] and prefix [24*26, 8, 1024] rows, P = 4 profiles
+    x 24 layers, k = 50 unified-space selections bucketed into the
+    26-row segment (out-of-segment weights zero, as
+    ``core.xpeft._segment_bucket`` leaves them). Bitwise, and timed as
+    #1's other shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, d, b = 4, 1024, 64
+    bf16 = torch.bfloat16
+    stack = [fa_inputs(torch, gen, B, 1, d, b, bf16)[1:3] for _ in range(3)]
+    a3, b3 = (torch.stack(t, 1) for t in zip(*stack))
+    lora = {}
+    for T in (1, 16):
+        x = fa_inputs(torch, gen, B, T, d, b, bf16)[0]
+        lora[T] = check_fa(
+            torch, KF, ref, (x, a3[:, 1], b3[:, 1], None, None),
+            dict(activation="identity", use_ln=False), FA_BF16_RTOL,
+            FA_BF16_ATOL, f"LoRA route, bf16 layer slice T={T}")
+
+    L, C, P, k = 24, 26, 96, 50
+    results = []
+    for label, (p, q) in (("ia3 rows", (d, 1)), ("prefix rows",
+                                                (HETERO_P, d))):
+        bank = (torch.randn((L * C, p, q), generator=gen, device="cuda")
+                * 0.02).to(bf16)
+        local = torch.randint(0, C, (P, k), generator=gen, device="cuda")
+        layer = torch.arange(P, device="cuda") % L
+        idx = (local + (layer * C)[:, None]).to(torch.int32).contiguous()
+        in_seg = torch.rand((P, k), generator=gen, device="cuda") < 0.1
+        w = in_seg.float() / k
+        got = KA.mask_aggregate_batched(bank, idx, w)
+        want = ref.mask_aggregate_batched_ref(bank, idx, w)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (P, p, q)
+        err = (got - want).abs().max().item()
+        log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
+            f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} (bitwise "
+            f"{torch.equal(got, want)})")
+        assert torch.equal(got, want), label
+        ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
+            bank, idx, w), calls=3)
+        plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
+            bank, idx, w), calls=1)
+        # the rows this data reads: distinct selected rows of nonzero weight
+        uniq = int(torch.unique(idx[w > 0]).numel())
+        nbytes = uniq * p * q * bank.element_size() + idx.numel() * 8 \
+            + P * p * q * 4
+        bound_ms, bound_by = bound(nbytes, 2 * P * k * p * q, "float32")
+        flat = bank.view(bank.shape[0], -1)
+        lib_ms = eager_ms(torch, lambda: torch.nn.functional.embedding_bag(
+            idx, flat, per_sample_weights=w.to(bf16), mode="sum"), calls=3)
+        log(f"  ms {ms:.4f} | plain {plain_ms:.4f} | embedding_bag "
+            f"{lib_ms:.4f} | bound {bound_ms:.5f} ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, {uniq} rows of nonzero weight)")
+        results.append(dict(shape=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib_ms))
+    return lora, results
+
+
+def hetero_setup(torch, cfg):
+    """qwen1.5-0.5b's weights and typed bank from seed 0 through
+    ``init_lm``, and 4 hard-mask profiles crafted as
+    ``benchmarks/hetero_smoke.py`` crafts them: 1 with every prefix-segment
+    logit at -30 (no prefix slot: its prompt prefills at cache slot 0),
+    2 with them at -30 on odd layers only (the per-layer gate), 0 and 3
+    as drawn."""
+    from repro_torch.core import xpeft as XP
+    from repro_torch.core.profiles import ProfileStore
+    from repro_torch.models import init_lm
+
+    xp = cfg.xpeft
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    bank_bytes = sum(v.numel() * v.element_size()
+                     for v in params["xpeft_bank"].values())
+    log(f"serve hetero: bank_spec {xp.bank_spec}, P={xp.prefix_tokens}; "
+        f"resident typed bank {bank_bytes / 1e6:.1f} MB ("
+        + ", ".join(f"{k} {tuple(v.shape)}"
+                    for k, v in params["xpeft_bank"].items())
+        + f"), init {time.perf_counter() - t0:.2f}s")
+    store = ProfileStore(cfg.num_layers, xp.num_adapters, xp.bottleneck,
+                         xp.mask_type, xp.k, bank_spec=xp.bank_spec)
+    table = XP.init_profile_table(cfg.with_xpeft(max_profiles=4), seed=0)
+    off, cnt = next((o, c) for t, o, c in xp.segments() if t == "prefix")
+    for pid in range(4):
+        row = {k: v[pid].clone() for k, v in table.items()}
+        for m in ("mA", "mB"):
+            if pid == 1:
+                row[m][:, off:off + cnt] = -30.0
+            elif pid == 2:
+                row[m][1::2, off:off + cnt] = -30.0
+        store.add_profile(pid, row)
+    return params, store, bank_bytes
+
+
+def phase_serve_hetero(torch, KA, KF, KI, KAQ, KFQ, KD, ctx):
+    """qwen1.5-0.5b at full width with the typed bank HETERO_SPEC, P=8,
+    composed: #1 launches 10 times per aggregating wave (bottleneck and
+    LoRA A/B, IA3 and prefix K/V from both masks), #2 48 times per decode
+    step and prefill batch (bottleneck and LoRA), #7 24 times; #5, #6 and
+    #8 not at all. Held to its kernel_impl="ref" run as the other paths;
+    one prefill batch must hold prefix-on (cache_pos 8) and prefix-off
+    (cache_pos 0) requests. Then the same requests with decode_fused=True:
+    hetero entries stay composed, so #8 must not launch and the tokens
+    equal the composed run's."""
+    from repro_torch.serve import Request
+
+    cfg = ctx["cfg"].with_xpeft(bank_spec=HETERO_SPEC,
+                                prefix_tokens=HETERO_P)
+    L = cfg.num_layers
+    params, store, bank_bytes = hetero_setup(torch, cfg)
+    counters = (("mask_aggregate_batched", KA.mask_aggregate_batched),
+                ("fused_adapter_batched", KF.fused_adapter_batched),
+                ("ia3_apply_batched", KI.ia3_apply_batched),
+                ("mask_aggregate_quant_batched",
+                 KAQ.mask_aggregate_quant_batched),
+                ("fused_adapter_quant_batched",
+                 KFQ.fused_adapter_quant_batched),
+                ("decode_block_fused", KD.decode_block_fused))
+    batches_cpos = []
+    per_shape = {}
+
+    def check_launches(launches, st, waves):
+        steps, batches = st["device_steps"], st["prefill_batches"]
+        aggregating = sum(w["path"] == "sparse" for w in waves)
+        # each aggregating wave: #1 twice for the IA3 rows (one per mask),
+        # four times for the prefix K/V rows, four for the [d, b] leaves;
+        # #2's LoRA route once per layer per decode step and prefill batch
+        per_shape.update({"ia3 rows": 2 * aggregating,
+                          "prefix rows": 4 * aggregating,
+                          "lora": L * (steps + batches)})
+        assert aggregating > 0 and waves[0]["bank_bytes_per_request"] > 0
+        assert launches["mask_aggregate_batched"] == 10 * aggregating
+        assert launches["fused_adapter_batched"] == 2 * L * (steps
+                                                             + batches) > 0
+        assert launches["ia3_apply_batched"] == L * (steps + batches)
+        for name in ("mask_aggregate_quant_batched",
+                     "fused_adapter_quant_batched", "decode_block_fused"):
+            assert launches[name] == 0, launches
+
+    def check_runs(eng, ref_eng):
+        # every typed aggregate goes through #1, bitwise its plain version
+        equal = all(torch.equal(eng.profile_cache.peek(pid)[k],
+                                ref_eng.profile_cache.peek(pid)[k])
+                    for pid in range(4)
+                    for k in eng.profile_cache.peek(pid))
+        log(f"  kernel vs ref: admitted typed entries bitwise {equal}")
+        assert equal
+
+    from repro_torch.serve import ServeEngine
+    prefill = ServeEngine.prefill_logits
+
+    def spy(self, tokens, masks, lengths, cache_pos=None, prefix_rows=None):
+        if cache_pos is not None:
+            batches_cpos.append(sorted(set(cache_pos.tolist())))
+        return prefill(self, tokens, masks, lengths, cache_pos, prefix_rows)
+    ServeEngine.prefill_logits = spy
+    try:
+        eng, reqs, launches, stats = drive_path(
+            torch, "hetero composed", cfg, params, store, counters,
+            check_launches, check_runs)
+    finally:
+        ServeEngine.prefill_logits = prefill
+    plen = {r.uid: r.prefix_len for r in reqs}
+    log(f"  prefix rows per request {plen}; cache_pos sets of the prefill "
+        f"batches {batches_cpos[:8]}")
+    assert [plen[u] for u in (1, 5)] == [0, 0]
+    # profile 2: gated off on every odd layer, on where an even layer
+    # selected a prefix slot
+    skip = eng.profile_cache.peek(2)["prefix_skip"]
+    assert (skip[1::2] == HETERO_P).all() and (skip[0::2] == 0).any()
+    assert any(c == [0, HETERO_P] for c in batches_cpos), batches_cpos
+    stats["resident_bank_bytes"] = bank_bytes
+    stats["prefix_len"] = plen
+    stats["launches_by_shape"] = per_shape
+
+    fused_cfg = cfg.with_(decode_fused=True)
+    f_reqs = make_requests(Request, cfg.vocab_size)
+    for _, fn in counters:
+        fn.launches = 0
+    f_eng, _, f_dt, _ = serve_once(torch, fused_cfg, params, store, f_reqs)
+    st = f_eng.serve_stats()
+    assert KD.decode_block_fused.launches == 0
+    assert KI.ia3_apply_batched.launches == L * (st["device_steps"]
+                                                 + st["prefill_batches"])
+    stats["decode_fused_tokens_equal"] = tokens_equal(f_reqs, reqs)
+    log(f"serve hetero decode_fused=True: megakernel launches "
+        f"{KD.decode_block_fused.launches}, ia3 launches "
+        f"{KI.ia3_apply_batched.launches}; tokens equal to the composed "
+        f"run {stats['decode_fused_tokens_equal']:.3f}")
+    assert stats["decode_fused_tokens_equal"] == 1.0
+    return launches, stats
+
+
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label):
     """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
     the host clock without the profiler, then 8 steps under torch.profiler
@@ -1277,6 +1602,7 @@ def main():
     from repro_torch.kernels import fused_adapter as KF1
     from repro_torch.kernels import fused_adapter_batched as KF
     from repro_torch.kernels import fused_adapter_quant as KFQ
+    from repro_torch.kernels import ia3_apply as KI
     from repro_torch.kernels import mask_aggregate as KA
     from repro_torch.kernels import mask_aggregate_quant as KAQ
     from repro_torch.kernels import ref
@@ -1317,6 +1643,12 @@ def main():
         for fused in (False, True):
             quant[(scheme, fused)] = phase_serve_quant(
                 torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused)
+    # 6. heterogeneous bank: #7, #2's LoRA route and #1's typed shapes on
+    # their own, then the serving path
+    ia3 = phase_ia3(torch, KI, ref)
+    lora, agg_typed = phase_hetero_kernels(torch, KA, KF, ref)
+    hetero_launches, serve_hetero = phase_serve_hetero(
+        torch, KA, KF, KI, KAQ, KFQ, KD, ctx)
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -1353,7 +1685,12 @@ def main():
             ("fused_adapter_quant_batched", faq,
              "src/repro_torch/csrc/fused_adapter_quant.cu",
              "src/repro/kernels/fused_adapter_quant.py:53",
-             quant[("int8", False)][0]["fused_adapter_quant_batched"])):
+             quant[("int8", False)][0]["fused_adapter_quant_batched"]),
+            # the hetero path: 24 launches per decode step and prefill
+            # batch
+            ("ia3_apply_batched", ia3, "src/repro_torch/csrc/ia3_apply.cu",
+             "src/repro/kernels/ia3_apply.py:45",
+             hetero_launches["ia3_apply_batched"])):
         main_row = rows[0]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": tpu, "launches": n}
@@ -1368,6 +1705,17 @@ def main():
         quant[("int8", True)][0]["decode_block_fused"]
     kernels[4]["other_shapes"][3]["launches"] = \
         quant[("int4", True)][0]["decode_block_fused"]
+    # the hetero path's shapes of #1 and #2, each with its own launches
+    # on that path (the LoRA row's count covers T=1 and T=16 together)
+    by_shape = serve_hetero["launches_by_shape"]
+    for row in agg_typed:
+        row["launches"] = by_shape[row["shape"]]
+    kernels[0]["other_shapes"] += agg_typed
+    kernels[1]["other_shapes"] += [
+        dict(shape=f"LoRA route T={T}", max_abs_err=err,
+             launches=by_shape["lora"])
+        for T, err in lora.items()]
+    serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
     serve_quant = {}
     for (scheme, fused), (n, row) in quant.items():
@@ -1376,7 +1724,8 @@ def main():
             = row
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
-                    "serve_quant": serve_quant}))
+                    "serve_quant": serve_quant,
+                    "serve_hetero": serve_hetero}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The bank is ONE tensor per submodule, in ``repro.core.adapters``' layout:
 ``bank_a [L, N, d, b]`` (down-proj) and ``bank_b [L, N, b, d]`` (up-proj).
-Heterogeneous (typed-segment) banks wait for ROADMAP queue 1, item 7.
+A heterogeneous ``bank_spec`` gets one leaf pair or vector per adapter
+family instead (``init_hetero_bank``).
 """
 from __future__ import annotations
 
@@ -17,11 +18,52 @@ def init_adapter_bank(num_layers: int, num_adapters: int, d: int, b: int,
     """Random adapter bank (the paper's LTH/supermask setting): down-proj
     N(0, 1/d), up-proj N(0, 0.02^2), drawn in fp32 on ``device`` one leaf
     at a time and cast once."""
+    draw = _drawer(dtype, generator, device)
+    return {"bank_a": draw((num_layers, num_adapters, d, b),
+                           1.0 / math.sqrt(d)),
+            "bank_b": draw((num_layers, num_adapters, b, d), 0.02)}
+
+
+def _drawer(dtype, generator, device):
     def draw(shape, scale):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return w.mul_(scale).to(dtype)
+    return draw
 
-    return {"bank_a": draw((num_layers, num_adapters, d, b),
-                           1.0 / math.sqrt(d)),
-            "bank_b": draw((num_layers, num_adapters, b, d), 0.02)}
+
+def init_hetero_bank(num_layers: int, xp, d: int, kv_dim: int,
+                     dtype=torch.bfloat16, *, generator: torch.Generator,
+                     device) -> dict:
+    """Typed-segment bank for a heterogeneous ``bank_spec`` (the twin of
+    ``repro.core.adapters.init_hetero_bank``): one leaf pair or vector per
+    family, each spanning only its segment's rows of the unified mask index
+    space (``xp.segments()``), with the same shapes and init statistics:
+
+    - bottleneck: ``bank_a [L, N_bn, d, b]`` / ``bank_b [L, N_bn, b, d]``;
+    - lora: ``lora_a [L, N_lo, d, b]`` (N(0, 1/d)) / ``lora_b
+      [L, N_lo, b, d]`` (N(0, 0.02^2)), rank b, no LN, no activation;
+    - ia3: ``ia3_v [L, N_i3, d]`` scale DELTAS (N(0, 0.02^2)): applied as
+      ``x * (1 + s)``, so an empty selection is exactly the identity;
+    - prefix: ``prefix_k`` / ``prefix_v [L, N_pf, P, kv_dim]``
+      (N(0, 0.02^2)), P = ``xp.prefix_tokens`` post-RoPE KV rows a slot.
+    """
+    b = xp.bottleneck
+    kw = dict(generator=generator, device=device)
+    draw = _drawer(dtype, generator, device)
+    bank = {}
+    for t, _, cnt in xp.segments():
+        if t == "bottleneck":
+            bank.update(init_adapter_bank(num_layers, cnt, d, b, dtype,
+                                          **kw))
+        elif t == "lora":
+            bank["lora_a"] = draw((num_layers, cnt, d, b),
+                                  1.0 / math.sqrt(d))
+            bank["lora_b"] = draw((num_layers, cnt, b, d), 0.02)
+        elif t == "ia3":
+            bank["ia3_v"] = draw((num_layers, cnt, d), 0.02)
+        elif t == "prefix":
+            shape = (num_layers, cnt, xp.prefix_tokens, kv_dim)
+            bank["prefix_k"] = draw(shape, 0.02)
+            bank["prefix_v"] = draw(shape, 0.02)
+    return bank

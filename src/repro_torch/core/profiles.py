@@ -5,7 +5,8 @@ same mask logits: hard masks bit-packed, LN affines fp16, a per-field
 crc32 sidecar verified at every hydration. Serving hydrates through the
 vectorized public API (``batch_sparse_indices``, ``ln_affines``).
 
-Ported here: hard-mask records, integrity checks, change notifications,
+Ported here: hard-mask records (a heterogeneous bank's ``bank_spec`` kept
+as part of the store's identity), integrity checks, change notifications,
 and a quantized store's aggregated Â/B̂ records (``quant`` int8/int4:
 graduation may attach them, quantized on write, and serving then admits
 the profile with zero bank reads). Soft-mask records, ``save``/``load``
@@ -32,7 +33,7 @@ def _host(a) -> np.ndarray:
 class ProfileStore:
     def __init__(self, num_layers: int, num_adapters: int, bottleneck: int,
                  mask_type: str = "hard", k: int = 50, quant: str = "none",
-                 quant_group: int = 32):
+                 quant_group: int = 32, bank_spec=()):
         if mask_type != "hard":
             raise NotImplementedError("soft-mask records are not ported "
                                       "(ROADMAP queue 1, item 3)")
@@ -41,6 +42,11 @@ class ProfileStore:
         self.b = bottleneck
         self.mask_type = mask_type
         self.k = k
+        # heterogeneous banks: the ((type, count), ...) segment layout of
+        # the unified mask index space these records select over, part of
+        # the store's identity (the same mask bits select other adapter
+        # families under another layout)
+        self.bank_spec = tuple((str(t), int(c)) for t, c in bank_spec)
         # quant != "none": graduation may attach the profile's aggregated
         # Â/B̂, persisted QUANTIZED with the store's scheme
         self.quant = QS.check_scheme(quant)

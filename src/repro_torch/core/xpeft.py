@@ -2,17 +2,47 @@
 
 Serving aggregates each admitted profile's k selected adapters into one
 Â/B̂ pair per layer (``precompute_effective_adapters_sparse``, or
-``precompute_effective_adapters_sparse_quant`` over a quantized bank),
-through the kernel dispatch layer, and ``apply_precomputed_layer`` applies one
-layer of such a record to a [T, d] sequence. The dense / soft-mask /
-heterogeneous paths of ``repro.core.xpeft`` wait for ROADMAP queue 1,
-items 2 and 7.
+``precompute_effective_adapters_sparse_quant`` over a quantized bank, or
+one typed aggregate per adapter family with
+``precompute_effective_adapters_sparse_hetero`` over a heterogeneous
+bank), through the kernel dispatch layer, and ``apply_precomputed_layer``
+applies one layer of such a record to a [T, d] sequence. The dense /
+soft-mask paths of ``repro.core.xpeft`` (the hetero ones included) wait
+for ROADMAP queue 1, items 2 and 7.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import masks as M
+
+
+# Entry keys each adapter family contributes to a hydrated (aggregated)
+# profile entry: the typed generalization of the {a_hat, b_hat, ln_*}
+# record. The unified mask still selects over ONE [0, N) index space;
+# these are the per-type AGGREGATES the selection produces.
+HETERO_ENTRY_KEYS = {
+    "bottleneck": ("a_hat", "b_hat", "ln_scale", "ln_bias"),
+    "lora": ("lora_a", "lora_b"),
+    "ia3": ("ia3_s",),
+    "prefix": ("prefix_k", "prefix_v"),
+}
+
+
+def hetero_entry_keys(xp):
+    """Ordered entry keys for the families present in ``xp.bank_spec``."""
+    out = []
+    for t, _, _ in xp.segments():
+        for k in HETERO_ENTRY_KEYS[t]:
+            if k not in out:
+                out.append(k)
+    return tuple(out)
+
+
+def _safe_inv(wsum):
+    """0/0-safe renorm factor: 1/wsum where wsum > 0, else 0."""
+    safe = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
+    return torch.where(wsum > 0, 1.0 / safe, torch.zeros_like(wsum))
 
 
 def init_profile_table(cfg, *, seed: int = 0, device="cpu") -> dict:
@@ -105,3 +135,75 @@ def apply_precomputed_layer(x, eff_l: dict, xp):
                              eff_l["ln_scale"], eff_l["ln_bias"],
                              activation=xp.adapter_activation,
                              impl=xp.kernel_impl)
+
+
+def _sparse_fold(leaf, idx, w, xp):
+    """Layer-folded k-sparse aggregation of one typed leaf.
+
+    leaf [L, C, p, q]; idx/w [..., L, k] with idx LOCAL to the segment
+    (weights of out-of-segment selections already zeroed) -> [..., L, p, q]
+    fp32, via ONE batched aggregation of R·L rows, the layer-folding of
+    ``precompute_effective_adapters_sparse``."""
+    from repro_torch.kernels import ops
+
+    L, C, p, q = leaf.shape
+    batch = idx.shape[:-2]
+    k = idx.shape[-1]
+    flat = leaf.reshape(L * C, p, q)
+    off = (torch.arange(L, dtype=torch.int32, device=idx.device) * C)[:, None]
+    fi = (idx.to(torch.int32) + off).reshape(-1, k)
+    fw = w.to(torch.float32).reshape(-1, k)
+    out = ops.mask_aggregate_batched(flat, fi, fw, impl=xp.kernel_impl)
+    return out.reshape(*batch, L, p, q)
+
+
+def _segment_bucket(idx, w, off, cnt):
+    """Fixed-shape bucketing of unified-space indices into one segment:
+    indices outside [off, off+cnt) clamp to a valid local row and their
+    weights become zero (0 · a finite row is an exact 0 in the fp32 sum),
+    so every segment runs at the full k width."""
+    in_seg = (idx >= off) & (idx < off + cnt)
+    local = torch.clamp(idx - off, 0, cnt - 1).to(torch.int32)
+    return local, w.to(torch.float32) * in_seg
+
+
+def precompute_effective_adapters_sparse_hetero(bank: dict, idx_a, w_a,
+                                                idx_b, w_b, xp):
+    """k-sparse admission aggregation for a heterogeneous bank (the twin
+    of ``repro.core.xpeft.precompute_effective_adapters_sparse_hetero``).
+
+    idx_*/w_*: [..., L, k] over the UNIFIED index space. Each typed
+    segment buckets the k selections with ``_segment_bucket`` and runs the
+    same batched aggregation at full k width. Returns the per-type
+    aggregates keyed as ``HETERO_ENTRY_KEYS`` (no LN affines: the caller
+    attaches the profile's own): bottleneck and LoRA sides follow their
+    masks; IA3 and prefix take both masks; prefix rows are renormalized
+    to a convex mixture, 0/0 giving zero rows."""
+    out = {}
+    for t, off, cnt in xp.segments():
+        la, wa = _segment_bucket(idx_a, w_a, off, cnt)
+        lb, wb = _segment_bucket(idx_b, w_b, off, cnt)
+        if t in ("bottleneck", "lora"):
+            names = ("bank_a", "bank_b") if t == "bottleneck" else \
+                ("lora_a", "lora_b")
+            sub = {"bank_a": bank[names[0]], "bank_b": bank[names[1]]}
+            a_hat, b_hat = precompute_effective_adapters_sparse(
+                sub, la, wa, lb, wb, xp)
+            keys = ("a_hat", "b_hat") if t == "bottleneck" else \
+                ("lora_a", "lora_b")
+            out[keys[0]], out[keys[1]] = a_hat, b_hat
+        elif t == "ia3":
+            v = bank["ia3_v"][..., None]                    # [L, C, d, 1]
+            s = _sparse_fold(v, la, wa, xp) + _sparse_fold(v, lb, wb, xp)
+            out["ia3_s"] = s[..., 0].to(bank["ia3_v"].dtype)
+        elif t == "prefix":
+            num_k = _sparse_fold(bank["prefix_k"], la, wa, xp) + \
+                _sparse_fold(bank["prefix_k"], lb, wb, xp)
+            num_v = _sparse_fold(bank["prefix_v"], la, wa, xp) + \
+                _sparse_fold(bank["prefix_v"], lb, wb, xp)
+            wsum = wa.sum(-1) + wb.sum(-1)                  # [..., L]
+            inv = _safe_inv(wsum)[..., None, None]
+            dt = bank["prefix_k"].dtype
+            out["prefix_k"] = (num_k * inv).to(dt)
+            out["prefix_v"] = (num_v * inv).to(dt)
+    return out

@@ -191,7 +191,9 @@ cudaError_t launch(const void* x, const void* a, const void* b,
 
 // dtype (of x, A_hat, B_hat and out): 0 = fp32, 1 = bf16. Strides are in
 // elements; 0 broadcasts a shared operand to every row.
-// act: 0 = identity, 1 = gelu (tanh form). Returns the launch's cudaError_t.
+// act: 0 = identity, 1 = gelu (tanh form). ls / lb are read only under
+// use_ln, so the LoRA route (use_ln = 0) may pass null for both.
+// Returns the launch's cudaError_t.
 extern "C" int xpeft_fused_adapter_batched(
     const void* x, const void* a, const void* b, const void* ls,
     const void* lb, void* out, int B, int T, int d, int nb, long long a_bs,

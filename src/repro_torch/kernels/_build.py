@@ -39,6 +39,8 @@ SIGNATURES = {
          _P],
     "xpeft_fused_adapter_quant_batched":
         [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 3 + [_P],
+    "xpeft_ia3_apply_batched":
+        [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
     "xpeft_decode_block_config":
         [_I] * 7 + [ctypes.POINTER(_I)],
     "xpeft_decode_block":

@@ -21,12 +21,14 @@ from repro_torch.kernels.fused_adapter_batched import launch
 def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
                   activation: str = "gelu", use_ln: bool = True):
     """x [T, d]; a_hat [d, b]; b_hat [b, d] (one dtype with x, bf16 or
-    fp32); ln_* [b] fp32 -> [T, d] in x's dtype."""
+    fp32); ln_* [b] fp32, or None with ``use_ln=False`` -> [T, d] in x's
+    dtype."""
     if x.device.type == "cpu":
         return ref.fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias,
                                      activation=activation, use_ln=use_ln)
     if x.ndim != 2 or a_hat.ndim != 2 or b_hat.ndim != 2 \
-            or ln_scale.ndim != 1 or ln_bias.ndim != 1:
+            or any(t is not None and t.ndim != 1
+                   for t in (ln_scale, ln_bias)):
         raise ValueError("the unbatched adapter takes x [T, d], a_hat "
                          "[d, b], b_hat [b, d] and ln_* [b]")
     out = launch(x[None], a_hat, b_hat, ln_scale, ln_bias,

@@ -41,11 +41,28 @@ def _row_stride(t, inner, name):
     return t.stride(0) if t.ndim == len(inner) + 1 else 0
 
 
+def _ln_layout(ln_scale, ln_bias, nb, use_ln):
+    """The LN affines to pass and their batch stride: ((ln_scale, ln_bias),
+    stride), both fp32 [B, nb] or [nb] in one layout; or ((), 0) on the
+    LoRA route (use_ln=False) given None for both -- the kernel reads them
+    only under use_ln."""
+    if not use_ln and ln_scale is None and ln_bias is None:
+        return (), 0
+    if ln_scale is None or ln_bias is None:
+        raise ValueError("pass both LN affines, or neither with use_ln=False")
+    if ln_scale.dtype != torch.float32 or ln_bias.dtype != torch.float32:
+        raise TypeError("LN affines must be float32")
+    ln_bs = _row_stride(ln_scale, (nb,), "ln_scale")
+    if _row_stride(ln_bias, (nb,), "ln_bias") != ln_bs:
+        raise ValueError("ln_scale and ln_bias must share one layout")
+    return (ln_scale, ln_bias), ln_bs
+
+
 def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
                           activation: str = "gelu", use_ln: bool = True):
     """x [B, T, d]; a_hat [B, d, b] or [d, b]; b_hat [B, b, d] or [b, d]
     (x, a_hat and b_hat in one dtype, bf16 or fp32); ln_* [B, b] or [b]
-    fp32 -> [B, T, d] in x's dtype."""
+    fp32, or None with ``use_ln=False`` -> [B, T, d] in x's dtype."""
     if x.device.type == "cpu":
         return ref.fused_adapter_batched_ref(
             x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
@@ -72,30 +89,27 @@ def launch(x, a_hat, b_hat, ln_scale, ln_bias, *, activation, use_ln):
         raise TypeError(f"x/a_hat/b_hat dtypes {x.dtype}/{a_hat.dtype}/"
                         f"{b_hat.dtype}: all three must be one of bfloat16 "
                         "or float32")
-    if ln_scale.dtype != torch.float32 or ln_bias.dtype != torch.float32:
-        raise TypeError("LN affines must be float32")
     if not 1 <= nb <= MAX_B:
         raise ValueError(f"bottleneck {nb} outside [1, {MAX_B}]")
+    ln, ln_bs = _ln_layout(ln_scale, ln_bias, nb, use_ln)
     for name, t in (("a_hat", a_hat), ("b_hat", b_hat),
-                    ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+                    *zip(("ln_scale", "ln_bias"), ln)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     a_bs = _row_stride(a_hat, (d, nb), "a_hat")
     b_bs = _row_stride(b_hat, (nb, d), "b_hat")
-    ln_bs = _row_stride(ln_scale, (nb,), "ln_scale")
-    if _row_stride(ln_bias, (nb,), "ln_bias") != ln_bs:
-        raise ValueError("ln_scale and ln_bias must share one layout")
     for name, t, bs in (("a_hat", a_hat, a_bs), ("b_hat", b_hat, b_bs),
                         ("ln_scale", ln_scale, ln_bs)):
         if bs and t.shape[0] != B:
             raise ValueError(f"{name} has {t.shape[0]} rows for batch {B}")
+    ls_ptr, lb_ptr = (t.data_ptr() for t in ln) if ln else (None, None)
     out = torch.empty_like(x)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.xpeft_fused_adapter_batched(
             x.data_ptr(), a_hat.data_ptr(), b_hat.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), out.data_ptr(),
+            ls_ptr, lb_ptr, out.data_ptr(),
             B, T, d, nb, a_bs, b_bs, ln_bs, _DTYPES[x.dtype], int(use_ln),
             _ACTS[activation], stream)
     if err:

@@ -13,6 +13,10 @@ through here (``models/model.py`` ``_xpeft_apply`` and
 
 The Pallas backends (``pallas``, ``interpret``) have no counterpart.
 
+Heterogeneous banks (``XPeftConfig.bank_spec``) add two routes:
+``lora_adapter`` (the fused adapter kernel with the LN skipped and the
+identity) and ``ia3_apply`` (``y = x * (1 + s)``).
+
 The quantized-bank routes (``mask_aggregate_quant_batched``,
 ``fused_adapter_quant``; ``XPeftConfig.bank_quant``) take int8 / planar
 int4 payloads with fp16 scales and dequantize in registers; their plain
@@ -26,6 +30,7 @@ from repro_torch.kernels.decode_fused import (
 from repro_torch.kernels.fused_adapter import fused_adapter as _fused_cuda
 from repro_torch.kernels.fused_adapter_batched import (
     fused_adapter_batched as _fused_cuda_batched)
+from repro_torch.kernels.ia3_apply import ia3_apply_batched as _ia3_cuda
 from repro_torch.kernels.mask_aggregate import mask_aggregate as _agg_cuda
 from repro_torch.kernels.fused_adapter_quant import (
     fused_adapter_quant_batched as _fused_cuda_quant)
@@ -78,6 +83,27 @@ def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
         return ref.fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias,
                                      **kw)
     return _fused_cuda(x, a_hat, b_hat, ln_scale, ln_bias, **kw)
+
+
+def lora_adapter(x, a_hat, b_hat, *, impl: str = "auto"):
+    """LoRA route: y = x + B̂Âx, the fused adapter with the LN skipped and
+    the identity. Â/B̂ share the bottleneck aggregate's shapes (rank r =
+    b). No LN affines are passed: nothing reads them on this route."""
+    return fused_adapter(x, a_hat, b_hat, None, None,
+                         activation="identity", impl=impl, use_ln=False)
+
+
+def ia3_apply(x, s, *, impl: str = "auto"):
+    """IA3 scaling: y = x * (1 + s), s the aggregated scale deltas ([d]
+    shared or [B, d] per row); x [B, T, d] or [T, d]."""
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    if resolve_impl(impl) == "ref":
+        out = ref.ia3_apply_batched_ref(x, s)
+    else:
+        out = _ia3_cuda(x, s)
+    return out[0] if squeeze else out
 
 
 def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,

@@ -2,7 +2,8 @@
 
 Twins of ``repro.kernels.ref``'s ``mask_aggregate_ref``,
 ``mask_aggregate_batched_ref``, ``fused_adapter_ref``,
-``fused_adapter_batched_ref``, ``mask_aggregate_quant_batched_ref``,
+``fused_adapter_batched_ref``, ``ia3_apply_batched_ref``,
+``mask_aggregate_quant_batched_ref``,
 ``fused_adapter_quant_batched_ref`` and ``decode_block_ref`` (with the
 per-slot math of ``repro.kernels.decode_fused.decode_block_row``). The
 quantized ones dequantize through ``quant.schemes.dequant_block``. The
@@ -93,6 +94,17 @@ def fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias, *,
     return fused_adapter_batched_ref(
         x[None], a_hat, b_hat, ln_scale, ln_bias, activation=activation,
         eps=eps, use_ln=use_ln)[0]
+
+
+def ia3_apply_batched_ref(x, s):
+    """x [B, T, d]; s [B, d] or shared [d] -> x * (1 + s) in x's dtype.
+
+    fp32 inside: (1 + s) rounded once, times x rounded once, then one
+    rounding to x's dtype — the CUDA kernel's exact arithmetic. s == 0 is
+    bitwise x."""
+    if s.ndim == 2:
+        s = s[:, None, :]
+    return (x.float() * (1.0 + s.float())).to(x.dtype)
 
 
 def mask_aggregate_quant_batched_ref(q, scale, idx, w, *, scheme: str):

@@ -6,8 +6,9 @@ attention: the cacheless self-attention, the cache write at a scalar
 softmax over the whole ``[T, S]`` logits. The chunked online-softmax path
 the JAX package takes for T > 512 (``_sdpa_chunked``) computes the same
 function and is left for a later slice (ROADMAP queue 1, item 2), as are
-``extra_kv`` / ``front_skip`` (heterogeneous prefix rows) and sliding
-windows.
+sliding windows and ``extra_kv`` (the prefix rows of the dense training
+path, queue 1, item 7). ``front_skip`` (serving over prefix KV rows
+hydrated into the cache) is ported.
 
 Unlike the functional JAX cache, the port writes the cache IN PLACE (one
 KV cache per engine instead of a fresh copy per layer-step) and returns
@@ -39,11 +40,18 @@ def init_attention(cfg, dtype, *, generator: torch.Generator, device) -> dict:
     return p
 
 
-def _mask(q_pos, k_pos, *, causal, kv_valid):
-    """q_pos [B,Tq], k_pos [S], kv_valid [B] -> bool [B,Tq,S]."""
+def _mask(q_pos, k_pos, *, causal, kv_valid, front_skip=None):
+    """q_pos [B,Tq], k_pos [S], kv_valid [B] -> bool [B,Tq,S].
+
+    ``front_skip [B]`` masks the first ``front_skip[b]`` key buffer slots:
+    the per-example gate of prefix KV rows at the front of the cache (an
+    example whose profile selected no prefix slot at this layer attends
+    exactly the bare sequence, not P zero rows diluting the softmax)."""
     qp = q_pos[:, :, None]
     kp = k_pos[None, None, :]
     m = kp < kv_valid.reshape(-1, 1, 1)
+    if front_skip is not None:
+        m = m & (kp >= front_skip.reshape(-1, 1, 1))
     if causal:
         m = m & (kp <= qp)
     return m
@@ -86,13 +94,17 @@ def write_cache(buf, new, cache_pos):
     buf[rows, tgt] = torch.where(valid, new, buf[rows, tgt])
 
 
-def attention(params, x, *, positions, cfg, cache=None, cache_pos=None):
+def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
+              front_skip=None):
     """x [B,T,d] -> (y [B,T,d], cache).
 
     cache: {"k","v": [B, S, KV, hd]}, written in place at ``cache_pos``
     (scalar, or [B] per-slot offsets); the keys are then read back through
     the cache dtype and ``kv_valid = cache_pos + T`` bounds what each row
-    attends. Without a cache, keys = queries (self-attention)."""
+    attends. Without a cache, keys = queries (self-attention).
+    front_skip: optional [B] int — key buffer slots ``< front_skip[b]`` are
+    masked (a layer whose profile selected no prefix slot holds zero rows
+    at [0, P) that must not be attended)."""
     if cfg.attn_type != "full":
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r}: only full attention is ported "
@@ -133,7 +145,8 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None):
     qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)  # [B,KV,G,T,hd]
 
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-    msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid)
+    msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid,
+                front_skip=front_skip)
     out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
 
     out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)

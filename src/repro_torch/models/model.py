@@ -6,16 +6,20 @@ layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
 becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
 attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
-Every other block pattern, MoE, sliding windows and the mask routes other
-than the admission-time aggregated ones (``a_hat``, or the quantized
-``a_q`` records of a ``bank_quant`` engine) raise ``NotImplementedError``
-naming their ROADMAP item.
+A heterogeneous bank's entries (``lora_a``, ``ia3_s``, ``prefix_skip``)
+compose in JAX's fixed order, bottleneck -> LoRA -> IA3, with each
+layer's ``prefix_skip`` gating the prefix KV rows the engine hydrated
+into the cache. Every other block pattern, MoE, sliding windows and the
+mask routes other than the admission-time aggregated ones (``a_hat`` and
+the typed hetero entries, or the quantized ``a_q`` records of a
+``bank_quant`` engine) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.adapters import init_adapter_bank
+from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
 from repro_torch.models import mlp as MLP
@@ -51,9 +55,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             "frontends, learned positions and embedding scaling are not "
             "ported (ROADMAP queue 1, item 2)")
-    if cfg.xpeft.enabled and cfg.xpeft.is_hetero:
-        raise NotImplementedError("heterogeneous banks are not ported "
-                                  "(ROADMAP queue 1, item 7)")
+    if cfg.xpeft.enabled and cfg.xpeft.is_hetero \
+            and cfg.xpeft.bank_quant != "none":
+        raise NotImplementedError("quantized heterogeneous banks are not "
+                                  "ported (ROADMAP queue 1, item 7)")
 
 
 # ----------------------------------------------------------------------------
@@ -94,7 +99,10 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
                                        cfg.d_model, dtype, **kw)
-    if cfg.xpeft.enabled:
+    if cfg.xpeft.enabled and cfg.xpeft.is_hetero:
+        params["xpeft_bank"] = init_hetero_bank(
+            cfg.num_layers, cfg.xpeft, cfg.d_model, cfg.kv_dim, dtype, **kw)
+    elif cfg.xpeft.enabled:
         params["xpeft_bank"] = init_adapter_bank(
             cfg.num_layers, cfg.xpeft.num_adapters, cfg.d_model,
             cfg.xpeft.bottleneck, dtype, **kw)
@@ -120,12 +128,11 @@ def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
 def _xpeft_apply(x, masks_l, cfg):
     if masks_l is None or not cfg.xpeft.enabled:
         return x
-    if any(key in masks_l for key in ("lora_a", "ia3_s", "w_a")) \
-            or not ("a_hat" in masks_l) ^ ("a_q" in masks_l):
+    if "w_a" in masks_l:
         raise NotImplementedError(
             f"mask route with keys {sorted(masks_l)}: only the admission-"
-            "time aggregated a_hat and a_q routes are ported (dense/sparse "
-            "masks: ROADMAP queue 1, item 2; hetero: item 7)")
+            "time aggregated routes are ported (dense/sparse masks: ROADMAP "
+            "queue 1, item 2; dense hetero: item 7)")
     if "a_q" in masks_l:
         # quantized aggregated records (bank_quant serving): int8 / planar
         # int4 Â/B̂ with fp16 scales, widened in registers by the kernel
@@ -135,10 +142,22 @@ def _xpeft_apply(x, masks_l, cfg):
             scheme=cfg.xpeft.bank_quant,
             activation=cfg.xpeft.adapter_activation,
             impl=cfg.xpeft.kernel_impl)
-    return ops.fused_adapter(x, masks_l["a_hat"], masks_l["b_hat"],
-                             masks_l["ln_scale"], masks_l["ln_bias"],
-                             activation=cfg.xpeft.adapter_activation,
-                             impl=cfg.xpeft.kernel_impl)
+    # admission-time aggregated adapters; a heterogeneous entry composes in
+    # the fixed per-layer order bottleneck -> LoRA -> IA3 (its prefix rows
+    # live in the KV cache), and one with none of these leaves (a
+    # prefix-only bank_spec) leaves x as it is
+    impl = cfg.xpeft.kernel_impl
+    if "a_hat" in masks_l:
+        x = ops.fused_adapter(x, masks_l["a_hat"], masks_l["b_hat"],
+                              masks_l["ln_scale"], masks_l["ln_bias"],
+                              activation=cfg.xpeft.adapter_activation,
+                              impl=impl)
+    if "lora_a" in masks_l:
+        x = ops.lora_adapter(x, masks_l["lora_a"], masks_l["lora_b"],
+                             impl=impl)
+    if "ia3_s" in masks_l:
+        x = ops.ia3_apply(x, masks_l["ia3_s"], impl=impl)
+    return x
 
 
 def _decode_fused_route(cfg, masks, use_cache: bool, Tt: int):
@@ -182,10 +201,12 @@ def _decode_fused_apply(block, x, masks_l, cfg, *, positions, cache_l,
     return y
 
 
-def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos):
+def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
+                      front_skip=None):
     h = norm_apply(x, block["n1"], cfg.norm)
     h, _ = ATT.attention(block["attn"], h, positions=positions, cfg=cfg,
-                         cache=cache_l, cache_pos=cache_pos)
+                         cache=cache_l, cache_pos=cache_pos,
+                         front_skip=front_skip)
     x = x + h
     h = norm_apply(x, block["n2"], cfg.norm)
     return x + MLP.mlp_apply(block["mlp"], h, cfg)
@@ -198,7 +219,10 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     profile_masks: {"a_hat" [B,L,d,b], "b_hat" [B,L,b,d], "ln_scale",
     "ln_bias" [B,L,b]} (admission-time aggregated adapters), their
     quantized form {"a_q", "a_scale", "b_q", "b_scale", "ln_scale",
-    "ln_bias"}, or None.
+    "ln_bias"}, a heterogeneous entry (any of those bottleneck leaves,
+    "lora_a"/"lora_b", "ia3_s" [B,L,d], "prefix_skip" [B,L] int32), or
+    None. With a cache, each layer's "prefix_skip" masks that many key
+    slots at the front of the cache (the hydrated prefix rows).
     cache: from ``init_cache``, written IN PLACE at ``cache_pos`` (a
     scalar, or [B] per-slot offsets) and returned; None runs uncached."""
     check_supported(cfg)
@@ -227,8 +251,13 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
                                     positions=positions, cache_l=cache_l,
                                     cache_pos=cache_pos, route=fused_route)
             continue
+        front_skip = None
+        if cache is not None and masks_l is not None \
+                and "prefix_skip" in masks_l:
+            front_skip = masks_l["prefix_skip"]
         x = _attn_block_apply(block, x, cfg, positions=positions,
-                              cache_l=cache_l, cache_pos=cache_pos)
+                              cache_l=cache_l, cache_pos=cache_pos,
+                              front_skip=front_skip)
         x = _xpeft_apply(x, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)

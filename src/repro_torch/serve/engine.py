@@ -5,9 +5,14 @@ admission-time aggregation (``continuous=False``, ``precompute=True``),
 hard-mask profiles and a type-pure bank, unquantized or quantized
 (``XPeftConfig.bank_quant`` int8/int4: the bank is quantized once at
 construction and dropped from the resident params; admission aggregates
-the quantized rows and the slot buffers hold quantized records). With
+the quantized rows and the slot buffers hold quantized records), or an
+unquantized heterogeneous bank (``XPeftConfig.bank_spec``: typed entries
+and slot buffers, one aggregate per adapter family; a prefix segment's KV
+rows are written into the cache at prefill, in front of the prompt, for
+the requests whose profile selects any prefix slot). With
 ``cfg.decode_fused`` each decode step runs the decode megakernel once per
-layer (prefill keeps the composed path). Admission of a wave:
+layer (prefill keeps the composed path; hetero entries stay composed).
+Admission of a wave:
 
 1. hydrate: per-request profile-cache lookup; only MISSING profiles are
    aggregated against the bank — k-sparse, the top-k rows only — in ONE
@@ -50,16 +55,32 @@ def _rate(num, den, nd: int = 4) -> float:
     return round(num / den, nd) if den else 0.0
 
 
+def _check_hetero(cfg, *, precompute, max_seq) -> None:
+    """The JAX engine's refusals for a heterogeneous bank (ValueError)."""
+    xp = cfg.xpeft
+    if not (xp.enabled and xp.is_hetero):
+        return
+    if xp.bank_quant != "none":
+        raise ValueError(
+            "bank_quant engines do not serve heterogeneous bank_specs "
+            "(quantize_bank_hetero covers storage; serve with "
+            "bank_quant='none')")
+    if not xp.has_prefix:
+        return
+    if not precompute:
+        raise ValueError(
+            "per-step mask serving cannot hydrate prefix KV rows; a "
+            "prefix-bearing bank_spec requires precompute=True")
+    if xp.prefix_tokens >= max_seq - 1:
+        raise ValueError("prefix_tokens must leave room for the prompt "
+                         f"(max_seq={max_seq})")
+
+
 def _check_quant(cfg, store, *, precompute) -> None:
     """The JAX engine's refusals for a quantized bank (ValueError)."""
     xp = cfg.xpeft
     if not (xp.enabled and xp.bank_quant != "none"):
         return
-    if xp.is_hetero:
-        raise ValueError(
-            "bank_quant engines do not serve heterogeneous bank_specs "
-            "(quantize_bank_hetero covers storage; serve with "
-            "bank_quant='none')")
     if not precompute:
         # the per-step mask path hydrates against the fp bank every step,
         # so none of bank_quant's byte/residency savings would exist
@@ -71,8 +92,9 @@ def _check_quant(cfg, store, *, precompute) -> None:
                          "(k-sparse quantized aggregation)")
 
 
-def _check_slice(cfg, store, *, precompute, continuous, mesh, fault_plan,
-                 obs) -> None:
+def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
+                 fault_plan, obs) -> None:
+    _check_hetero(cfg, precompute=precompute, max_seq=max_seq)
     _check_quant(cfg, store, precompute=precompute)
     MDL.check_supported(cfg)
     if continuous:
@@ -108,7 +130,7 @@ class ServeEngine:
                  cache_bytes: Optional[int] = 64 << 20,
                  continuous: bool = False, mesh=None, fault_plan=None,
                  obs=None):
-        _check_slice(cfg, store, precompute=precompute,
+        _check_slice(cfg, store, precompute=precompute, max_seq=max_seq,
                      continuous=continuous, mesh=mesh,
                      fault_plan=fault_plan, obs=obs)
         self.cfg = cfg
@@ -132,6 +154,13 @@ class ServeEngine:
                 v.numel() * v.element_size()
                 for v in self.qbank.values()) // (L_ * N_)
         self.params = params
+        # heterogeneous bank: typed entries and slot buffers; a prefix
+        # segment's rows hydrate into the KV cache at prefill
+        self.hetero = xp.enabled and xp.is_hetero
+        self.prefix_len = int(xp.prefix_tokens) \
+            if (self.hetero and xp.has_prefix) else 0
+        self._prefix_seg = next(((off, cnt) for t, off, cnt
+                                 in xp.segments() if t == "prefix"), None)
         self.S = max_seq
         self.n_slots = max_slots
         self.sync_every = sync_every
@@ -163,19 +192,33 @@ class ServeEngine:
                 "b_scale": torch.zeros(bs_s, dtype=torch.float16,
                                        device=dev),
             }
+            self.masks = dict(
+                adapter,
+                ln_scale=torch.ones((max_slots, L, b), dtype=torch.float32,
+                                    device=dev),
+                ln_bias=torch.zeros((max_slots, L, b), dtype=torch.float32,
+                                    device=dev))
+            self._entry_keys = tuple(self.masks)
         else:
-            adapter = {
-                "a_hat": torch.zeros((max_slots, L, d, b), dtype=dt,
-                                     device=dev),
-                "b_hat": torch.zeros((max_slots, L, b, d), dtype=dt,
-                                     device=dev),
+            # what one hydrated entry carries; the slot buffers hold the
+            # same leaves minus the prefix ROWS (they go into the KV cache
+            # at prefill; only the per-layer skip gate rides with decode)
+            self._entry_keys = ("a_hat", "b_hat", "ln_scale", "ln_bias")
+            if self.hetero:
+                self._entry_keys = XP.hetero_entry_keys(xp) + (
+                    ("prefix_skip",) if self.prefix_len else ())
+            shapes = {
+                "a_hat": ((L, d, b), dt), "b_hat": ((L, b, d), dt),
+                "ln_scale": ((L, b), torch.float32),
+                "ln_bias": ((L, b), torch.float32),
+                "lora_a": ((L, d, b), dt), "lora_b": ((L, b, d), dt),
+                "ia3_s": ((L, d), dt), "prefix_skip": ((L,), torch.int32),
             }
-        self.masks = dict(
-            adapter,
-            ln_scale=torch.ones((max_slots, L, b), dtype=torch.float32,
-                                device=dev),
-            ln_bias=torch.zeros((max_slots, L, b), dtype=torch.float32,
-                                device=dev))
+            self.masks = {
+                key: (torch.ones if key == "ln_scale" else torch.zeros)(
+                    (max_slots,) + shapes[key][0], dtype=shapes[key][1],
+                    device=dev)
+                for key in self._entry_keys if key in shapes}
 
         def decode_fn(params, cache, last_tok, lengths, masks, active):
             hidden, cache, _ = MDL.forward(params, last_tok[:, None], cfg,
@@ -196,15 +239,29 @@ class ServeEngine:
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill_logits(self, tokens, masks, lengths):
+    def prefill_logits(self, tokens, masks, lengths, cache_pos=None,
+                       prefix_rows=None):
         """Batched prefill of one length bucket: tokens [B, pad], per-row
         aggregated masks [B, ...], lengths [B] -> (logits [B, V] at each
-        row's last prompt token, mini KV cache [L, B, S, ...])."""
+        row's last prompt token, mini KV cache [L, B, S, ...]).
+
+        A prefix-bearing heterogeneous bank passes ``cache_pos [B]`` (P for
+        a request whose profile selects a prefix slot, else 0) and
+        ``prefix_rows = (pk, pv) [B, L, P, kv_dim]``: the rows are written
+        into the mini cache at buffer slots [0, P) before the forward, so
+        the prompt attends them through the ordinary cached path."""
         B, P = tokens.shape
         mini = MDL.init_cache(self.cfg, B, self.S, device=self.device)
-        hidden, mini, _ = MDL.forward(self.params, tokens, self.cfg,
-                                      profile_masks=masks, cache=mini,
-                                      cache_pos=0)
+        if prefix_rows is not None:
+            KV, hd = self.cfg.num_kv_heads, self.cfg.head_dim
+            for key, rows in zip(("k", "v"), prefix_rows):
+                n = rows.shape[2]
+                mini[key][:, :, :n] = rows.reshape(
+                    rows.shape[:3] + (KV, hd)).transpose(0, 1).to(
+                        mini[key].dtype)
+        hidden, mini, _ = MDL.forward(
+            self.params, tokens, self.cfg, profile_masks=masks, cache=mini,
+            cache_pos=0 if cache_pos is None else cache_pos)
         idx = torch.clamp(lengths.long() - 1, 0, P - 1)
         last_h = hidden[torch.arange(B, device=hidden.device), idx][:, None]
         return MDL.lm_logits(self.params, last_h, self.cfg)[:, -1], mini
@@ -236,8 +293,8 @@ class ServeEngine:
 
     def _wave_indices(self, pids: List[int]):
         """The pids' top-k (idx, w) pairs for both masks, padded with zero
-        rows to a pow2 profile count, moved to the device in one transfer:
-        (idx [2, Mp, L, k], w [2, Mp, L, k])."""
+        rows to a pow2 profile count, on the host: (idx [2, Mp, L, k],
+        w [2, Mp, L, k]); the caller moves them in one transfer each."""
         M = len(pids)
         Mp = pow2_count(M)
         ia, wa, ib, wb = self.store.batch_sparse_indices(pids)
@@ -245,7 +302,21 @@ class ServeEngine:
         pad_w = torch.zeros((Mp - M,) + tuple(wa.shape[1:]), dtype=wa.dtype)
         idx = torch.stack([torch.cat([ia, pad_i]), torch.cat([ib, pad_i])])
         w = torch.stack([torch.cat([wa, pad_w]), torch.cat([wb, pad_w])])
-        return idx.to(self.device), w.to(self.device)
+        return idx, w
+
+    def _prefix_gate(self, idx, M):
+        """Host-side per-layer prefix gate of the first M profiles of a
+        wave, from the same top-k indices the aggregation consumes (a
+        selected index carries weight 1/k > 0, so idx-in-segment is
+        exactly wsum > 0): (prefix_on [M] bool, prefix_skip [M, L] int32
+        — 0 where the layer selected a prefix slot or the profile none at
+        all, else P)."""
+        off, cnt = self._prefix_seg
+        ih = idx[:, :M]
+        valid = ((ih >= off) & (ih < off + cnt)).any(-1).any(0)   # [M, L]
+        on = valid.any(-1)
+        skip = torch.where(valid | ~on[:, None], 0, self.prefix_len)
+        return on, skip.to(torch.int32)
 
     def _admission_stats(self, path, pids, hits, misses, aggregated,
                          bank_bytes, **extra) -> None:
@@ -259,43 +330,69 @@ class ServeEngine:
     def _hydrate_stacked(self, reqs: List[Request]) -> dict:
         """Stacked [R, ...] aggregated mask rows for an admission wave:
         profile-cache hits first; every missing profile aggregates
-        k-sparse against the bank in ONE call padded to a pow2 count."""
+        k-sparse against the bank in ONE call padded to a pow2 count (one
+        per typed leaf of a heterogeneous bank). A prefix-bearing bank
+        also sets each request's ``prefix_len`` (P or 0)."""
         pids = [int(r.profile_id) for r in reqs]
         if self.quant != "none":
             return self._hydrate_stacked_quant(pids)
         entries, hits, misses, missing = self._lookup(pids)
         bank = self.params["xpeft_bank"]
+        xp = self.cfg.xpeft
         L = self.cfg.num_layers
-        d, b = bank["bank_a"].shape[2:]
-        # Â + B̂ bytes of one (layer, adapter) row
-        slice_bytes = 2 * d * b * bank["bank_a"].element_size()
+        if self.hetero:
+            # average bytes of one unified-space (layer, slot) row across
+            # the typed segments: what one k-sparse selection reads
+            slice_bytes = sum(v.numel() * v.element_size()
+                              for v in bank.values()) // (L * xp.num_adapters)
+        else:
+            d, b = bank["bank_a"].shape[2:]
+            # Â + B̂ bytes of one (layer, adapter) row
+            slice_bytes = 2 * d * b * bank["bank_a"].element_size()
         aggregated = bank_bytes = 0
         path = "cached"
         if missing:
-            idx, w = self._wave_indices(missing)
+            idx_h, w_h = self._wave_indices(missing)
+            idx, w = idx_h.to(self.device), w_h.to(self.device)
             aggregated = idx.shape[1]
-            a_hat, b_hat = XP.precompute_effective_adapters_sparse(
-                bank, idx[0], w[0], idx[1], w[1], self.cfg.xpeft)
+            if self.hetero:
+                agg = XP.precompute_effective_adapters_sparse_hetero(
+                    bank, idx[0], w[0], idx[1], w[1], xp)
+            else:
+                agg = dict(zip(("a_hat", "b_hat"),
+                               XP.precompute_effective_adapters_sparse(
+                                   bank, idx[0], w[0], idx[1], w[1], xp)))
             path = "sparse"
             bank_bytes = aggregated * idx.shape[-1] * L * slice_bytes
             ln_s, ln_b = (t.to(self.device)
                           for t in self.store.ln_affines(missing))
+            agg["ln_scale"], agg["ln_bias"] = ln_s, ln_b
+            if self.prefix_len:
+                on, skip = self._prefix_gate(idx_h, len(missing))
+                agg["prefix_skip"] = skip.to(self.device)
             for i, pid in enumerate(missing):
                 # own copies: a view would pin the whole padded batch and
                 # the cache's byte budget would undercount it
-                entry = {"a_hat": a_hat[i].clone(), "b_hat": b_hat[i].clone(),
-                         "ln_scale": ln_s[i].clone(),
-                         "ln_bias": ln_b[i].clone()}
+                entry = {key: agg[key][i].clone()
+                         for key in self._entry_keys}
+                if self.prefix_len:
+                    # host-side flag, a 0-d tensor so the cache's byte
+                    # budget counts it as JAX counts its np.int32
+                    entry["prefix_on"] = on[i].to(torch.int32)
                 self.profile_cache.put(pid, entry)
                 entries[pid] = entry
+        if self.prefix_len:
+            for pid, r in zip(pids, reqs):
+                r.prefix_len = self.prefix_len * int(
+                    entries[pid]["prefix_on"])
         self._admission_stats(path, pids, hits, misses, aggregated,
                               bank_bytes)
         return self._stack(entries, pids)
 
     def _stack(self, entries, pids) -> dict:
-        """The wave's entries stacked [R, ...], one leaf per slot buffer."""
+        """The wave's entries stacked [R, ...], one leaf per entry key."""
         return {key: torch.stack([entries[pid][key] for pid in pids])
-                for key in self.masks}
+                for key in self._entry_keys}
 
     def _aggregate_sparse_quant(self, idx, w):
         """fp32 (Â, B̂) of the padded wave, from the quantized bank."""
@@ -332,7 +429,8 @@ class ServeEngine:
             agg_pids = [p for p in missing if p not in rec_pids]
             fresh = {}
             if agg_pids:
-                idx, w = self._wave_indices(agg_pids)
+                idx, w = (t.to(self.device)
+                          for t in self._wave_indices(agg_pids))
                 aggregated = idx.shape[1]
                 q = self._requantize(*self._aggregate_sparse_quant(idx, w))
                 # true quantized row bytes read from the bank
@@ -385,6 +483,11 @@ class ServeEngine:
             return 0
         assigned = free[:len(reqs)]
         stacked = self._hydrate_stacked(reqs)
+        prefix_rows = None
+        if self.prefix_len:
+            # prefix KV rows go into the cache at prefill, not into the
+            # slot buffers
+            prefix_rows = (stacked.pop("prefix_k"), stacked.pop("prefix_v"))
         # ONE scatter into the per-slot buffers for the whole wave
         slot_t = torch.tensor(assigned, dtype=torch.long, device=self.device)
         for key, buf in self.masks.items():
@@ -405,9 +508,17 @@ class ServeEngine:
             sel = torch.tensor([idx_of[id(r)] for r in group]
                                + [0] * (Bp - B), device=self.device)
             rows = {key: t[sel] for key, t in stacked.items()}
+            cpos = prows = None
+            if prefix_rows is not None:
+                # the prompt lands at buffer slot P for prefix-on requests,
+                # 0 otherwise (pad rows at 0; dropped at insert)
+                cpos = torch.tensor([r.prefix_len for r in group]
+                                    + [0] * (Bp - B), dtype=torch.int32,
+                                    device=self.device)
+                prows = tuple(t[sel] for t in prefix_rows)
             logits, mini = self.prefill_logits(
                 torch.from_numpy(toks).to(self.device), rows,
-                torch.from_numpy(lens).to(self.device))
+                torch.from_numpy(lens).to(self.device), cpos, prows)
             self._insert(mini, torch.tensor(
                 [slot_of[id(r)] for r in group], device=self.device))
             nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
@@ -421,17 +532,25 @@ class ServeEngine:
             len(reqs) / max(sum(pow2_count(len(g))
                                 for g in groups.values()), 1), 3)
 
+        # slot lengths include the hydrated prefix rows: the length is the
+        # KV write position and the decode RoPE position, so a prefix-on
+        # request continues at P + prompt
         toks_all = [next_toks[id(r)] for r in reqs]
-        self.slots.admit(assigned, toks_all, [len(r.prompt) for r in reqs],
+        self.slots.admit(assigned, toks_all, [self._rlen(r) for r in reqs],
                          [r.max_new_tokens for r in reqs])
         for r, slot in zip(reqs, assigned):
             r.generated.append(next_toks[id(r)])
-            if r.max_new_tokens <= 1 or len(r.prompt) >= self.S - 1:
+            if r.max_new_tokens <= 1 or self._rlen(r) >= self.S - 1:
                 r.done = True  # budget spent by the prefill token
             else:
                 self.slot_req[slot] = r
         self._refresh_window()
         return len(reqs)
+
+    def _rlen(self, r) -> int:
+        """Cache length of a request's prompt region: its hydrated prefix
+        rows plus its prompt tokens."""
+        return getattr(r, "prefix_len", 0) + len(r.prompt)
 
     def step(self) -> int:
         """One device decode step for all slots. Host state refreshes only
@@ -468,11 +587,12 @@ class ServeEngine:
 
     def _refresh_window(self) -> None:
         # device capacity stop is lengths >= S-1 post-increment with
-        # lengths = prompt + generated - 1, so a slot can still emit
-        # S - prompt - generated tokens; the window is bounded by the MAX
-        # remaining, so slots never dead-step after everyone finished
+        # lengths = prefix + prompt + generated - 1, so a slot can still
+        # emit S - prefix - prompt - generated tokens; the window is
+        # bounded by the MAX remaining, so slots never dead-step after
+        # everyone finished
         remaining = [min(r.max_new_tokens - len(r.generated),
-                         self.S - len(r.prompt) - len(r.generated))
+                         self.S - self._rlen(r) - len(r.generated))
                      for r in self.slot_req if r is not None]
         bound = max(remaining) if remaining else self.sync_every
         self._window = max(1, min(self.sync_every, bound))

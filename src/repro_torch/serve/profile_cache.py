@@ -22,7 +22,10 @@ def entry_nbytes(entry: dict) -> int:
     b_q, b_scale, ...} under bank_quant) are budgeted at their int8 /
     packed-int4 payload + fp16 scale widths — size x itemsize IS the
     quantized record size, so the same byte knob holds 2x (int8) / ~3.6x
-    (int4) more resident profiles with no accounting change."""
+    (int4) more resident profiles with no accounting change. Typed
+    (heterogeneous-bank) entries count every family's aggregates, the
+    prefix rows and gate, and the 0-d int32 ``prefix_on`` flag (4 bytes,
+    as JAX counts its ``np.int32``)."""
     return sum(v.numel() * v.element_size() for v in entry.values())
 
 

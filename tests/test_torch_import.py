@@ -27,11 +27,12 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 25, names
-# the quantized-bank slice's modules are among them
+assert len(names) >= 26, names
+# the quantized-bank and heterogeneous-bank slices' modules are among them
 for name in ("repro_torch.quant", "repro_torch.quant.schemes",
              "repro_torch.kernels.mask_aggregate_quant",
-             "repro_torch.kernels.fused_adapter_quant"):
+             "repro_torch.kernels.fused_adapter_quant",
+             "repro_torch.kernels.ia3_apply"):
     assert name in names and name in sys.modules, name
 """
 
