@@ -11,9 +11,17 @@ Phases, in order; any failed check exits non-zero:
              the card at the shapes the serving path gives it, then timed
              beside its plain version, its bound and, where one PyTorch call
              computes the same function, that call: CUDA events, medians
-             after warm-up, around CUDA-graph replays for the microsecond
-             kernels (inputs rotated past the L2, as decode finds them) and
-             around eager calls for the millisecond aggregation. The decode
+             after warm-up, around CUDA-graph replays (inputs rotated past
+             the L2, as decode and admission find them), the aggregation's
+             eager calls printed beside. The aggregation (#1, #4) is held
+             bitwise at every shape, padded rows as exact zeros, two calls
+             bitwise equal. The fused adapter (#2) is checked at T=1, 5,
+             16, 17 and 128 (bf16 and fp32; per-row, shared and layer-slice
+             operands; the LoRA route; b 32, 64 and 128; two calls bitwise
+             equal; clusters of 16 at d=7168, T=1 and d=6144, T=16, where
+             the planner picks them) and timed at T=1, 16 and 128. #1-#4's
+             times before their redesign are printed beside (log lines
+             only). The decode
              megakernel is checked at qwen1.5-0.5b's layer widths, B=4 slots,
              S=128, positions [3, 0, 77, 130] (130 >= S: nothing substituted,
              the row dropped later), biases, norm scales and LN affines drawn
@@ -64,7 +72,9 @@ Phases, in order; any failed check exits non-zero:
              timed; the fused adapter's LoRA route (no LN, identity) on
              layer slices at T=1 and T=16; the aggregation at the typed
              leaves' shapes (IA3 rows [624, 1024, 1], prefix rows
-             [624, 8, 1024]), bitwise and timed. Then qwen1.5-0.5b with the
+             [624, 8, 1024]), bitwise and timed, and bitwise again with
+             -0.0 weights, two terms that cancel exactly and a padded row
+             (the kernel drops zero-weight terms). Then qwen1.5-0.5b with the
              typed bank bottleneck 102 / LoRA 102 / IA3 26 / prefix 26 and
              P = 8 prefix rows, composed: the aggregation launches 10 times
              per aggregating wave, the fused adapter 48 times and #7 24
@@ -146,6 +156,15 @@ FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
 FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
 E2E_STEPS = 4
 E2E_SHARE_REL = 0.5
+
+# #1-#4 as this script timed them before their redesign for Hopper (one
+# block row per output row; one block per batch row and 16-token tile),
+# in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1 eager calls, the rest
+# cold CUDA-graph replays. Printed in the log beside this run's times;
+# never asserted and never in the JSON lines.
+BEFORE_MS = {"A_hat": 0.1894, "B_hat": 0.1860, "ia3 rows": 0.0553,
+           "prefix rows": 0.0488, "T=1": 0.04071, "T=16": 0.23646,
+           "unbatched T=256": 0.21530, "one profile": 0.02405}
 
 
 def log(msg):
@@ -243,6 +262,12 @@ def agg_inputs(torch, gen, d, b, L=24, N=256, P=96, k=50):
 
 
 def phase_mask_aggregate(torch, KA, ref, F):
+    """#1 at admission's A_hat / B_hat shapes (P=96, k=50): bitwise, padded
+    rows exact zeros, two calls bitwise equal; timed as cold CUDA-graph
+    replays (the 805 MB bank holds every call's ~525 MB of selected rows
+    far past the 50 MB L2, so no rotation is needed) and as eager calls
+    (the reading before the redesign), beside embedding_bag and the plain
+    version."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = []
     for label, (d, b) in (("A_hat", (1024, 64)), ("B_hat", (64, 1024))):
@@ -250,9 +275,11 @@ def phase_mask_aggregate(torch, KA, ref, F):
         P, k = idx.shape
         got = KA.mask_aggregate_batched(bank, idx, w)
         want = ref.mask_aggregate_batched_ref(bank, idx, w)
+        again = KA.mask_aggregate_batched(bank, idx, w)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (P, d, b)
         assert torch.isfinite(got).all()
+        assert torch.equal(got, again)
         err = (got - want).abs().max().item()
         log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
             f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} "
@@ -263,8 +290,9 @@ def phase_mask_aggregate(torch, KA, ref, F):
                                         torch.zeros_like(w[:2]))
         assert not pad.abs().max().item()
 
-        # millisecond-scale calls: host launch cost is noise here
-        ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
+        ms = device_ms(torch, lambda: KA.mask_aggregate_batched(
+            bank, idx, w), calls=8)
+        host_ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
             bank, idx, w), calls=3)
         plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
             bank, idx, w), calls=1)
@@ -278,16 +306,20 @@ def phase_mask_aggregate(torch, KA, ref, F):
         # per-sample weights computes the same weighted sum of rows
         flat = bank.view(bank.shape[0], -1)
         w16 = w.to(bank.dtype)
-        lib_ms = eager_ms(torch, lambda: F.embedding_bag(
+        lib_ms = device_ms(torch, lambda: F.embedding_bag(
+            idx, flat, per_sample_weights=w16, mode="sum"), calls=8)
+        lib_eager = eager_ms(torch, lambda: F.embedding_bag(
             idx, flat, per_sample_weights=w16, mode="sum"), calls=3)
-        log(f"  ms {ms:.4f} | plain {plain_ms:.4f} | embedding_bag "
-            f"{lib_ms:.4f} | bound {bound_ms:.4f} ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {uniq} distinct rows) | "
-            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        log(f"  ms {ms:.4f} (cold graph replay) | eager {host_ms:.4f} "
+            f"(before: eager {BEFORE_MS[label]}) | plain {plain_ms:.4f} | "
+            f"embedding_bag {lib_ms:.4f} (eager {lib_eager:.4f}) | bound "
+            f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} "
+            f"distinct rows) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
         results.append(dict(shape=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=lib_ms))
-        del bank, flat, got, want
+                            bound_by=bound_by, library_ms=lib_ms,
+                            eager_ms=host_ms, library_eager_ms=lib_eager))
+        del bank, flat, got, want, again
         torch.cuda.empty_cache()
     return results
 
@@ -340,6 +372,37 @@ def phase_fused_adapter(torch, KF, ref):
         check_fa(torch, KF, ref, args,
                  dict(activation="identity", use_ln=False), FA_BF16_RTOL,
                  FA_BF16_ATOL, f"bf16 shared no-LN identity T={T}")
+    # T that is not a whole 16-token tile, in both dtypes
+    for T in (5, 17):
+        check_fa(torch, KF, ref, fa_inputs(torch, gen, B, T, d, b, bf16),
+                 {}, FA_BF16_RTOL, FA_BF16_ATOL, f"bf16 T={T}")
+        check_fa(torch, KF, ref, fa_inputs(torch, gen, B, T, d, b, f32),
+                 {}, FA_F32_RTOL, FA_F32_ATOL, f"fp32 T={T}")
+    # other bottleneck widths
+    for nb in (32, 128):
+        for T in (1, 16):
+            check_fa(torch, KF, ref,
+                     fa_inputs(torch, gen, B, T, d, nb, bf16), {},
+                     FA_BF16_RTOL, FA_BF16_ATOL, f"bf16 b={nb} T={T}")
+    # the cluster's partials are summed in rank order: two calls on the
+    # same inputs agree bit for bit
+    for T in (1, 16):
+        args = fa_inputs(torch, gen, B, T, d, b, bf16)
+        first = KF.fused_adapter_batched(*args)
+        second = KF.fused_adapter_batched(*args)
+        torch.cuda.synchronize()
+        log(f"  check two calls bf16 T={T}: bitwise "
+            f"{torch.equal(first, second)}")
+        assert torch.equal(first, second), T
+    # clusters of 16 blocks, where the planner takes them: decode of a
+    # 7168-wide model (llava-next-34b) and prefill of a 6144-wide one
+    # (dbrx-132b), whose slices overflow a block's shared memory at 8
+    for dw, T in ((7168, 1), (6144, 16)):
+        cs = KF.plan(dw, b, T, 2)
+        assert cs == 16, (dw, T, cs)
+        check_fa(torch, KF, ref, fa_inputs(torch, gen, B, T, dw, b, bf16),
+                 {}, FA_BF16_RTOL, FA_BF16_ATOL,
+                 f"bf16 d={dw} T={T}, clusters of {cs}")
     # one layer of the engine's [B, L, d, b] slot buffers, at the decode
     # (T=1) and a prefill (T=16) shape
     stack = [fa_inputs(torch, gen, B, 1, d, b, bf16)[1:] for _ in range(3)]
@@ -352,7 +415,7 @@ def phase_fused_adapter(torch, KF, ref):
                  f"bf16 layer slice of [B,L,d,b] T={T}")
 
     results = []
-    for T in (1, 16):
+    for T in (1, 16, 128):
         # the decode path finds each layer's A_hat/B_hat cold (24 layers of
         # adapters and all the weights stream between two uses), so the
         # timed calls rotate over input sets that together exceed the
@@ -372,10 +435,12 @@ def phase_fused_adapter(torch, KF, ref):
             + sets[0][0].numel() * 2
         flops = 4 * B * T * d * b
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        before = BEFORE_MS.get(f"T={T}", "not timed")
         log(f"fused_adapter_batched B={B} T={T} d={d} b={b} bf16: ms "
-            f"{ms:.5f} (cold) | warm {warm_ms:.5f} | plain {plain_ms:.5f} "
-            f"(cold) | eager call (host included) {host_ms:.5f} | bound "
-            f"{bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.3f} MB)")
+            f"{ms:.5f} (cold; before {before}) | warm {warm_ms:.5f} | plain "
+            f"{plain_ms:.5f} (cold) | eager call (host included) "
+            f"{host_ms:.5f} | bound {bound_ms:.5f} ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB)")
         results.append(dict(shape=f"T={T}", max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None,
@@ -728,17 +793,20 @@ def phase_unbatched(torch, KA, KF1, ref, F):
     err = diff.max().item()
     ok = bool((diff <= FA_BF16_RTOL * want.float().abs()
                + FA_BF16_ATOL).all())
+    again = KF1.fused_adapter(*sets[0])
+    torch.cuda.synchronize()
     log(f"fused_adapter (unbatched) T={T} d={d} b={b} bf16: max_abs_err "
-        f"{err:.3e} ok={ok}")
-    assert ok and got.shape == (T, d)
+        f"{err:.3e} ok={ok}; two calls bitwise {torch.equal(got, again)}")
+    assert ok and got.shape == (T, d) and torch.equal(got, again)
     ms = device_ms(torch, rotating(KF1.fused_adapter, sets), calls=len(sets))
     plain_ms = device_ms(torch, rotating(ref.fused_adapter_ref, sets),
                          calls=len(sets))
     nbytes = sum(t.numel() * t.element_size() for t in sets[0]) \
         + sets[0][0].numel() * 2
     bound_ms, bound_by = bound(nbytes, 4 * T * d * b, "bfloat16")
-    log(f"  ms {ms:.5f} (cold) | plain {plain_ms:.5f} (cold) | bound "
-        f"{bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.3f} MB)")
+    log(f"  ms {ms:.5f} (cold; before {BEFORE_MS['unbatched T=256']}) | "
+        f"plain {plain_ms:.5f} (cold) | bound {bound_ms:.5f} ({bound_by}: "
+        f"{nbytes / 1e6:.3f} MB)")
     results["fused_adapter"] = dict(
         shape=f"T={T}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -774,8 +842,9 @@ def phase_unbatched(torch, KA, KF1, ref, F):
                                           mode="sum"), flats), calls=64)
     nbytes = k * d * b * 2 + k * 8 + d * b * 4
     bound_ms, bound_by = bound(nbytes, 2 * k * d * b, "float32")
-    log(f"  ms {ms:.5f} (cold) | plain {plain_ms:.5f} | embedding_bag "
-        f"{lib_ms:.5f} | bound {bound_ms:.5f} ({bound_by}: "
+    log(f"  ms {ms:.5f} (cold; before {BEFORE_MS['one profile']}) | plain "
+        f"{plain_ms:.5f} | embedding_bag {lib_ms:.5f} (kernel faster: "
+        f"{ms < lib_ms}) | bound {bound_ms:.5f} ({bound_by}: "
         f"{nbytes / 1e6:.2f} MB)")
     results["mask_aggregate"] = dict(
         shape=f"N={N} k={k}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1347,6 +1416,35 @@ def phase_ia3(torch, KI, ref):
     return results
 
 
+def agg_zero_terms(torch, KA, ref, bank, idx, w, label):
+    """#1 bitwise against its plain version where dropping the zero-weight
+    terms matters: on a copy of ``bank``, row 0 keeps its weights with
+    every zero made -0.0, row 1 holds two terms of weight 0.5 whose bank
+    rows cancel exactly (the second the first's negation) and zeros
+    elsewhere, row 2 is padding (idx 0, w 0); rows 1 and 2 must come out
+    +0."""
+    bank = bank.clone()
+    idx, w = idx.clone(), w.clone()
+    w[0] = torch.where(w[0] == 0, torch.full_like(w[0], -0.0), w[0])
+    r0, r1 = int(idx[1, 0]), int(idx[1, 1])
+    if r0 == r1:
+        r1 = (r0 + 1) % bank.shape[0]
+        idx[1, 1] = r1
+    bank[r1] = -bank[r0]
+    w[1] = 0.0
+    w[1, :2] = 0.5
+    idx[2], w[2] = 0, 0.0
+    got = KA.mask_aggregate_batched(bank, idx, w)
+    want = ref.mask_aggregate_batched_ref(bank, idx, w)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    zeros = not got[1:3].abs().max().item() \
+        and not torch.signbit(got[1:3]).any().item()
+    log(f"  check {label} with -0.0 weights, cancelling terms and a pad "
+        f"row: bitwise {same}; rows of +0 {zeros}")
+    assert same and zeros, label
+
+
 def phase_hetero_kernels(torch, KA, KF, ref):
     """#2's LoRA route (no LN, identity) on layer slices of [B, L, d, b]
     slot buffers with no LN affines, as ``ops.lora_adapter`` calls it, at
@@ -1371,10 +1469,13 @@ def phase_hetero_kernels(torch, KA, KF, ref):
 
     L, C, P, k = 24, 26, 96, 50
     results = []
-    for label, (p, q) in (("ia3 rows", (d, 1)), ("prefix rows",
-                                                (HETERO_P, d))):
-        bank = (torch.randn((L * C, p, q), generator=gen, device="cuda")
-                * 0.02).to(bf16)
+    # IA3 banks are 1.3 MB and prefix banks 10.2 MB: the timed calls
+    # rotate over enough banks (83 and 82 MB) that each finds its rows cold
+    for label, (p, q), n_banks in (("ia3 rows", (d, 1), 64),
+                                   ("prefix rows", (HETERO_P, d), 8)):
+        banks = [(torch.randn((L * C, p, q), generator=gen, device="cuda")
+                  * 0.02).to(bf16) for _ in range(n_banks)]
+        bank = banks[0]
         local = torch.randint(0, C, (P, k), generator=gen, device="cuda")
         layer = torch.arange(P, device="cuda") % L
         idx = (local + (layer * C)[:, None]).to(torch.int32).contiguous()
@@ -1382,14 +1483,19 @@ def phase_hetero_kernels(torch, KA, KF, ref):
         w = in_seg.float() / k
         got = KA.mask_aggregate_batched(bank, idx, w)
         want = ref.mask_aggregate_batched_ref(bank, idx, w)
+        again = KA.mask_aggregate_batched(bank, idx, w)
         torch.cuda.synchronize()
         assert got.shape == want.shape == (P, p, q)
         err = (got - want).abs().max().item()
         log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
             f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} (bitwise "
-            f"{torch.equal(got, want)})")
-        assert torch.equal(got, want), label
-        ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
+            f"{torch.equal(got, want)}; two calls bitwise "
+            f"{torch.equal(got, again)})")
+        assert torch.equal(got, want) and torch.equal(got, again), label
+        sets = [(bk, idx, w) for bk in banks]
+        ms = device_ms(torch, rotating(KA.mask_aggregate_batched, sets),
+                       calls=64)
+        host_ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
             bank, idx, w), calls=3)
         plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
             bank, idx, w), calls=1)
@@ -1398,15 +1504,26 @@ def phase_hetero_kernels(torch, KA, KF, ref):
         nbytes = uniq * p * q * bank.element_size() + idx.numel() * 8 \
             + P * p * q * 4
         bound_ms, bound_by = bound(nbytes, 2 * P * k * p * q, "float32")
-        flat = bank.view(bank.shape[0], -1)
-        lib_ms = eager_ms(torch, lambda: torch.nn.functional.embedding_bag(
-            idx, flat, per_sample_weights=w.to(bf16), mode="sum"), calls=3)
-        log(f"  ms {ms:.4f} | plain {plain_ms:.4f} | embedding_bag "
-            f"{lib_ms:.4f} | bound {bound_ms:.5f} ({bound_by}: "
-            f"{nbytes / 1e6:.2f} MB, {uniq} rows of nonzero weight)")
+        w16 = w.to(bf16)
+        flats = [(idx, bk.view(bk.shape[0], -1), w16) for bk in banks]
+
+        def library(i, fl, ww):
+            return torch.nn.functional.embedding_bag(
+                i, fl, per_sample_weights=ww, mode="sum")
+        lib_ms = device_ms(torch, rotating(library, flats), calls=64)
+        lib_eager = eager_ms(torch, lambda: library(*flats[0]), calls=3)
+        log(f"  ms {ms:.5f} (cold graph replay) | eager {host_ms:.4f} "
+            f"(before: eager {BEFORE_MS[label]}) | plain {plain_ms:.4f} | "
+            f"embedding_bag {lib_ms:.5f} (eager {lib_eager:.4f}) | bound "
+            f"{bound_ms:.5f} ({bound_by}: {nbytes / 1e6:.2f} MB, {uniq} "
+            f"rows of nonzero weight)")
+        agg_zero_terms(torch, KA, ref, bank, idx, w, label)
         results.append(dict(shape=label, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=lib_ms))
+                            bound_by=bound_by, library_ms=lib_ms,
+                            eager_ms=host_ms, library_eager_ms=lib_eager))
+        del banks, sets, flats, bank
+        torch.cuda.empty_cache()
     return lora, results
 
 

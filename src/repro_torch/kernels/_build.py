@@ -31,12 +31,12 @@ _F = ctypes.c_float
 # are c_void_p (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
     "xpeft_mask_aggregate_batched":
-        [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _P],
+        [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _P],
     "xpeft_mask_aggregate_quant_batched":
         [_P] * 5 + [_I] * 5 + [_LL, _I, _P],
     "xpeft_fused_adapter_batched":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
-         _P],
+         _I, _P],
     "xpeft_fused_adapter_quant_batched":
         [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 3 + [_P],
     "xpeft_ia3_apply_batched":

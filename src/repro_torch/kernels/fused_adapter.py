@@ -6,7 +6,9 @@ for x [T, d] with one Â [d, b] / B̂ [b, d]. It computes the B=1 form of
 the batched kernel (``csrc/fused_adapter.cu``, see
 ``kernels/fused_adapter_batched.py`` for its bound and design), so it
 launches that kernel on a [1, T, d] view of x with batch stride 0 for the
-shared operands: no copy.
+shared operands: no copy. At B=1 the grid is one thread-block cluster
+per 16-token tile (T=256: 16 clusters of 8 blocks), each block taking a
+d-slice, x·Â on tensor cores in bf16.
 
 On a CPU tensor the wrapper computes the plain version
 (``kernels/ref.py`` ``fused_adapter_ref``); on a CUDA tensor it launches

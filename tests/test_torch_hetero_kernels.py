@@ -291,6 +291,63 @@ def test_typed_aggregation_matches_jax():
         assert not got[key][-1].abs().max().item(), key
 
 
+def test_dropping_zero_weight_terms_changes_no_bit():
+    """The arithmetic the aggregation kernel's skip rests on: a k-order
+    fp32 sum that leaves out the terms of weight 0 is bitwise the plain
+    version, which sums every term, at the typed leaves' mix (~90% of the
+    weights zero, -0.0 weights, terms that cancel exactly, a pad row).
+    The kernel itself is held to the plain version on these inputs on the
+    card by ``chip_smoke.py``."""
+    rng = np.random.default_rng(11)
+    N, p_, q_, P, k = 12, 8, 16, 6, 10
+    bank = torch.from_numpy(rng.normal(size=(N, p_, q_)).astype(np.float32))
+    bank[3] = -bank[2]
+    idx = torch.from_numpy(rng.integers(0, N, (P, k)).astype(np.int32))
+    w = torch.from_numpy((rng.uniform(0.1, 1, (P, k))
+                          * (rng.uniform(size=(P, k)) < 0.1))
+                         .astype(np.float32))
+    w[0, :3] = torch.tensor([0.5, 0.5, -0.0])
+    idx[0, :3] = torch.tensor([2, 3, 5], dtype=torch.int32)  # cancels to 0
+    w[1] = 0.0                                              # a pad row
+    want = tref.mask_aggregate_batched_ref(bank, idx, w)
+    got = torch.zeros_like(want)
+    for p in range(P):
+        for j in range(k):
+            if w[p, j] != 0:
+                got[p] = got[p] + w[p, j] * bank[idx[p, j].long()]
+    assert torch.equal(got, want)
+    assert not want[1].abs().max().item()
+    assert not torch.signbit(want[1]).any()
+
+
+@pytest.mark.parametrize("p_,q_,want", [
+    (1024, 1, (64, 16)),    # IA3 rows [24*26, 1024, 1], P=96
+    (8, 1024, (128, 8)),    # prefix rows [24*26, 8, 1024], P=96
+])
+def test_typed_aggregation_plan(p_, q_, want):
+    """The typed leaves' admission shapes (qwen1.5-0.5b, P = 4 profiles x
+    24 layers): IA3 rows are short, so 64-thread blocks with 16 loads in
+    flight; prefix rows fill the card at 128 threads and 8 in flight."""
+    from repro_torch.kernels.mask_aggregate import plan
+    assert plan(96, p_ * q_, 2) == want
+
+
+def test_lora_route_plan_and_layer_slices():
+    """The LoRA route shares the bottleneck kernel's plan (b = 64, clusters
+    of 8 at d = 1024 in bf16) and takes layer slices of [B, L, d, b] as
+    16-byte vectors."""
+    from repro_torch.kernels.fused_adapter_batched import (
+        _check_vectors, _row_stride, plan)
+    B, L, d, b = 4, 24, 1024, 64
+    a = torch.zeros((B, L, d, b), dtype=torch.bfloat16)
+    bb = torch.zeros((B, L, b, d), dtype=torch.bfloat16)
+    a_bs = _row_stride(a[:, 5], (d, b), "a_hat")
+    b_bs = _row_stride(bb[:, 5], (b, d), "b_hat")
+    _check_vectors(torch.zeros((B, 1, d), dtype=torch.bfloat16), a[:, 5],
+                   bb[:, 5], a_bs, b_bs)
+    assert [plan(d, b, T, 2) for T in (1, 16)] == [8, 8]
+
+
 # ----------------------------------------------------------------------------
 # (e) attention: per-request cache_pos and the front_skip gate
 # ----------------------------------------------------------------------------

@@ -275,6 +275,126 @@ def test_mask_aggregate_input_checks():
             _check(*bad)
 
 
+@pytest.mark.parametrize("P,row,itemsize,want", [
+    (96, 1024 * 64, 2, (128, 8)),   # admission's A_hat / B_hat, P=96
+    (1, 1024 * 64, 2, (64, 32)),    # the one-profile entry point
+    (1, 1024 * 64, 4, (64, 16)),    # ... from an fp32 bank
+    (4, 1024 * 64, 2, (128, 16)),   # 4 layer-folded rows: 16 in flight
+])
+def test_mask_aggregate_plan(P, row, itemsize, want):
+    """The aggregation's block size and loads in flight: 128 threads
+    where every SM still gets a block, else 64; 32 loads in flight below
+    64 threads per SM, 16 below 256, else 8."""
+    from repro_torch.kernels.mask_aggregate import THREADS, UNROLLS, plan
+    assert plan(P, row, itemsize) == want
+    assert want[0] in THREADS and want[1] in UNROLLS
+
+
+def test_mask_aggregate_plan_checks():
+    """Every plan is one the kernel is built for: the C entry point takes
+    exactly the block sizes ``THREADS`` and instantiates exactly the loads
+    in flight ``UNROLLS``, and the planner returns nothing else over the
+    shapes from one profile-row to a full admission wave."""
+    import re
+    from repro_torch.kernels._build import CSRC
+    from repro_torch.kernels.mask_aggregate import THREADS, UNROLLS, plan
+    src = (CSRC / "mask_aggregate.cu").read_text()
+    body = src[src.index("cudaError_t launch_u"):]
+    body = body[:body.index("}  // namespace")]
+    assert tuple(int(u) for u in re.findall(r"case (\d+):", body)) \
+        == UNROLLS
+    entry = src[src.index('extern "C" int xpeft_mask_aggregate_batched'):]
+    assert tuple(int(t) for t in re.findall(r"threads != (\d+)", entry)) \
+        == THREADS
+    for P in (1, 2, 4, 8, 24, 96, 192, 1024):
+        for row in (1024, 8 * 1024, 64 * 1024, 256 * 1024):
+            for itemsize in (2, 4):
+                threads, unroll = plan(P, row, itemsize)
+                assert threads in THREADS and unroll in UNROLLS
+
+
+@pytest.mark.parametrize("d,nb,T,itemsize,want", [
+    (1024, 64, 1, 2, 8),     # qwen1.5-0.5b decode
+    (1024, 64, 16, 2, 8),    # ... prefill, tensor cores
+    (1024, 64, 256, 2, 8),   # the unbatched adapter's x [256, 1024]
+    (1024, 64, 16, 4, 8),    # fp32
+    (1024, 256, 16, 4, 16),  # fp32 at b=256: 8 blocks' slices overflow
+    (768, 48, 1, 2, 8),      # bert-base, b=48
+    (7168, 64, 1, 2, 16),    # llava-next-34b decode: 8 blocks overflow
+    (6144, 64, 16, 2, 16),   # dbrx-132b prefill, likewise
+])
+def test_fused_adapter_plan(d, nb, T, itemsize, want):
+    """Blocks per cluster: 8 where d / 8 is a whole number of vectors (of
+    16 values in bf16) and the block's shared memory fits, else 16."""
+    from repro_torch.kernels.fused_adapter_batched import (
+        MAX_SMEM, plan, smem_bytes)
+    assert plan(d, nb, T, itemsize) == want
+    tt = 1 if T == 1 else 16
+    assert smem_bytes(d // want, nb, tt, itemsize,
+                      itemsize == 2 and T > 1) <= MAX_SMEM
+
+
+def test_fused_adapter_plan_refusals():
+    """Shapes no cluster takes raise (the wrapper never falls back), and
+    the layout matches the kernel's at decode and prefill."""
+    from repro_torch.kernels.fused_adapter_batched import plan, smem_bytes
+    for args in ((1024, 4, 1, 2),           # b not whole vectors
+                 (1024, 60, 16, 2),
+                 (8192, 256, 16, 2),        # no slice fits smem
+                 (7168, 64, 1, 4),          # ... at 16 blocks either
+                 (1000, 64, 1, 2),          # d/cs never 16k
+                 (1040, 32, 1, 2)):         # d/8, d/16 not whole 16s
+        with pytest.raises(ValueError):
+            plan(*args)
+    # x [1, 136] + A_hat [128, 72] + B_hat [64, 128] bf16, h and partial
+    # [64] and the LN affines [2, 64] fp32, 256 vectors of up-projection
+    # partials
+    assert smem_bytes(128, 64, 1, 2, False) == \
+        272 + 18432 + 16384 + 4 * 256 + 8192
+    # x [16, 136] + A_hat + B_hat, h and partial [16, 64] fp32, LN affines
+    assert smem_bytes(128, 64, 16, 2, True) == \
+        4352 + 18432 + 16384 + 2 * 4096 + 512
+
+
+def test_fused_adapter_vector_checks():
+    """x, A_hat and B_hat are copied as 16-byte vectors: a base off a
+    16-byte boundary, or a batch stride that is not whole vectors,
+    raises; layer slices of [B, L, d, b] pass."""
+    from repro_torch.kernels.fused_adapter_batched import _check_vectors
+    B, L, T, d, b = 2, 3, 4, 32, 8
+    bf16 = torch.bfloat16
+    x = torch.zeros((B, T, d), dtype=bf16)
+    a = torch.zeros((B, L, d, b), dtype=bf16)
+    bb = torch.zeros((B, L, b, d), dtype=bf16)
+    _check_vectors(x, a[:, 1], bb[:, 2], L * d * b, L * b * d)
+    _check_vectors(x.float(), a[0, 1].float(), bb[0, 1].float(), 0, 0)
+    shifted = torch.zeros(B * T * d + 1, dtype=bf16)[1:].view(B, T, d)
+    for bad in ((shifted, a[:, 1], bb[:, 1], L * d * b, L * b * d),
+                (x, a[:, 1], bb[:, 1], L * d * b + 4, L * b * d),
+                (x, a[:, 1], bb[:, 1], L * d * b, 12)):
+        with pytest.raises(ValueError):
+            _check_vectors(*bad)
+
+
+def test_build_signatures_match_c_entry_points():
+    """Each C entry point's parameter list, read from its source, is the
+    ctypes signature ``_build`` sets for it, and every entry point has
+    one."""
+    import ctypes
+    import re
+    from repro_torch.kernels import _build
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float, "int*": ctypes.POINTER(ctypes.c_int)}
+    found = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             src.read_text()):
+            found[m.group(1)] = [ctype[" ".join(p.split()[:-1])]
+                                 for p in m.group(2).split(",")]
+    assert found == _build.SIGNATURES
+
+
 def test_build_identity_tracks_sources(tmp_path, monkeypatch):
     """The library's name hashes every source: editing one names a new
     library (rebuilt at first use); a missing nvcc raises, never falls
