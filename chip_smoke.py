@@ -31,10 +31,15 @@ Phases, in order; any failed check exits non-zero:
              (bank [256, 1024, 64], k=50) are checked and timed too. The
              quantized-bank kernels: the aggregation over int8 / int4 rows
              (both sides, P=96, k=50; bitwise, and each term bitwise with
-             one-hot weights), the dequantizing fused adapter (B=4 on layer
-             slices, T=1 and T=16) and the megakernel's routes int8/int4
-             (B=4 and once at B=8), each scheme at quant_group 32 and int4
-             once more at 16; all beside the shared csrc/dequant.cuh.
+             one-hot weights), the dequantizing fused adapter (#6, a
+             cluster per tile and batch row as #2: B=4 on layer slices at
+             T=1, 5, 16, 17 and 128, b 32, 64 and 128, fp32 x, clusters
+             of 16 at d=7168 T=1 (int8) and d=6144 T=16 (int4), two calls
+             bitwise equal; timed at T=1, 16 and, int8, 128) and the
+             megakernel's routes int8/int4 (B=4 and once at B=8), each
+             scheme at quant_group 32 and int4 once more at 16; all beside
+             the shared csrc/dequant.cuh. #6's times before its redesign
+             are printed beside (log lines only).
 4. serve   — qwen1.5-0.5b at full published width with random weights:
              4 hard-mask profiles, 8 requests of 4-16 prompt tokens and 16
              new tokens on 4 slots (max_seq 128, sync_every 8), through the
@@ -157,14 +162,16 @@ FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
 E2E_STEPS = 4
 E2E_SHARE_REL = 0.5
 
-# #1-#4 as this script timed them before their redesign for Hopper (one
-# block row per output row; one block per batch row and 16-token tile),
-# in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1 eager calls, the rest
-# cold CUDA-graph replays. Printed in the log beside this run's times;
+# #1-#4 and #6 as this script timed them before their redesign for Hopper
+# (one block row per output row; one block per batch row and 16-token
+# tile), in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1 eager calls, the
+# rest cold CUDA-graph replays. Printed in the log beside this run's times;
 # never asserted and never in the JSON lines.
 BEFORE_MS = {"A_hat": 0.1894, "B_hat": 0.1860, "ia3 rows": 0.0553,
-           "prefix rows": 0.0488, "T=1": 0.04071, "T=16": 0.23646,
-           "unbatched T=256": 0.21530, "one profile": 0.02405}
+             "prefix rows": 0.0488, "T=1": 0.04071, "T=16": 0.23646,
+             "unbatched T=256": 0.21530, "one profile": 0.02405,
+             "int8 T=1": 0.06911, "int8 T=16": 0.26329,
+             "int4 T=1": 0.05330, "int4 T=16": 0.22209}
 
 
 def log(msg):
@@ -731,23 +738,64 @@ def check_faq(torch, KFQ, ref, args, scheme, rtol, atol, label):
 
 
 def phase_fused_adapter_quant(torch, KFQ, ref, QS):
-    """#6 at the serving shapes: B=4 slots, d=1024, b=64, on layer slices
-    of [B, L, ...] quantized records; T=1 (decode) and T=16 (prefill)."""
+    """#6 at the serving shapes: B=4 slots, d=1024, on layer slices of
+    [B, L, ...] quantized records, int8 and int4 at group 32 (int4 also at
+    16): fp32 x at T=1 and 16; bf16 x at T=1, 5, 16, 17 and 128 (b=64)
+    and at b=32 and 128 (T=1 and 16); clusters of 16 where the planner
+    takes them; two calls bitwise equal. Timed at T=1 (decode), T=16
+    (prefill) and, int8, T=128."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     B, d, b = 4, 1024, 64
     bf16, f32 = torch.bfloat16, torch.float32
-    results = []
+
+    def inputs(scheme, group, T, dtype, nb=b, dw=d):
+        return fa_quant_inputs(torch, gen, QS, scheme, group, B, T, dw, nb,
+                               dtype, L=3)
+
     for scheme, group in QUANT_CASES + (QUANT_G16,):
         for T in (1, 16):
-            check_faq(torch, KFQ, ref, fa_quant_inputs(
-                torch, gen, QS, scheme, group, B, T, d, b, f32, L=3),
-                scheme, FA_F32_RTOL, FA_F32_ATOL,
-                f"{scheme} g{group} fp32 x, layer slice T={T}")
+            check_faq(torch, KFQ, ref, inputs(scheme, group, T, f32),
+                      scheme, FA_F32_RTOL, FA_F32_ATOL,
+                      f"{scheme} g{group} fp32 x, layer slice T={T}")
         if (scheme, group) == QUANT_G16:
             continue  # checked only
+        # T that is not a whole 16-token tile, and several tiles
+        for T in (5, 17, 128):
+            check_faq(torch, KFQ, ref, inputs(scheme, group, T, bf16),
+                      scheme, FA_BF16_RTOL, FA_BF16_ATOL,
+                      f"{scheme} bf16 layer slice T={T}")
+        # other bottleneck widths
+        for nb in (32, 128):
+            for T in (1, 16):
+                check_faq(torch, KFQ, ref,
+                          inputs(scheme, group, T, bf16, nb=nb), scheme,
+                          FA_BF16_RTOL, FA_BF16_ATOL,
+                          f"{scheme} bf16 b={nb} T={T}")
+        # the cluster's partials are summed in rank order: two calls on
+        # the same inputs agree bit for bit
         for T in (1, 16):
-            sets = [fa_quant_inputs(torch, gen, QS, scheme, group, B, T, d,
-                                    b, bf16, L=3) for _ in range(64)]
+            args = inputs(scheme, group, T, bf16)
+            first = KFQ.fused_adapter_quant_batched(*args, scheme=scheme)
+            second = KFQ.fused_adapter_quant_batched(*args, scheme=scheme)
+            torch.cuda.synchronize()
+            log(f"  check two calls {scheme} bf16 T={T}: bitwise "
+                f"{torch.equal(first, second)}")
+            assert torch.equal(first, second), (scheme, T)
+    # clusters of 16 blocks, where the planner takes them: decode of a
+    # 7168-wide model (llava-next-34b) and prefill of a 6144-wide one
+    # (dbrx-132b), whose fp32 tiles overflow a block's shared memory at 8
+    for scheme, dw, T in (("int8", 7168, 1), ("int4", 6144, 16)):
+        args = inputs(scheme, 32, T, bf16, dw=dw)
+        groups = KFQ._check(*args, scheme, "gelu")[1]
+        cs = KFQ.plan(dw, b, T, 2, scheme, *groups)
+        assert cs == 16, (scheme, dw, T, cs)
+        check_faq(torch, KFQ, ref, args, scheme, FA_BF16_RTOL, FA_BF16_ATOL,
+                  f"{scheme} bf16 d={dw} T={T}, clusters of {cs}")
+
+    results = []
+    for scheme, group in QUANT_CASES:
+        for T in (1, 16, 128) if scheme == "int8" else (1, 16):
+            sets = [inputs(scheme, group, T, bf16) for _ in range(64)]
             err = check_faq(torch, KFQ, ref, sets[0], scheme, FA_BF16_RTOL,
                             FA_BF16_ATOL, f"{scheme} bf16 layer slice T={T}")
             fn = lambda *a: KFQ.fused_adapter_quant_batched(  # noqa: E731
@@ -763,9 +811,10 @@ def phase_fused_adapter_quant(torch, KFQ, ref, QS):
                 t[0].numel() * t.element_size() * B for t in sets[0][1:])
             bound_ms, bound_by = bound(nbytes, 4 * B * T * d * b,
                                        "bfloat16")
+            before = BEFORE_MS.get(f"{scheme} T={T}", "not timed")
             log(f"fused_adapter_quant_batched {scheme} B={B} T={T} d={d} "
-                f"b={b}: ms {ms:.5f} (cold) | plain {plain_ms:.5f} (cold) "
-                f"| bound {bound_ms:.5f} ({bound_by}: "
+                f"b={b}: ms {ms:.5f} (cold; before {before}) | plain "
+                f"{plain_ms:.5f} (cold) | bound {bound_ms:.5f} ({bound_by}: "
                 f"{nbytes / 1e6:.3f} MB)")
             results.append(dict(shape=f"{scheme} T={T}", max_abs_err=err,
                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,

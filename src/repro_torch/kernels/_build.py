@@ -38,7 +38,7 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
          _I, _P],
     "xpeft_fused_adapter_quant_batched":
-        [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 3 + [_P],
+        [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 4 + [_P],
     "xpeft_ia3_apply_batched":
         [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
     "xpeft_decode_block_config":

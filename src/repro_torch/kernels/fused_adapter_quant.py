@@ -3,17 +3,26 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/fused_adapter_quant.py:53``
 (``fused_adapter_quant_batched``, ``pallas_call`` at ``:78``):
 ``y = x + act(LN(x·Â))·B̂`` per batch row, with each row's Â/B̂ stored as
-int8 or planar int4 with fp16 scales and widened in registers. The kernel
+int8 or planar int4 with fp16 scales. The kernel
 (``csrc/fused_adapter_quant.cu``) is bound by bytes on the H100: at decode
 (T=1) a GEMV pair per slot over its quantized records, at prefill a small
-grouped GEMM. Its design is the bf16 fused adapter's with a dequant
-prologue on every weight read (the shared ``csrc/dequant.cuh``); fp32
-inside and one rounding to x's dtype, as the plain version. Every
-operand takes a batch stride, so one layer of the engine's [B, L, ...]
-quantized slot buffers needs no copy.
+grouped GEMM. Its design is the bf16 fused adapter's
+(``fused_adapter_batched``) with the dequantization moved into the copy-in
+phase: each (T-tile, batch row) spreads over a thread-block cluster of
+``plan`` blocks, each taking d / cluster columns (int8: a contiguous
+slice; int4: the column pair-set its B̂ bytes hold); every copy a block
+needs in flight at once, each value dequantized once from shared memory
+into an fp32 tile (the shared ``csrc/dequant.cuh``), the partial h of each
+block summed in rank order through distributed shared memory, LN and the
+activation in every block, then that block's columns of h·B̂ and the
+residual. Products stay on CUDA cores in fp32 (a dequantized value is
+exact in neither bf16 nor TF32); fp32 inside and one rounding to x's
+dtype, as the plain version. Every operand takes a batch stride, so one
+layer of the engine's [B, L, ...] quantized slot buffers needs no copy.
 
 On a CPU tensor the wrapper computes the plain version
-(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
+(``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises (a
+shape no cluster fits raises too).
 ``fused_adapter_quant_batched.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -28,6 +37,66 @@ from repro_torch.kernels.mask_aggregate_quant import check_rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"identity": 0, "gelu": 1}
 MAX_B = 256
+THREADS = 256                  # per block
+TILE_T = 16                    # tokens per block at T > 1
+CLUSTERS = (8, 16)             # blocks per cluster, in order of preference
+MAX_SMEM = 232448              # shared memory one block may opt in to
+
+
+def _up16(n):
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(ds, nb, tt, itemsize, int4, a_groups, b_groups):
+    """Shared memory of one block (``csrc/fused_adapter_quant.cu``'s
+    ``layout``): the x tile [tt, ds]; the block's Â rows [ds, nb] as
+    bytes and their scales; its B̂ bytes [nb, ds] and B̂'s whole scale
+    block [nb, b_groups]; one fp32 tile [ds, nb] that holds Â, then B̂;
+    the partial and full h [tt, nb] and the LN affines [2, nb] fp32; the
+    sub-slice partials [THREADS // nb, tt, nb] fp32, at T = 1 at least
+    THREADS vectors of fp32 (the up-projection's bottleneck-group
+    partials)."""
+    qa, qb = (nb // 2, ds // 2) if int4 else (nb, ds)
+    red = (THREADS // nb) * tt * nb
+    if tt == 1:
+        red = max(red, THREADS * (16 // itemsize))
+    return (_up16(tt * ds * itemsize) + _up16(ds * qa)
+            + _up16(ds * a_groups * 2) + _up16(nb * qb)
+            + _up16(nb * b_groups * 2) + 4 * ds * nb + 2 * 4 * tt * nb
+            + 2 * 4 * nb + 4 * red)
+
+
+def ranges_whole(d, nb, int4, cs):
+    """Whether every range that a block of a cluster of ``cs`` copies is
+    whole 16-byte vectors. Its columns form one range (int8: the slice)
+    or two (int4: the pair-set) of w columns; w a multiple of 16 makes
+    x's ranges, the Â rows and scales over them and each B̂ row's bytes
+    whole vectors; nb a multiple of 8 makes B̂'s scale block whole vectors
+    and keeps each 4-byte word of quantized bytes in one row. The
+    kernel's ``ranges_whole``."""
+    parts = 2 * cs if int4 else cs
+    return d % parts == 0 and nb % 8 == 0 and (d // parts) % 16 == 0
+
+
+def plan(d, nb, T, itemsize, scheme, a_groups=1, b_groups=1):
+    """Blocks per cluster (each takes d / cluster columns): the first of
+    ``CLUSTERS`` whose ranges are whole 16-byte vectors (``ranges_whole``)
+    and whose shared memory fits in a block. B̂'s scale rows are copied
+    whole, so a block's columns need not be whole scale groups. Raises
+    ValueError when no cluster size fits."""
+    int4 = scheme == "int4"
+    tt = 1 if T == 1 else TILE_T
+    for cs in CLUSTERS:
+        if ranges_whole(d, nb, int4, cs) \
+                and smem_bytes(d // cs, nb, tt, itemsize, int4, a_groups,
+                               b_groups) <= MAX_SMEM:
+            return cs
+    raise ValueError(f"no cluster of {CLUSTERS} blocks fits {scheme} d={d}, "
+                     f"b={nb} ({a_groups}/{b_groups} scales per Â/B̂ row) "
+                     f"at {itemsize}-byte x: each block's column ranges "
+                     "must be whole 16-byte vectors of x, of the quantized "
+                     "bytes and of their scales, b a multiple of 8, and "
+                     f"the block's shared memory at most {MAX_SMEM} bytes")
 
 
 def _per_row(t, inner, B, name):
@@ -62,6 +131,7 @@ def _launch(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *, scheme,
     nb, groups, strides = _check(x, a_q, a_scale, b_q, b_scale, ln_scale,
                                  ln_bias, scheme, activation)
     B, T, d = x.shape
+    cs = plan(d, nb, T, x.element_size(), scheme, *groups)
     out = torch.empty_like(x)
     lib = load_library()
     with torch.cuda.device(x.device):
@@ -71,7 +141,7 @@ def _launch(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *, scheme,
             b_q.data_ptr(), b_scale.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), out.data_ptr(), B, T, d, nb, *groups,
             *strides, _DTYPES[x.dtype], int(scheme == "int4"),
-            _ACTS[activation], stream)
+            _ACTS[activation], cs, stream)
     if err:
         raise RuntimeError(f"fused_adapter_quant launch failed: CUDA error "
                            f"{err}")
@@ -82,7 +152,9 @@ def _check(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, scheme,
            activation):
     """Raise on operands the kernel does not take; return (b, (scales
     per Â row, per B̂ row), batch strides of a_q, a_scale, b_q, b_scale,
-    ln_*)."""
+    ln_*). x, the quantized rows and their scales are copied in 16-byte
+    vectors: each must start 16-byte aligned with a batch stride of whole
+    16-byte vectors."""
     if x.ndim != 3 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous [B, T, d], got "
                          f"{tuple(x.shape)}")
@@ -113,6 +185,13 @@ def _check(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, scheme,
     ln_bs = _per_row(ln_scale, (nb,), B, "ln_scale")
     if _per_row(ln_bias, (nb,), B, "ln_bias") != ln_bs:
         raise ValueError("ln_scale and ln_bias must share one layout")
+    for name, t, bs in (("x", x, 0), ("a_q", a_q, aq_bs),
+                        ("a_scale", a_scale, as_bs), ("b_q", b_q, bq_bs),
+                        ("b_scale", b_scale, bs_bs)):
+        if t.data_ptr() % 16 or (bs * t.element_size()) % 16:
+            raise ValueError(f"{name} must start 16-byte aligned with a "
+                             f"batch stride of whole 16-byte vectors, got "
+                             f"{t.data_ptr():#x} / {bs}")
     return nb, (a_groups, b_groups), (aq_bs, as_bs, bq_bs, bs_bs, ln_bs)
 
 

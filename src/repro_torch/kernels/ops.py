@@ -19,8 +19,9 @@ identity) and ``ia3_apply`` (``y = x * (1 + s)``).
 
 The quantized-bank routes (``mask_aggregate_quant_batched``,
 ``fused_adapter_quant``; ``XPeftConfig.bank_quant``) take int8 / planar
-int4 payloads with fp16 scales and dequantize in registers; their plain
-versions share the op sequence ``quant.schemes.dequant_block``.
+int4 payloads with fp16 scales and dequantize inside the kernel (#5 in
+registers, #6 from shared memory); their plain versions share the op
+sequence ``quant.schemes.dequant_block``.
 """
 from __future__ import annotations
 

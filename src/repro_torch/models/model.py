@@ -135,7 +135,7 @@ def _xpeft_apply(x, masks_l, cfg):
             "queue 1, item 2; dense hetero: item 7)")
     if "a_q" in masks_l:
         # quantized aggregated records (bank_quant serving): int8 / planar
-        # int4 Â/B̂ with fp16 scales, widened in registers by the kernel
+        # int4 Â/B̂ with fp16 scales, dequantized inside the kernel
         return ops.fused_adapter_quant(
             x, masks_l["a_q"], masks_l["a_scale"], masks_l["b_q"],
             masks_l["b_scale"], masks_l["ln_scale"], masks_l["ln_bias"],

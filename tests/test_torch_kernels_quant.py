@@ -277,6 +277,91 @@ def test_fused_adapter_quant_input_checks():
         KFQ._check(*good, "int4", "relu")
 
 
+def test_fused_adapter_quant_vector_checks():
+    """x, the quantized rows and their scales are copied as 16-byte
+    vectors: a base off a 16-byte boundary, or a batch stride that is not
+    whole vectors, raises in the wrapper's checks."""
+    x, aq, as_, bq, bs, ls, lb = (_t(v) for v in _fa_inputs(
+        7, "int4", 4, jax_side=False))
+    good = (x, aq, as_, bq, bs, ls, lb)
+    KFQ._check(*good, "int4", "gelu")
+
+    def shifted(t):
+        # t's values one element past the start of a fresh buffer
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def padded(t):
+        # t's rows one byte (or element) apart more than dense
+        inner = t[0].numel()
+        buf = torch.zeros((t.shape[0], inner + 1), dtype=t.dtype)
+        buf[:, :inner] = t.reshape(t.shape[0], inner)
+        return buf[:, :inner].view((t.shape[0],) + tuple(t.shape[1:]))
+
+    for i, bad in ((0, shifted(x)), (1, shifted(aq)), (2, shifted(as_)),
+                   (3, shifted(bq)), (4, shifted(bs)), (1, padded(aq)),
+                   (2, padded(as_)), (3, padded(bq)), (4, padded(bs))):
+        args = list(good)
+        args[i] = bad
+        assert torch.equal(bad, good[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            KFQ._check(*args, "int4", "gelu")
+
+
+@pytest.mark.parametrize("scheme,d,T,want", [
+    ("int8", 1024, 1, 8), ("int8", 1024, 16, 8), ("int4", 1024, 1, 8),
+    ("int4", 1024, 16, 8), ("int8", 7168, 1, 16), ("int8", 7168, 16, 16),
+    ("int4", 7168, 1, 16), ("int4", 7168, 16, 16)])
+def test_fused_adapter_quant_plan(scheme, d, T, want):
+    """Blocks per cluster at b=64, group 32, bf16 x: 8 where 8 blocks'
+    column ranges are whole 16-byte vectors and the block's shared memory
+    fits, else 16 (qwen1.5-0.5b's d=1024 takes 8; llava-next-34b's 7168
+    overflows at 8, its fp32 tile alone 224 KB)."""
+    nb, g = 64, 32
+    groups = (1, 1) if scheme == "int8" else (nb // g, d // g)
+    int4 = scheme == "int4"
+    tt = 1 if T == 1 else 16
+    assert KFQ.plan(d, nb, T, 2, scheme, *groups) == want
+    assert KFQ.smem_bytes(d // want, nb, tt, 2, int4, *groups) \
+        <= KFQ.MAX_SMEM
+    if want == 16:
+        assert KFQ.smem_bytes(d // 8, nb, tt, 2, int4, *groups) \
+            > KFQ.MAX_SMEM
+
+
+def test_fused_adapter_quant_plan_refusals():
+    """Shapes no cluster takes raise (the wrapper never falls back); a
+    slice that is not whole scale groups is taken (B̂'s scale rows are
+    copied whole); the layout matches the kernel's."""
+    for args in ((1024, 60, 1, 2, "int8"),            # b not a multiple of 8
+                 (1000, 64, 1, 2, "int8"),            # d/8, d/16 not whole
+                 (1040, 64, 1, 2, "int4", 2, 65),     # pair-sets of 65, 32.5
+                 (1024, 36, 1, 2, "int4", 1, 32),     # ... in int4 too
+                 (5376, 64, 1, 2, "int4", 2, 168),    # 16: ranges of 168;
+                 (5376, 64, 16, 4, "int4", 2, 168),   # 8: smem overflows
+                 (16384, 64, 1, 2, "int8"),           # no slice fits smem
+                 (7168, 256, 16, 4, "int8")):
+        with pytest.raises(ValueError):
+            KFQ.plan(*args)
+    # musicgen-medium int4: ranges of 96 columns, three groups of 32 each
+    # -- and bert-base's 48, one and a half groups
+    assert KFQ.plan(1536, 64, 1, 2, "int4", 2, 48) == 8
+    assert KFQ.plan(768, 48, 16, 2, "int4", 3, 48) == 8
+    # T = 1, int8, bf16, 128 columns: x [1, 128] bf16, Â bytes [128, 64]
+    # and scales [128], B̂ bytes [64, 128] and scales [64], the fp32 tile
+    # [128, 64], h and partial [64] and LN affines [2, 64] fp32, 256
+    # vectors of up-projection partials
+    assert KFQ.smem_bytes(128, 64, 1, 2, False, 1, 1) == \
+        256 + 8192 + 256 + 8192 + 128 + 32768 + 512 + 512 + 8192
+    # T = 16, int4 at group 32, fp32: x [16, 128] fp32, Â bytes [128, 32]
+    # and scales [128, 2], B̂ bytes [64, 64] and scales [64, 32], the
+    # tile, h and partial [16, 64], LN, 4 sub-slice partials [16, 64]
+    assert KFQ.smem_bytes(128, 64, 16, 4, True, 2, 32) == \
+        8192 + 4096 + 512 + 4096 + 4096 + 32768 + 8192 + 512 + 16384
+
+
 @pytest.mark.parametrize("scheme", ["int8", "int4"])
 def test_decode_megakernel_quant_operands(scheme):
     """The megakernel wrapper's adapter operands on routes int8/int4: one
