@@ -25,8 +25,10 @@ Phases, in order; any failed check exits non-zero:
              megakernel is checked at qwen1.5-0.5b's layer widths, B=4 slots,
              S=128, positions [3, 0, 77, 130] (130 >= S: nothing substituted,
              the row dropped later), biases, norm scales and LN affines drawn
-             at random, on routes none and bf16 and a GQA shape (KV=4), and
-             once at B=8 (its instantiation for 5 to 8 slots). The
+             at random, on routes none and bf16 and a GQA shape (KV=4), on
+             a long cache (route bf16, S=2048, positions [2047, 0, 1000,
+             1500]), and once at B=8 (its instantiation for 5 to 8 slots);
+             its times before the redesign are printed beside (log only). The
              unbatched adapter (x [256, 1024]) and the one-profile aggregation
              (bank [256, 1024, 64], k=50) are checked and timed too. The
              quantized-bank kernels: the aggregation over int8 / int4 rows
@@ -157,21 +159,29 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 AGG_ATOL = 1e-6
 DEC_STEPS = 4
 DEC_POS = [3, 0, 77, 130, 127, 1, 50, 128]  # per slot; S = 128
+DEC_LONG_S, DEC_LONG_POS = 2048, [2047, 0, 1000, 1500]  # the long cache
 FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
 FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
 E2E_STEPS = 4
 E2E_SHARE_REL = 0.5
 
-# #1-#4 and #6 as this script timed them before their redesign for Hopper
-# (one block row per output row; one block per batch row and 16-token
-# tile), in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1 eager calls, the
-# rest cold CUDA-graph replays. Printed in the log beside this run's times;
-# never asserted and never in the JSON lines.
+# #1-#4, #6 and #8 as this script timed them before their redesign for
+# Hopper (one block row per output row; one block per batch row and
+# 16-token tile; #8 one (slot, head) per block over all S rows, GEMV
+# tasks of 16 columns), in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1
+# eager calls, the rest cold CUDA-graph replays (#8 at S=2048 timed the
+# same way by tools/decode_phases.py on the tree before the redesign).
+# Printed in the log beside this run's times; never asserted and never in
+# the JSON lines.
 BEFORE_MS = {"A_hat": 0.1894, "B_hat": 0.1860, "ia3 rows": 0.0553,
              "prefix rows": 0.0488, "T=1": 0.04071, "T=16": 0.23646,
              "unbatched T=256": 0.21530, "one profile": 0.02405,
              "int8 T=1": 0.06911, "int8 T=16": 0.26329,
-             "int4 T=1": 0.05330, "int4 T=16": 0.22209}
+             "int4 T=1": 0.05330, "int4 T=16": 0.22209,
+             "KV=16 route=bf16": 0.08387, "KV=16 route=none": 0.07247,
+             "KV=4 route=bf16": 0.08207, "KV=16 route=int8": 0.08688,
+             "KV=16 route=int4": 0.08698,
+             "KV=16 route=bf16 S=2048": 0.52184}
 
 
 def log(msg):
@@ -480,9 +490,10 @@ def dec_layers(torch, gen, d, H, KV, hd, ff, L):
                      "wd": w((ff, d), ff)}} for _ in range(L)]
 
 
-def dec_inputs(torch, gen, cfg, KV, L=24, B=4, S=128, quant=None):
-    """Decode-step inputs at qwen1.5-0.5b's widths: x [B,1,d], pos the
-    first B of DEC_POS (130 and 128 >= S: the drop case), and per layer its
+def dec_inputs(torch, gen, cfg, KV, L=24, B=4, S=128, quant=None,
+               pos=None):
+    """Decode-step inputs at qwen1.5-0.5b's widths: x [B,1,d], pos (default
+    the first B of DEC_POS: 130 and 128 >= S, the drop case), and per layer its
     weights, its [B,S,KV,hd] cache slice and one layer of the engine's
     [B,L,d,b] adapter buffers (strided rows); with ``quant`` = (QS,
     scheme, group), the buffers' quantized records in place of Â/B̂."""
@@ -490,7 +501,8 @@ def dec_inputs(torch, gen, cfg, KV, L=24, B=4, S=128, quant=None):
     nb = cfg.xpeft.bottleneck
     dev = "cuda"
     x = torch.randn((B, 1, d), generator=gen, device=dev).to(torch.bfloat16)
-    pos = torch.tensor(DEC_POS[:B], dtype=torch.int32, device=dev)
+    pos = torch.tensor(DEC_POS[:B] if pos is None else pos,
+                       dtype=torch.int32, device=dev)
     kc = torch.randn((L, B, S, KV, hd), generator=gen,
                      device=dev).to(torch.bfloat16)
     vc = torch.randn((L, B, S, KV, hd), generator=gen,
@@ -572,14 +584,17 @@ def phase_decode_block(torch, KD, ref, cfg, QS):
               cap=cfg.logit_softcap, mlp_type=cfg.mlp_type, act_name=cfg.act,
               adapter_act=cfg.xpeft.adapter_activation)
     results = []
-    for KV, route in ((cfg.num_kv_heads, "none"), (cfg.num_kv_heads, "bf16"),
-                      (4, "bf16"), (cfg.num_kv_heads, "int8"),
-                      (cfg.num_kv_heads, "int4")):
+    kv = cfg.num_kv_heads
+    for KV, route, S in ((kv, "none", 128), (kv, "bf16", 128),
+                         (4, "bf16", 128), (kv, "int8", 128),
+                         (kv, "int4", 128), (kv, "bf16", DEC_LONG_S)):
         quant = (QS, route, cfg.xpeft.quant_group) \
             if route in ("int8", "int4") else None
-        sets = dec_inputs(torch, gen, cfg, KV, quant=quant)
+        long = S == DEC_LONG_S
+        sets = dec_inputs(torch, gen, cfg, KV, quant=quant, S=S,
+                          pos=DEC_LONG_POS if long else None)
         rkw = dict(kw, adapter=route)
-        label = f"KV={KV} route={route}"
+        label = f"KV={KV} route={route}" + (f" S={S}" if long else "")
         err = check_dec(torch, KD, ref, sets[0], rkw, label)
         # a second layer's inputs, then the kernel's own run-to-run equality
         check_dec(torch, KD, ref, sets[7], rkw, label + " layer 7")
@@ -600,9 +615,10 @@ def phase_decode_block(torch, KD, ref, cfg, QS):
         nbytes = dec_bytes(sets[0], route)
         bound_ms, bound_by = bound(nbytes, dec_flops(sets[0], route),
                                    "bfloat16")
-        log(f"decode_block_fused B=4 S=128 d={cfg.d_model} H="
+        log(f"decode_block_fused B=4 S={S} d={cfg.d_model} H="
             f"{cfg.num_heads} KV={KV} ff={cfg.d_ff} route={route}: ms "
-            f"{ms:.5f} (cold) | plain {plain_ms:.5f} (cold) | eager call "
+            f"{ms:.5f} (cold; before {BEFORE_MS[label]}) | plain "
+            f"{plain_ms:.5f} (cold) | eager call "
             f"(host included) {host_ms:.5f} | bound {bound_ms:.5f} "
             f"({bound_by}: {nbytes / 1e6:.2f} MB) | "
             f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
@@ -1838,7 +1854,7 @@ def main():
             # routes int8/int4 (launched on the quantized decode_fused
             # paths) among the other shapes
             ("decode_block_fused", [dec[1], dec[0], dec[2], dec[3],
-                                    dec[4]],
+                                    dec[4], dec[5]],
              "src/repro_torch/csrc/decode_fused.cu",
              "src/repro/kernels/decode_fused.py:219",
              fused_launches["decode_block_fused"]),

@@ -9,17 +9,26 @@ v_rows)``; the caller scatters the rows into the cache.
 
 The kernel (``csrc/decode_fused.cu``) is bound by bytes on the H100: a
 layer-step must read the layer's weights once (25.7 MB at qwen1.5-0.5b)
-plus the slots' K/V rows and Â/B̂, ~8 µs at 3.35 TB/s. The TPU grid (one
-program per slot, each streaming all the weights) would run 4 blocks on
-132 SMs and read the weights 4 times; the design is instead ONE
-cooperative launch per layer over as many blocks as fit on the card at
-once, its phases separated by grid-wide barriers, each weight tile read
-once for all slots. Its numerics are ``decode_block_row``'s (the
-roundings the Pallas body makes), not the fused-adapter kernel's. Routes
-int8/int4 read the slots' quantized Â/B̂ records and widen them in
-registers with the shared ``csrc/dequant.cuh``; their adapter stays fp32
-from x2 to one rounding of x2 + y, as ``decode_block_row``'s quantized
-branch does.
+plus the K/V rows the slots attend (rows ``s <= min(pos, S-1)``) and
+their Â/B̂, ~8 µs at 3.35 TB/s. The TPU grid (one program per slot, each
+streaming all the weights) would run 4 blocks on 132 SMs and read the
+weights 4 times; the design is instead ONE cooperative launch per layer,
+one block per SM (16 consumer warps and a producer warp that issues the
+copies), whose phases (QKV, attention, out-projection,
+gate|up, down with the adapter's down-projection folded in, adapter up)
+deal tasks of 16 output columns over the whole depth round-robin, so that
+no partial sum crosses blocks. Every block streams ONE sequence of weight
+tiles and K/V rows across all phases through a ring of four 32 KB
+shared-memory stages filled by TMA, so the next phase's tiles are in
+flight while it waits at a barrier; the GEMVs run on tensor cores (bf16
+in, fp32 sums in a fixed order). Attention reads only the rows each slot
+attends; ``plan`` splits S over blocks (flash-decoding) only where one
+stage cannot hold a slot's K and V rows. Its numerics are
+``decode_block_row``'s (the roundings the Pallas body makes), not the
+fused-adapter kernel's. Routes int8/int4 read the slots' quantized Â/B̂
+and dequantize each value once (the shared ``csrc/dequant.cuh``); their
+adapter stays fp32 from x2 to one rounding of x2 + y, as
+``decode_block_row``'s quantized branch does.
 
 On a CPU tensor the wrapper computes the plain version
 (``kernels/ref.py`` ``decode_block_ref``); on a CUDA tensor it launches
@@ -61,18 +70,76 @@ def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
 _inv_freq = functools.lru_cache(maxsize=16)(ref.rope_inv_freq)
 
 
-@functools.lru_cache(maxsize=64)
-def _grid(device_index: int, B, d, H, KV, hd, ff, S):
-    """The co-resident block count a cooperative launch at these shapes
-    may use, asked of the CUDA runtime once."""
+# The kernel's fixed geometry (csrc/decode_fused.cu): 512 consumer threads,
+# tasks of 16 output columns, a ring of four 32 KB stages, input rows
+# padded by 8 values.
+THREADS = 512
+TASK_COLS = 16
+STAGE_BYTES = 32768
+STAGES = 4
+ROW_PAD = 8
+MAX_SMEM = 232448
+
+
+def smem_bytes(B, d, H, hd, ff) -> int:
+    """Dynamic shared memory of the instantiation for B slots (4 or 8
+    rows) at these widths: the ring, the bf16 input rows of the widest
+    GEMV depth, the warps' partial sums and 64 words of per-block state."""
+    nb = 4 if B <= 4 else 8
+    kmax = max(d, H * hd, ff)
+    return (STAGES * STAGE_BYTES + 2 * nb * (kmax + ROW_PAD)
+            + 4 * ((THREADS // 32) * nb * TASK_COLS + 64))
+
+
+def plan(B, d, H, KV, hd, ff, S, nb, adapter):
+    """Cache rows per attention split at these shapes. One split where a
+    stage holds the K and V rows of the whole cache (S <= 128 at hd 64):
+    the item then needs no exchange with other blocks. Otherwise splits of
+    as many rows as a stage holds of K (256 at hd 64), ceil(S / rows) of
+    them. Raises ValueError on what the kernel does not build."""
+    if not 1 <= B <= MAX_SLOTS or H < 1 or KV < 1 or H % KV \
+            or hd not in (16, 32, 64, 128, 256) \
+            or any(n % 16 for n in (d, H * hd, KV * hd, ff)) or S < 1:
+        raise ValueError(f"decode megakernel shapes B={B} d={d} H={H} "
+                         f"KV={KV} hd={hd} ff={ff} S={S}")
+    if adapter != "none" and (nb % 16 or not 0 < nb <= 256):
+        raise ValueError(f"decode megakernel bottleneck {nb}")
+    if smem_bytes(B, d, H, hd, ff) > MAX_SMEM:
+        raise ValueError(f"decode megakernel: {smem_bytes(B, d, H, hd, ff)}"
+                         f" bytes of shared memory at d={d} ff={ff}")
+    whole = -(-S // 16) * 16
+    if 4 * whole * hd <= STAGE_BYTES:
+        return whole
+    return min(256, STAGE_BYTES // (2 * hd))
+
+
+@functools.lru_cache(maxsize=16)
+def _grid(device_index: int, B, d, H, hd, ff):
+    """The co-resident block count a cooperative launch for B slots at
+    these widths may use, asked of the CUDA runtime once."""
     grid = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = load_library().xpeft_decode_block_config(
-            B, d, H, KV, hd, ff, S, ctypes.byref(grid))
+            B, d, H, hd, ff, ctypes.byref(grid))
     if err:
         raise RuntimeError(f"decode_block_fused: no cooperative launch "
                            f"configuration (CUDA error {err})")
     return grid.value
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(device_index: int, B, d, H, KV, hd, ff, S, nb, adapter,
+                 groups):
+    """(grid, rows per attention split, scratch words) for one shape."""
+    sc = plan(B, d, H, KV, hd, ff, S, nb, adapter)
+    grid = _grid(device_index, B, d, H, hd, ff)
+    words = load_library().xpeft_decode_block_scratch(
+        B, d, H, KV, hd, ff, S, nb, _ROUTES[adapter], *groups, sc)
+    if words <= 0:
+        raise NotImplementedError(f"decode megakernel refuses B={B} d={d} "
+                                  f"H={H} KV={KV} hd={hd} ff={ff} S={S} "
+                                  f"b={nb} {adapter}")
+    return grid, sc, words
 
 
 def _need(t, name, shape, dtype, device):
@@ -115,6 +182,10 @@ def _adapter_operands(masks_l, adapter, x):
             raise ValueError(f"b_q rows hold {nd} values, d is {d}")
         quant, row = [a, a_s, b, b_s], 8
         out["groups"] = [a_groups, b_groups]
+        if (nb // a_groups) % 8 or (d // b_groups) % 8:
+            raise NotImplementedError(
+                f"decode megakernel: scale groups of {nb // a_groups} / "
+                f"{d // b_groups} columns; built for multiples of 8")
     if ls.dtype != f32 or lb.dtype != f32:
         raise TypeError("ln_scale/ln_bias must be float32")
     if nb % 16 or nb > 256:
@@ -220,12 +291,11 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
 
     ad = _adapter_operands(masks_l, adapter, x)
 
-    grid = _grid(dev.index if dev.index is not None
-                 else torch.cuda.current_device(), B, d, H, KV, hd, ff, S)
-    nq, nkv = H * hd, KV * hd
     nb = ad["nb"]
-    scratch = torch.empty(B * (nq + 2 * nkv + nq + 2 * d + ff + nb),
-                          dtype=f32, device=dev)
+    grid, sc, words = _launch_plan(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        B, d, H, KV, hd, ff, S, nb, adapter, tuple(ad["groups"]))
+    scratch = torch.empty(words, dtype=f32, device=dev)
     y = torch.empty_like(x)
     k_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
     v_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
@@ -246,7 +316,7 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
             nb, int(qkv_bias), _ROUTES[adapter],
             _ADAPTER_ACTS.get(adapter_act, 0), float(cap or 0.0),
             ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
-            *ad["quant_strides"], *ad["groups"], grid, stream)
+            *ad["quant_strides"], *ad["groups"], sc, grid, stream)
     if err:
         raise RuntimeError(f"decode_block_fused launch failed: CUDA error "
                            f"{err}")

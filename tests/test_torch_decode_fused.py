@@ -204,3 +204,130 @@ def test_kernel_refuses_unbuilt_variants():
                    dict(adapter="int2"), dict(adapter_act="relu"),
                    dict(adapter="int8", adapter_act="relu")):
         assert KD._unsupported(**dict(base, **change)), change
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("adapter", ["bf16", "int4"])
+def test_rows_past_pos_are_not_read(adapter, dtype):
+    """The CUDA kernel reads only cache rows s <= min(pos, S-1): those past
+    it get a softmax weight of exactly 0. So cache rows past pos filled
+    with large finite values (up to ~1e38, enough to overflow q.K to inf)
+    leave y and the K/V rows bitwise equal to those from zero rows, in the
+    port's plain version and in JAX's ``decode_block_row`` alike, in bf16
+    and fp32; a slot at pos >= S has no such row. At fp32 the two packages
+    also agree within F32_TOL (bf16 across packages:
+    test_plain_decode_block_matches_jax_bf16)."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    args, kw = _block_inputs("gqa_bias", adapter, seed=4)
+    x, pos, block, kc, vc, masks_l = args
+    S = kc.shape[1]
+    assert pos.max() >= S
+    past = np.arange(S)[None, :] > np.minimum(pos, S - 1)[:, None]
+    rng = np.random.default_rng(5)
+    big = rng.choice([-1.0, 1.0], size=kc.shape) * 10.0 ** rng.uniform(
+        20, 38, size=kc.shape)
+    runs = {}
+    for name, fill in (("zero", 0.0), ("big", big)):
+        kc2 = np.where(past[..., None, None], fill, kc).astype(np.float32)
+        vc2 = np.where(past[..., None, None], fill[::-1] if name == "big"
+                       else fill, vc).astype(np.float32)
+        a = (x, pos, block, kc2, vc2, masks_l)
+        runs[name] = (_run_port(a, kw, tdt), _run_jax(a, kw, ("ref",), jdt)[0])
+    for i, name in enumerate(("y", "k_rows", "v_rows")):
+        assert torch.equal(runs["zero"][0][i], runs["big"][0][i]), name
+        np.testing.assert_array_equal(_f32(runs["zero"][1][i]),
+                                      _f32(runs["big"][1][i]), err_msg=name)
+        assert torch.isfinite(runs["big"][0][i].float()).all(), name
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(runs["big"][0][i]),
+                                       _f32(runs["big"][1][i]),
+                                       err_msg=name, **F32_TOL)
+
+
+QWEN_SHAPES = dict(d=1024, H=16, KV=16, hd=64, ff=2816, nb=64)
+
+
+def _layer_bytes_by_block(B, d, H, KV, hd, ff, nb, grid):
+    """The weight and adapter bytes each of ``grid`` blocks streams over
+    one layer, tasks dealt as the kernel deals them (csrc/decode_fused.cu
+    fill_layout / first_task): round-robin, each phase starting where the
+    last one's tasks ended."""
+    c = lambda n, r: -(-n // r)  # noqa: E731
+    phases = [(c(H * hd, 16) + 2 * c(KV * hd, 16), d * 32),  # QKV
+              (0, 0),                                         # attention
+              (c(d, 16), H * hd * 32),                        # Wo
+              (c(ff, 8), d * 32),                             # gate|up
+              (c(d, 16), ff * 32),                            # down
+              (B * c(nb, 16), d * 32),                        # A_hat
+              (B * c(d, 16), nb * 32)]                        # B_hat
+    load, start = [0] * grid, 0
+    for n, nbytes in phases:
+        for t in range(n):
+            load[(start + t) % grid] += nbytes
+        start += n
+    return load
+
+
+@pytest.mark.parametrize("S", [128, 2048])
+def test_decode_plan(S):
+    """The megakernel's attention split at qwen1.5-0.5b for 1 to 8 slots:
+    the splits cover S exactly; S=128 is one split (a stage holds the
+    cache's K and V rows, so no item waits on another block), S=2048 is
+    split in stages of 256 K rows and its items outnumber an H100's 132
+    blocks from 2 slots on; the block's shared memory fits the 232,448
+    bytes the card allows; and the tasks, dealt round-robin, give no block
+    more than 1.3x the mean weight bytes of a layer."""
+    hd = QWEN_SHAPES["hd"]
+    for B in range(1, KD.MAX_SLOTS + 1):
+        for adapter in ("none", "bf16", "int8", "int4"):
+            sc = KD.plan(B, S=S, adapter=adapter, **QWEN_SHAPES)
+            splits = -(-S // sc)
+            assert sc % 16 == 0 and (splits - 1) * sc < S <= splits * sc
+            if splits == 1:
+                assert 4 * sc * hd <= KD.STAGE_BYTES
+            else:
+                assert 2 * sc * hd <= KD.STAGE_BYTES
+                assert 4 * (-(-S // 16) * 16) * hd > KD.STAGE_BYTES
+                if B >= 2:
+                    assert B * QWEN_SHAPES["H"] * splits >= 132
+        assert KD.smem_bytes(B, QWEN_SHAPES["d"], QWEN_SHAPES["H"], hd,
+                             QWEN_SHAPES["ff"]) <= KD.MAX_SMEM
+        load = _layer_bytes_by_block(B, grid=132, **QWEN_SHAPES)
+        assert max(load) <= 1.3 * sum(load) / len(load), B
+    assert KD.plan(4, S=128, adapter="bf16", **QWEN_SHAPES) == 128
+    assert KD.plan(4, S=2048, adapter="bf16", **QWEN_SHAPES) == 256
+    assert KD.plan(4, S=100, adapter="bf16", **QWEN_SHAPES) == 112
+
+
+def test_decode_plan_refusals():
+    """Shapes the kernel does not build raise before anything launches."""
+    base = dict(B=4, S=128, adapter="bf16", **QWEN_SHAPES)
+    for change in (dict(B=0), dict(B=9), dict(hd=48), dict(hd=512),
+                   dict(H=16, KV=3), dict(d=1000), dict(ff=2820),
+                   dict(nb=60), dict(nb=512), dict(S=0),
+                   dict(B=8, ff=14336)):  # input rows past shared memory
+        with pytest.raises(ValueError):
+            KD.plan(**dict(base, **change))
+    # route none takes no bottleneck
+    KD.plan(**dict(base, adapter="none", nb=0))
+
+
+def test_decode_plan_matches_the_kernel():
+    """The Python geometry is the C source's: the same threads, task
+    columns, stage size, stages and row padding, and the same shared
+    memory formula."""
+    import re
+    from repro_torch.kernels._build import CSRC
+    src = (CSRC / "decode_fused.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kThreads") == KD.THREADS
+    assert const("kNT") == KD.TASK_COLS
+    assert const("kStage") == KD.STAGE_BYTES
+    assert const("kStages") == KD.STAGES
+    assert const("kPad") == KD.ROW_PAD
+    assert const("kMaxSmem") == KD.MAX_SMEM
+    assert const("kMisc") == 64
+    assert ("2LL * NB * (kmax + kPad) + 4LL * (kWarps * NB * kNT + kMisc)"
+            in src)
