@@ -39,9 +39,10 @@ Phases, in order; any failed check exits non-zero:
              of 16 at d=7168 T=1 (int8) and d=6144 T=16 (int4), two calls
              bitwise equal; timed at T=1, 16 and, int8, 128) and the
              megakernel's routes int8/int4 (B=4 and once at B=8), each
-             scheme at quant_group 32 and int4 once more at 16; all beside
-             the shared csrc/dequant.cuh. #6's times before its redesign
-             are printed beside (log lines only).
+             scheme at quant_group 32 and int4 once more at 16 (the
+             aggregation also at 8, its per-byte scale path); all beside
+             the shared csrc/dequant.cuh. #5's and #6's times before their
+             redesign are printed beside (log lines only).
 4. serve   — qwen1.5-0.5b at full published width with random weights:
              4 hard-mask profiles, 8 requests of 4-16 prompt tokens and 16
              new tokens on 4 slots (max_seq 128, sync_every 8), through the
@@ -76,21 +77,31 @@ Phases, in order; any failed check exits non-zero:
              scaling (#7) bitwise against its plain version at B=4, d=1024
              (T=1 and T=16 on a layer slice of the [B, 24, d] slot buffer,
              a shared s, fp32 x, mixed dtypes, s = 0 giving x bitwise),
-             timed; the fused adapter's LoRA route (no LN, identity) on
-             layer slices at T=1 and T=16; the aggregation at the typed
+             timed; the hetero-adapter launch (bottleneck -> LoRA -> IA3
+             in one kernel, #7's redesign) bitwise equal to the CUDA
+             sequence #2 -> #2 (LoRA) -> #7 for every subset of stages at
+             T=1, 16 and 128 (and 17), bf16 and fp32, layer slices and
+             shared operands, each stage of that sequence within the fused
+             adapter's bounds of its plain version, zero B_hats with s = 0
+             giving x bitwise, timed beside that sequence; the fused
+             adapter's LoRA route (no LN, identity) on layer slices at T=1
+             and T=16; the aggregation at the typed
              leaves' shapes (IA3 rows [624, 1024, 1], prefix rows
              [624, 8, 1024]), bitwise and timed, and bitwise again with
              -0.0 weights, two terms that cancel exactly and a padded row
              (the kernel drops zero-weight terms). Then qwen1.5-0.5b with the
              typed bank bottleneck 102 / LoRA 102 / IA3 26 / prefix 26 and
              P = 8 prefix rows, composed: the aggregation launches 10 times
-             per aggregating wave, the fused adapter 48 times and #7 24
-             times per decode step and prefill batch, #5, #6 and #8 not at
+             per aggregating wave, the hetero-adapter launch 24 times per
+             decode step and prefill batch, #2, #7, #5, #6 and #8 not at
              all; one prefill batch holds prefix-on (cache_pos 8) and
              prefix-off (0) requests; held to its kernel_impl="ref" run and
              profiled as the other paths. With decode_fused=True the
-             megakernel must not launch (hetero entries stay composed) and
-             the tokens equal the composed run's.
+             megakernel must not launch (hetero entries stay composed), the
+             hetero-adapter launch runs as composed and the tokens equal
+             the composed run's. Then #7 on the entries it keeps (IA3
+             alone) through the model's forward: 24 launches, bitwise the
+             kernel_impl="ref" forward.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -171,6 +182,10 @@ E2E_SHARE_REL = 0.5
 # tasks of 16 columns), in ms on an NVIDIA H100 80GB HBM3 at 700 W: #1
 # eager calls, the rest cold CUDA-graph replays (#8 at S=2048 timed the
 # same way by tools/decode_phases.py on the tree before the redesign).
+# The hetero sequence (#2, #2's LoRA route, #7, before the hetero-adapter
+# launch) is the sum of those kernels' rows at B=4, d=1024, bf16; #5's
+# replay times are tools/agg_quant_probe.py's on the tree before its
+# redesign, with this script's inputs.
 # Printed in the log beside this run's times; never asserted and never in
 # the JSON lines.
 BEFORE_MS = {"A_hat": 0.1894, "B_hat": 0.1860, "ia3 rows": 0.0553,
@@ -181,7 +196,12 @@ BEFORE_MS = {"A_hat": 0.1894, "B_hat": 0.1860, "ia3 rows": 0.0553,
              "KV=16 route=bf16": 0.08387, "KV=16 route=none": 0.07247,
              "KV=4 route=bf16": 0.08207, "KV=16 route=int8": 0.08688,
              "KV=16 route=int4": 0.08698,
-             "KV=16 route=bf16 S=2048": 0.52184}
+             "KV=16 route=bf16 S=2048": 0.52184,
+             "hetero sequence T=1": 0.01666, "hetero sequence T=16": 0.02765,
+             "int8 g32 A_hat replay": 0.20217,
+             "int8 g32 B_hat replay": 0.19858,
+             "int4 g32 A_hat replay": 0.22778,
+             "int4 g32 B_hat replay": 0.22811}
 
 
 def log(msg):
@@ -657,11 +677,14 @@ QUANT_G16 = ("int4", 16)
 
 def phase_mask_aggregate_quant(torch, KAQ, ref, QS):
     """#5 at admission's shapes: the layer-folded bank [24*256, ...] of
-    each side quantized, P = 96 profile-rows of k = 50 adapters."""
+    each side quantized, P = 96 profile-rows of k = 50 adapters; int4 at
+    groups of 16 and of 8 (whose 16-column runs cross scale groups: the
+    kernel's per-byte scale path) checked only."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     results = []
     cases = [(sc, g, side) for sc, g in QUANT_CASES
-             for side in ("A_hat", "B_hat")] + [QUANT_G16 + ("A_hat",)]
+             for side in ("A_hat", "B_hat")] + [QUANT_G16 + ("A_hat",)] \
+        + [("int4", 8, "A_hat")]  # groups of 8: #5's per-byte scale path
     for scheme, group, label in cases:
         d, b = (1024, 64) if label == "A_hat" else (64, 1024)
         bank, idx, w = agg_inputs(torch, gen, d, b)
@@ -694,9 +717,13 @@ def phase_mask_aggregate_quant(torch, KAQ, ref, QS):
             f"{AGG_ATOL}); one-hot terms bitwise {term_eq}")
         assert err <= AGG_ATOL and term_eq, (tag, err)
         assert not pad.abs().max().item()
-        if (scheme, group) == QUANT_G16:
+        if group < 32:
             continue  # checked only
-        ms = eager_ms(torch, lambda: KAQ.mask_aggregate_quant_batched(
+        # the quantized bank (201-403 MB) holds each call's 100-300 MB of
+        # selected rows far past the 50 MB L2: graph replays find them cold
+        ms = device_ms(torch, lambda: KAQ.mask_aggregate_quant_batched(
+            q, sc, idx, w, scheme=scheme), calls=8)
+        host_ms = eager_ms(torch, lambda: KAQ.mask_aggregate_quant_batched(
             q, sc, idx, w, scheme=scheme), calls=3)
         plain_ms = eager_ms(
             torch, lambda: ref.mask_aggregate_quant_batched_ref(
@@ -706,12 +733,15 @@ def phase_mask_aggregate_quant(torch, KAQ, ref, QS):
                + sc[0].numel() * sc.element_size())
         nbytes = uniq * row + idx.numel() * 4 + w.numel() * 4 + P * d * b * 4
         bound_ms, bound_by = bound(nbytes, 2 * P * k * d * b, "float32")
-        log(f"  ms {ms:.4f} | plain {plain_ms:.4f} | bound {bound_ms:.4f} "
-            f"({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} distinct rows) | "
+        log(f"  ms {ms:.5f} (cold graph replay; before "
+            f"{BEFORE_MS[tag + ' replay']}) | eager {host_ms:.4f} | plain "
+            f"{plain_ms:.4f} | bound {bound_ms:.5f} ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {uniq} distinct rows) | "
             f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
         results.append(dict(shape=f"{scheme} {label}", max_abs_err=err,
                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None))
+                            bound_by=bound_by, library_ms=None,
+                            eager_ms=host_ms))
         del q, sc, got, want
         torch.cuda.empty_cache()
     return results
@@ -1481,6 +1511,166 @@ def phase_ia3(torch, KI, ref):
     return results
 
 
+HETERO_SUBSETS = (("bottleneck",), ("lora",), ("ia3",),
+                  ("bottleneck", "lora"), ("bottleneck", "ia3"),
+                  ("lora", "ia3"), ("bottleneck", "lora", "ia3"))
+
+
+def hetero_operands(torch, gen, B, T, d, b, dtype, shared):
+    """x [B, T, d] and every stage's operands, as ``ops.hetero_adapter``
+    gets them from the engine: one layer of [B, L, ...] slot buffers
+    (batch strides; s in x's dtype, as the engine keeps ia3_s), or shared
+    ones. Returns (x, {stage: operands})."""
+    lead = () if shared else (B, 3)
+
+    def rnd(shape, scale, dt=dtype, offset=0.0):
+        t = (offset + torch.randn(lead + shape, generator=gen,
+                                  device="cuda") * scale).to(dt)
+        return t if shared else t[:, 1]
+    x = torch.randn((B, T, d), generator=gen, device="cuda").to(dtype)
+    f32 = torch.float32
+    return x, {"bottleneck": (rnd((d, b), d ** -0.5), rnd((b, d), 0.05),
+                              rnd((b,), 0.1, f32, 1.0), rnd((b,), 0.1, f32)),
+               "lora": (rnd((d, b), d ** -0.5), rnd((b, d), 0.05)),
+               "ia3": rnd((d,), 0.05)}
+
+
+def hetero_sequence(KF, KI, x, bottleneck=None, lora=None, ia3=None):
+    """The three separate CUDA launches the fused one replaces: #2, #2's
+    LoRA route, #7, each stage present in order."""
+    if bottleneck is not None:
+        x = KF.fused_adapter_batched(x, *bottleneck)
+    if lora is not None:
+        x = KF.fused_adapter_batched(x, *lora, None, None,
+                                     activation="identity", use_ln=False)
+    if ia3 is not None:
+        x = KI.ia3_apply_batched(x, ia3)
+    return x
+
+
+def check_hetero(torch, KH, KF, KI, ref, x, stages, label):
+    """The fused launch bitwise equal to the CUDA sequence, and each stage
+    of the sequence within the fused adapter's bounds of its plain version
+    on the same input (IA3 bitwise). Returns the fused output's max
+    |error| against the whole plain composition, reported only: a
+    one-step difference after one stage is carried by the next, where the
+    output may be far smaller than the value it was rounded at."""
+    got = KH.hetero_adapter_batched(x, **stages)
+    seq = hetero_sequence(KF, KI, x, **stages)
+    want = ref.hetero_adapter_batched_ref(x, **stages)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    bitwise = torch.equal(got, seq)
+    rtol, atol = (FA_BF16_RTOL, FA_BF16_ATOL) \
+        if x.dtype == torch.bfloat16 else (FA_F32_RTOL, FA_F32_ATOL)
+    y, stage_ok = x, True
+    for name in ("bottleneck", "lora", "ia3"):
+        if name not in stages:
+            continue
+        one = {name: stages[name]}
+        k_out = hetero_sequence(KF, KI, y, **one)
+        p_out = ref.hetero_adapter_batched_ref(y, **one)
+        if name == "ia3":
+            stage_ok &= torch.equal(k_out, p_out)
+        else:
+            stage_ok &= bool(((k_out.float() - p_out.float()).abs()
+                              <= rtol * p_out.float().abs() + atol).all())
+        y = k_out
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"  check hetero {label}: bitwise the CUDA sequence {bitwise}; "
+        f"stages within bounds {stage_ok}; max_abs_err vs the plain "
+        f"composition {err:.3e}")
+    assert bitwise and stage_ok, label
+    return err
+
+
+def phase_hetero_adapter(torch, KH, KF, KI, ref):
+    """The hetero-adapter launch (#7's redesign) at the hetero path's
+    shapes, B=4, d=1024, b=r=64: every subset of stages, T=1, 16 and 128
+    (and T=17, a ragged tile, for all three), bf16 and fp32, layer slices
+    and shared operands; bitwise the CUDA sequence #2 -> #2 (LoRA) -> #7
+    (the planner picks each stage's own cluster size at these shapes);
+    zero B̂s with s = 0 give x bitwise. Then timed, all three stages on
+    layer slices in bf16, as cold CUDA-graph replays beside the sequence,
+    the plain composition and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    B, d, b = 4, 1024, 64
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        for T in (1, 16, 128):
+            for shared in (False, True):
+                x, ops_ = hetero_operands(torch, gen, B, T, d, b, dtype,
+                                          shared)
+                for subset in HETERO_SUBSETS:
+                    nbs = [b for s_ in subset if s_ != "ia3"]
+                    assert KH.plan(d, nbs, T, x.element_size(),
+                                   ops_["ia3"].element_size()) \
+                        == KF.plan(d, b, T, x.element_size()), subset
+                    check_hetero(torch, KH, KF, KI, ref, x,
+                                 {k: ops_[k] for k in subset},
+                                 f"{'+'.join(subset)} {dtype} T={T} "
+                                 f"{'shared' if shared else 'slices'}")
+    x, ops_ = hetero_operands(torch, gen, B, 17, d, b, bf16, False)
+    check_hetero(torch, KH, KF, KI, ref, x, ops_, "all bf16 T=17 slices")
+    for dtype in (bf16, f32):
+        x, ops_ = hetero_operands(torch, gen, B, 16, d, b, dtype, False)
+        zero = dict(ops_, bottleneck=ops_["bottleneck"][:1]
+                    + (torch.zeros_like(ops_["bottleneck"][1]),)
+                    + ops_["bottleneck"][2:],
+                    lora=(ops_["lora"][0], torch.zeros_like(ops_["lora"][1])),
+                    ia3=torch.zeros_like(ops_["ia3"]))
+        y = KH.hetero_adapter_batched(x, **zero)
+        torch.cuda.synchronize()
+        log(f"  check hetero zero B_hats, s = 0, {dtype}: y bitwise x "
+            f"{torch.equal(y, x)}")
+        assert torch.equal(y, x)
+
+    results = []
+    for T in (1, 16, 128):
+        # 64 input sets (2.1-3.1 MB each) rotate past the 50 MB L2, as
+        # the decode path finds each layer's adapters cold
+        sets = [hetero_operands(torch, gen, B, T, d, b, bf16, False)
+                for _ in range(64)]
+        x0, ops0 = sets[0]
+        err = check_hetero(torch, KH, KF, KI, ref, x0, ops0,
+                           f"all bf16 timed T={T}")
+        sets = [(x, o["bottleneck"], o["lora"], o["ia3"]) for x, o in sets]
+
+        def fused(x, bn, lo, s):
+            return KH.hetero_adapter_batched(x, bottleneck=bn, lora=lo,
+                                             ia3=s)
+
+        def sequence(x, bn, lo, s):
+            return hetero_sequence(KF, KI, x, bn, lo, s)
+
+        def plain(x, bn, lo, s):
+            return ref.hetero_adapter_batched_ref(x, bottleneck=bn, lora=lo,
+                                                  ia3=s)
+        ms = device_ms(torch, rotating(fused, sets), calls=len(sets))
+        seq_ms = device_ms(torch, rotating(sequence, sets), calls=len(sets))
+        plain_ms = device_ms(torch, rotating(plain, sets), calls=len(sets))
+        host_ms = eager_ms(torch, rotating(fused, sets), calls=len(sets))
+        x, bn, lo, s = sets[0]
+        nbytes = 2 * x.numel() * x.element_size() \
+            + sum(t.numel() * t.element_size() for t in (*bn, *lo, s))
+        flops = 2 * 4 * B * T * d * b + 2 * B * T * d
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        before = BEFORE_MS.get(f"hetero sequence T={T}", "not timed")
+        log(f"hetero_adapter_batched B={B} T={T} d={d} b=r={b} bf16, all "
+            f"three stages: ms {ms:.5f} (cold) | the sequence #2 -> #2 -> "
+            f"#7 {seq_ms:.5f} (cold; before, the sum of the kernels' rows: "
+            f"{before}) | plain {plain_ms:.5f} | eager call (host "
+            f"included) {host_ms:.5f} | bound {bound_ms:.6f} ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB)")
+        results.append(dict(shape=f"T={T}", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            sequence_ms=seq_ms, eager_ms=host_ms))
+        del sets
+    return results
+
+
 def agg_zero_terms(torch, KA, ref, bank, idx, w, label):
     """#1 bitwise against its plain version where dropping the zero-weight
     terms matters: on a copy of ``bank``, row 0 keeps its weights with
@@ -1629,16 +1819,20 @@ def hetero_setup(torch, cfg):
     return params, store, bank_bytes
 
 
-def phase_serve_hetero(torch, KA, KF, KI, KAQ, KFQ, KD, ctx):
+def phase_serve_hetero(torch, KA, KF, KI, KH, KAQ, KFQ, KD, ctx):
     """qwen1.5-0.5b at full width with the typed bank HETERO_SPEC, P=8,
     composed: #1 launches 10 times per aggregating wave (bottleneck and
-    LoRA A/B, IA3 and prefix K/V from both masks), #2 48 times per decode
-    step and prefill batch (bottleneck and LoRA), #7 24 times; #5, #6 and
-    #8 not at all. Held to its kernel_impl="ref" run as the other paths;
-    one prefill batch must hold prefix-on (cache_pos 8) and prefix-off
-    (cache_pos 0) requests. Then the same requests with decode_fused=True:
-    hetero entries stay composed, so #8 must not launch and the tokens
-    equal the composed run's."""
+    LoRA A/B, IA3 and prefix K/V from both masks), the hetero-adapter
+    launch (bottleneck, LoRA and IA3) 24 times per decode step and prefill
+    batch; #2, #7, #5, #6 and #8 not at all. Held to its kernel_impl="ref"
+    run as the other paths; one prefill batch must hold prefix-on
+    (cache_pos 8) and prefix-off (cache_pos 0) requests. Then the same
+    requests with decode_fused=True: hetero entries stay composed, so #8
+    must not launch, the hetero-adapter launch runs as composed and the
+    tokens equal the composed run's. Last, #7 on the entries it keeps,
+    IA3 alone: an admitted profile's ia3_s through the model's forward,
+    24 launches, bitwise its kernel_impl="ref" forward. Returns the
+    composed run's launches and stats, and #7's launches in that drive."""
     from repro_torch.serve import Request
 
     cfg = ctx["cfg"].with_xpeft(bank_spec=HETERO_SPEC,
@@ -1648,6 +1842,7 @@ def phase_serve_hetero(torch, KA, KF, KI, KAQ, KFQ, KD, ctx):
     counters = (("mask_aggregate_batched", KA.mask_aggregate_batched),
                 ("fused_adapter_batched", KF.fused_adapter_batched),
                 ("ia3_apply_batched", KI.ia3_apply_batched),
+                ("hetero_adapter_batched", KH.hetero_adapter_batched),
                 ("mask_aggregate_quant_batched",
                  KAQ.mask_aggregate_quant_batched),
                 ("fused_adapter_quant_batched",
@@ -1661,16 +1856,16 @@ def phase_serve_hetero(torch, KA, KF, KI, KAQ, KFQ, KD, ctx):
         aggregating = sum(w["path"] == "sparse" for w in waves)
         # each aggregating wave: #1 twice for the IA3 rows (one per mask),
         # four times for the prefix K/V rows, four for the [d, b] leaves;
-        # #2's LoRA route once per layer per decode step and prefill batch
+        # #2's LoRA route never (the hetero-adapter launch takes it)
         per_shape.update({"ia3 rows": 2 * aggregating,
                           "prefix rows": 4 * aggregating,
-                          "lora": L * (steps + batches)})
+                          "lora": launches["fused_adapter_batched"]})
         assert aggregating > 0 and waves[0]["bank_bytes_per_request"] > 0
         assert launches["mask_aggregate_batched"] == 10 * aggregating
-        assert launches["fused_adapter_batched"] == 2 * L * (steps
-                                                             + batches) > 0
-        assert launches["ia3_apply_batched"] == L * (steps + batches)
-        for name in ("mask_aggregate_quant_batched",
+        assert launches["hetero_adapter_batched"] == L * (steps
+                                                          + batches) > 0
+        for name in ("fused_adapter_batched", "ia3_apply_batched",
+                     "mask_aggregate_quant_batched",
                      "fused_adapter_quant_batched", "decode_block_fused"):
             assert launches[name] == 0, launches
 
@@ -1716,16 +1911,39 @@ def phase_serve_hetero(torch, KA, KF, KI, KAQ, KFQ, KD, ctx):
         fn.launches = 0
     f_eng, _, f_dt, _ = serve_once(torch, fused_cfg, params, store, f_reqs)
     st = f_eng.serve_stats()
-    assert KD.decode_block_fused.launches == 0
-    assert KI.ia3_apply_batched.launches == L * (st["device_steps"]
-                                                 + st["prefill_batches"])
+    fused_n = {name: fn.launches for name, fn in counters}
     stats["decode_fused_tokens_equal"] = tokens_equal(f_reqs, reqs)
-    log(f"serve hetero decode_fused=True: megakernel launches "
-        f"{KD.decode_block_fused.launches}, ia3 launches "
-        f"{KI.ia3_apply_batched.launches}; tokens equal to the composed "
-        f"run {stats['decode_fused_tokens_equal']:.3f}")
+    log(f"serve hetero decode_fused=True: launches {fused_n}; tokens equal "
+        f"to the composed run {stats['decode_fused_tokens_equal']:.3f}")
+    assert fused_n["hetero_adapter_batched"] == L * (
+        st["device_steps"] + st["prefill_batches"]) > 0
+    assert not any(n for name, n in fused_n.items()
+                   if name not in ("hetero_adapter_batched",
+                                   "mask_aggregate_batched")), fused_n
     assert stats["decode_fused_tokens_equal"] == 1.0
-    return launches, stats
+    stats["decode_fused_launches"] = fused_n
+
+    from repro_torch.models import forward
+    ia3_s = eng.profile_cache.peek(0)["ia3_s"]
+    masks = {"ia3_s": ia3_s.unsqueeze(0).repeat(4, *(1,) * ia3_s.ndim)}
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(11))
+    want, _, _ = forward(params, tokens, cfg.with_xpeft(kernel_impl="ref"),
+                         profile_masks=masks)
+    for _, fn in counters:
+        fn.launches = 0
+    got, _, _ = forward(params, tokens, cfg, profile_masks=masks)
+    torch.cuda.synchronize()
+    ia3_n = {name: fn.launches for name, fn in counters}
+    log(f"IA3-only entry through forward (x [4, 8, {cfg.d_model}]): "
+        f"launches {ia3_n}; hidden states bitwise the ref forward "
+        f"{torch.equal(got, want)}")
+    assert ia3_n["ia3_apply_batched"] == L
+    assert not any(n for name, n in ia3_n.items()
+                   if name != "ia3_apply_batched"), ia3_n
+    assert torch.equal(got, want)
+    return launches, stats, ia3_n["ia3_apply_batched"]
 
 
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label):
@@ -1784,6 +2002,7 @@ def main():
     from repro_torch.kernels import fused_adapter as KF1
     from repro_torch.kernels import fused_adapter_batched as KF
     from repro_torch.kernels import fused_adapter_quant as KFQ
+    from repro_torch.kernels import hetero_adapter as KH
     from repro_torch.kernels import ia3_apply as KI
     from repro_torch.kernels import mask_aggregate as KA
     from repro_torch.kernels import mask_aggregate_quant as KAQ
@@ -1825,12 +2044,13 @@ def main():
         for fused in (False, True):
             quant[(scheme, fused)] = phase_serve_quant(
                 torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused)
-    # 6. heterogeneous bank: #7, #2's LoRA route and #1's typed shapes on
-    # their own, then the serving path
+    # 6. heterogeneous bank: #7, the hetero-adapter launch, #2's LoRA route
+    # and #1's typed shapes on their own, then the serving path
     ia3 = phase_ia3(torch, KI, ref)
+    hetero = phase_hetero_adapter(torch, KH, KF, KI, ref)
     lora, agg_typed = phase_hetero_kernels(torch, KA, KF, ref)
-    hetero_launches, serve_hetero = phase_serve_hetero(
-        torch, KA, KF, KI, KAQ, KFQ, KD, ctx)
+    hetero_launches, serve_hetero, ia3_launches = phase_serve_hetero(
+        torch, KA, KF, KI, KH, KAQ, KFQ, KD, ctx)
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -1868,11 +2088,16 @@ def main():
              "src/repro_torch/csrc/fused_adapter_quant.cu",
              "src/repro/kernels/fused_adapter_quant.py:53",
              quant[("int8", False)][0]["fused_adapter_quant_batched"]),
-            # the hetero path: 24 launches per decode step and prefill
-            # batch
+            # IA3-only entries, through forward: 24 launches (none on the
+            # hetero path, where the hetero-adapter launch takes IA3)
             ("ia3_apply_batched", ia3, "src/repro_torch/csrc/ia3_apply.cu",
+             "src/repro/kernels/ia3_apply.py:45", ia3_launches),
+            # the hetero path: 24 launches per decode step and prefill
+            # batch, #7's redesign
+            ("hetero_adapter_batched", hetero,
+             "src/repro_torch/csrc/fused_adapter.cu",
              "src/repro/kernels/ia3_apply.py:45",
-             hetero_launches["ia3_apply_batched"])):
+             hetero_launches["hetero_adapter_batched"])):
         main_row = rows[0]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": tpu, "launches": n}
@@ -1897,6 +2122,8 @@ def main():
         dict(shape=f"LoRA route T={T}", max_abs_err=err,
              launches=by_shape["lora"])
         for T, err in lora.items()]
+    kernels[7]["launches_hetero_path"] = hetero_launches["ia3_apply_batched"]
+    kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
     serve_quant = {}

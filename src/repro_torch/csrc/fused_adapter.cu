@@ -62,6 +62,31 @@
 // 16-byte vectors (and of 16 for the tensor-core tile) and the shared
 // memory fits; it raises on a shape neither fits and never falls back to
 // the plain version.
+//
+// The hetero-adapter launch (xpeft_hetero_adapter_batched) runs a
+// heterogeneous bank's per-layer composition in JAX's order,
+//
+//     y1 = x + act(LN(x . A_hat)) . B_hat      (bottleneck)
+//     y2 = y1 + (y1 . A_lora) . B_lora         (LoRA: no LN, identity)
+//     y  = y2 * (1 + s)                        (IA3)
+//
+// any two or three of them (or one), in ONE grid of (CS, T-tiles, B)
+// clusters on the device code above: block r copies in, at once, its x
+// tile, both matmul stages' A_hat rows and B_hat columns and s's slice, in
+// commit groups in stage order, so the LoRA tiles land while the bottleneck
+// computes. Each matmul stage is steps 1-3 unchanged, its partial h in a
+// buffer of its own (a peer may still read the previous stage's partial
+// when a block writes the next one; one cluster barrier per stage then
+// suffices); its result, rounded once to x's dtype, overwrites block r's x
+// tile in shared memory (y1[:, slice r] is all that block needs for the
+// next stage's partial). The IA3 scale is the last stage's epilogue:
+// __fmul_rn(y2, __fadd_rn(1, s)) rounded once, as csrc/ia3_apply.cu does.
+// The sum orders, the cluster size and the roundings are those of the
+// separate launches (#2, #2's LoRA route, #7), so where the wrapper's
+// planner picks the cluster size each stage's own plan picks, the fused
+// output equals theirs bit for bit. It replaces the TPU kernel #7's launch
+// (src/repro/kernels/ia3_apply.py:45) on the hetero path: #7 moves 24 KB
+// at decode, and its own launch was its whole time.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,6 +191,15 @@ struct Layout {
   int x, a, b, part, h, ln, red, total;  // offsets and total, in bytes
 };
 
+// fp32 scratch of the CUDA-core paths: step 1's sub-slice partials, then
+// at T = 1 step 3's bottleneck-group partials (at most kThreads vectors)
+__host__ __device__ inline int red_floats(int nb, int tt, int vec,
+                                          bool mma) {
+  if (mma) return 0;
+  const int red = (kThreads / nb) * tt * nb;
+  return tt == 1 && kThreads * vec > red ? kThreads * vec : red;
+}
+
 __host__ __device__ inline Layout layout(int ds, int nb, int tt, int esz,
                                          bool mma) {
   const int vec = 16 / esz;
@@ -179,80 +213,70 @@ __host__ __device__ inline Layout layout(int ds, int nb, int tt, int esz,
   l.h = l.part + tt * nb * 4;
   l.ln = l.h + tt * nb * 4;
   l.red = l.ln + 2 * nb * 4;
-  // on CUDA cores: phase 1's sub-slice partials, then at T = 1 phase 3's
-  // bottleneck-group partials (at most kThreads vectors)
-  const int red = (kThreads / nb) * tt * nb;
-  l.total = l.red + (mma ? 0 : 4 * (tt == 1 && kThreads * vec > red
-                                        ? kThreads * vec : red));
+  l.total = l.red + 4 * red_floats(nb, tt, vec, mma);
   return l;
 }
 
-template <typename Scalar, int TT, bool MMA>
-__global__ void __launch_bounds__(kThreads)
-    fused_adapter_kernel(const Scalar* __restrict__ x,
-                         const Scalar* __restrict__ a,
-                         const Scalar* __restrict__ bm,
-                         const float* __restrict__ ls,
-                         const float* __restrict__ lb, Scalar* __restrict__ out,
-                         int T, int d, int nb, long long a_bs, long long b_bs,
-                         long long ln_bs, int use_ln, int act) {
+// ---- steps 0-3 of one adapter stage, shared by both launches ----
+
+// 0. the x tile [TT, ds] of the block's slice (rows past nt zero-filled),
+// row pitch ldx
+template <typename Scalar, int TT>
+__device__ __forceinline__ void copy_x(Scalar* s_x, int ldx,
+                                       const Scalar* xr, int d, int c0,
+                                       int ds, int nt) {
   constexpr int VEC = 16 / sizeof(Scalar);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cs = gridDim.x;
-  const int r = blockIdx.x;  // the block's rank in its cluster = its slice
-  const int ds = d / cs;
-  const Layout L = layout(ds, nb, TT, sizeof(Scalar), MMA);
-  Scalar* s_x = reinterpret_cast<Scalar*>(smem + L.x);
-  Scalar* s_a = reinterpret_cast<Scalar*>(smem + L.a);
-  Scalar* s_b = reinterpret_cast<Scalar*>(smem + L.b);
-  float* s_part = reinterpret_cast<float*>(smem + L.part);
-  float* s_h = reinterpret_cast<float*>(smem + L.h);
-  float* s_ln = reinterpret_cast<float*>(smem + L.ln);  // scale, then bias
-  float* s_red = reinterpret_cast<float*>(smem + L.red);
-
-  const long long row = blockIdx.z;
-  const int t0 = blockIdx.y * TT;
-  const int nt = min(TT, T - t0);
-  const int c0 = r * ds;  // first column of the slice
-  const Scalar* xr = x + (row * T + t0) * static_cast<long long>(d);
-  Scalar* outr = out + (row * T + t0) * static_cast<long long>(d);
-  const Scalar* ar = a + row * a_bs + static_cast<long long>(c0) * nb;
-  const Scalar* br = bm + row * b_bs + c0;
-  const float* lsr = ls + row * ln_bs;
-  const float* lbr = lb + row * ln_bs;
-  const int tid = threadIdx.x;
-
-  // 0. every copy of the block in flight at once
   const int xv = ds / VEC;  // 16-byte vectors per slice row
-  for (int v = tid; v < TT * xv; v += kThreads) {
+  for (int v = threadIdx.x; v < TT * xv; v += kThreads) {
     const int t = v / xv, e = (v % xv) * VEC;
-    cp_async16(s_x + t * L.ldx + e,
+    cp_async16(s_x + t * ldx + e,
                xr + static_cast<long long>(t < nt ? t : 0) * d + c0 + e,
                t < nt);
   }
+}
+
+// 0. the slice's A_hat rows [ds, nb], row pitch lda
+template <typename Scalar>
+__device__ __forceinline__ void copy_a(Scalar* s_a, int lda,
+                                       const Scalar* ar, int ds, int nb) {
+  constexpr int VEC = 16 / sizeof(Scalar);
   const int av = nb / VEC;
-  for (int v = tid; v < ds * av; v += kThreads) {
+  for (int v = threadIdx.x; v < ds * av; v += kThreads) {
     const int i = v / av, c = (v % av) * VEC;
-    cp_async16(s_a + i * L.lda + c, ar + static_cast<long long>(i) * nb + c,
+    cp_async16(s_a + i * lda + c, ar + static_cast<long long>(i) * nb + c,
                true);
   }
-  cp_async_commit();
-  for (int v = tid; v < nb * xv; v += kThreads) {
+}
+
+// 0. the slice's B_hat columns [nb, ds]
+template <typename Scalar>
+__device__ __forceinline__ void copy_b(Scalar* s_b, const Scalar* br, int d,
+                                       int ds, int nb) {
+  constexpr int VEC = 16 / sizeof(Scalar);
+  const int xv = ds / VEC;
+  for (int v = threadIdx.x; v < nb * xv; v += kThreads) {
     const int c = v / xv, e = (v % xv) * VEC;
     cp_async16(s_b + c * ds + e, br + static_cast<long long>(c) * d + e,
                true);
   }
-  cp_async_commit();
-  // the LN affines (fp32, any alignment), loaded while the copies fly
-  if (use_ln)
-    for (int c = tid; c < nb; c += kThreads) {
-      s_ln[c] = lsr[c];
-      s_ln[nb + c] = lbr[c];
-    }
-  cp_async_wait<1>();
-  __syncthreads();
+}
 
-  // 1. partial h over this slice -> s_part [TT][nb]
+// 0. the LN affines (fp32, any alignment), loaded while the copies fly
+__device__ __forceinline__ void load_ln(float* s_ln, const float* lsr,
+                                        const float* lbr, int nb) {
+  for (int c = threadIdx.x; c < nb; c += kThreads) {
+    s_ln[c] = lsr[c];
+    s_ln[nb + c] = lbr[c];
+  }
+}
+
+// 1. partial h over this slice -> s_part [TT][nb]
+template <typename Scalar, int TT, bool MMA>
+__device__ __forceinline__ void partial_h(const Scalar* s_x, int ldx,
+                                          const Scalar* s_a, int lda, int ds,
+                                          int nb, float* s_part,
+                                          float* s_red) {
+  const int tid = threadIdx.x;
   if constexpr (MMA) {
     // one 16-row M tile; warp w takes the 8-column N tiles w, w + 8, ...
     // over the whole slice depth. Fragment layouts: PTX ISA, mma.m16n8k16.
@@ -261,15 +285,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int n0 = warp * 8; n0 < nb; n0 += (kThreads / 32) * 8) {
       float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int k0 = 0; k0 < ds; k0 += 16) {
-        const Scalar* xa = s_x + g * L.ldx + k0 + q;
-        const Scalar* xb = xa + 8 * L.ldx;
+        const Scalar* xa = s_x + g * ldx + k0 + q;
+        const Scalar* xb = xa + 8 * ldx;
         const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xa);
         const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xb);
         const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xa + 8);
         const uint32_t a3 = *reinterpret_cast<const uint32_t*>(xb + 8);
-        const Scalar* bc = s_a + (k0 + q) * L.lda + n0 + g;
-        const uint32_t b0 = pack_bf16x2(bc[0], bc[L.lda]);
-        const uint32_t b1 = pack_bf16x2(bc[8 * L.lda], bc[9 * L.lda]);
+        const Scalar* bc = s_a + (k0 + q) * lda + n0 + g;
+        const uint32_t b0 = pack_bf16x2(bc[0], bc[lda]);
+        const uint32_t b1 = pack_bf16x2(bc[8 * lda], bc[9 * lda]);
         mma_bf16_16816(c, a0, a1, a2, a3, b0, b1);
       }
       s_part[g * nb + n0 + q] = c[0];
@@ -291,10 +315,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int t = 0; t < TT; ++t) acc[t] = 0.0f;
       for (int i = i0; i < i1; ++i) {
-        const float av_ = to_float(s_a[i * L.lda + c]);
+        const float av_ = to_float(s_a[i * lda + c]);
 #pragma unroll
         for (int t = 0; t < TT; ++t)
-          acc[t] = fmaf(to_float(s_x[t * L.ldx + i]), av_, acc[t]);
+          acc[t] = fmaf(to_float(s_x[t * ldx + i]), av_, acc[t]);
       }
 #pragma unroll
       for (int t = 0; t < TT; ++t) s_red[(s * TT + t) * nb + c] = acc[t];
@@ -306,14 +330,16 @@ __global__ void __launch_bounds__(kThreads)
       s_part[o] = h;
     }
   }
+}
 
-  // 2. the cluster's partials, summed in rank order, then LN and act
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  // every remote load issued before the first add: one distributed-
-  // shared-memory latency per entry, not one per rank
+// 2. the cluster's partials, summed in rank order into s_h [n]; every
+// remote load issued before the first add: one distributed-shared-memory
+// latency per entry, not one per rank
+__device__ __forceinline__ void sum_partials(cg::cluster_group& cluster,
+                                             float* s_part, float* s_h,
+                                             int n, int cs) {
 #pragma unroll 2
-  for (int o = tid; o < nt * nb; o += kThreads) {
+  for (int o = threadIdx.x; o < n; o += kThreads) {
     float part[kMaxCluster];
 #pragma unroll
     for (int q = 0; q < kMaxCluster; ++q)
@@ -324,11 +350,13 @@ __global__ void __launch_bounds__(kThreads)
       if (q < cs) h += part[q];
     s_h[o] = h;
   }
-  cluster_arrive();  // this block is done reading its peers
-  __syncthreads();
+}
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// 2. LN and the activation on each token row of h, one warp per row
+__device__ __forceinline__ void ln_act(float* s_h, const float* s_ln, int nt,
+                                       int nb, int use_ln, int act) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int t = warp; t < nt; t += kThreads / 32) {
     float* hr = s_h + t * nb;
     if (use_ln) {
@@ -350,17 +378,27 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = lane; c < nb; c += 32) hr[c] = gelu_tanh(hr[c]);
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();
+}
 
-  // 3. up-projection of this slice + residual, one rounding to x's dtype
+// 3. up-projection of this slice + the residual (the x tile), one rounding
+// to x's dtype; store(t, e, v) takes the 16-byte vector v of row t,
+// columns e..e+VEC of the slice. Each (t, e) is read from the x tile and
+// stored by one thread, so store may overwrite the tile in place.
+template <typename Scalar, int TT, typename Store>
+__device__ __forceinline__ void up_project(const Scalar* s_b,
+                                           const float* s_h,
+                                           const Scalar* s_x, int ldx, int ds,
+                                           int nb, int nt, float* s_red,
+                                           Store store) {
+  constexpr int VEC = 16 / sizeof(Scalar);
+  const int tid = threadIdx.x;
+  const int xv = ds / VEC;
   auto finish = [&](int t, int e, float* acc) {
     float xs[VEC];
-    unpack<Scalar>(*reinterpret_cast<const uint4*>(s_x + t * L.ldx + e), xs);
+    unpack<Scalar>(*reinterpret_cast<const uint4*>(s_x + t * ldx + e), xs);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = xs[i] + acc[i];
-    *reinterpret_cast<uint4*>(outr + static_cast<long long>(t) * d + c0 +
-                              e) = pack(acc, Scalar());
+    store(t, e, pack(acc, Scalar()));
   };
   // columns e..e+VEC of row t over bottleneck rows [c_lo, c_hi)
   auto up = [&](int t, int e, int c_lo, int c_hi, float* acc) {
@@ -413,29 +451,279 @@ __global__ void __launch_bounds__(kThreads)
       finish(t, e, acc);
     }
   }
+}
+
+template <typename Scalar, int TT, bool MMA>
+__global__ void __launch_bounds__(kThreads)
+    fused_adapter_kernel(const Scalar* __restrict__ x,
+                         const Scalar* __restrict__ a,
+                         const Scalar* __restrict__ bm,
+                         const float* __restrict__ ls,
+                         const float* __restrict__ lb, Scalar* __restrict__ out,
+                         int T, int d, int nb, long long a_bs, long long b_bs,
+                         long long ln_bs, int use_ln, int act) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = gridDim.x;
+  const int r = blockIdx.x;  // the block's rank in its cluster = its slice
+  const int ds = d / cs;
+  const Layout L = layout(ds, nb, TT, sizeof(Scalar), MMA);
+  Scalar* s_x = reinterpret_cast<Scalar*>(smem + L.x);
+  Scalar* s_a = reinterpret_cast<Scalar*>(smem + L.a);
+  Scalar* s_b = reinterpret_cast<Scalar*>(smem + L.b);
+  float* s_part = reinterpret_cast<float*>(smem + L.part);
+  float* s_h = reinterpret_cast<float*>(smem + L.h);
+  float* s_ln = reinterpret_cast<float*>(smem + L.ln);  // scale, then bias
+  float* s_red = reinterpret_cast<float*>(smem + L.red);
+
+  const long long row = blockIdx.z;
+  const int t0 = blockIdx.y * TT;
+  const int nt = min(TT, T - t0);
+  const int c0 = r * ds;  // first column of the slice
+  const Scalar* xr = x + (row * T + t0) * static_cast<long long>(d);
+  Scalar* outr = out + (row * T + t0) * static_cast<long long>(d);
+
+  // 0. every copy of the block in flight at once: x and A_hat, then B_hat
+  copy_x<Scalar, TT>(s_x, L.ldx, xr, d, c0, ds, nt);
+  copy_a(s_a, L.lda, a + row * a_bs + static_cast<long long>(c0) * nb, ds,
+         nb);
+  cp_async_commit();
+  copy_b(s_b, bm + row * b_bs + c0, d, ds, nb);
+  cp_async_commit();
+  if (use_ln) load_ln(s_ln, ls + row * ln_bs, lb + row * ln_bs, nb);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // 1. partial h over this slice
+  partial_h<Scalar, TT, MMA>(s_x, L.ldx, s_a, L.lda, ds, nb, s_part, s_red);
+
+  // 2. the cluster's partials, summed in rank order, then LN and act
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  sum_partials(cluster, s_part, s_h, nt * nb, cs);
+  cluster_arrive();  // this block is done reading its peers
+  __syncthreads();
+  ln_act(s_h, s_ln, nt, nb, use_ln, act);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 3. up-projection of this slice + residual, 16-byte stores
+  up_project<Scalar, TT>(
+      s_b, s_h, s_x, L.ldx, ds, nb, nt, s_red,
+      [&](int t, int e, const uint4& v) {
+        *reinterpret_cast<uint4*>(outr + static_cast<long long>(t) * d +
+                                  c0 + e) = v;
+      });
 
   // 4. no block leaves while a peer may still read its s_part
   cluster_wait();
 }
 
+// ---- the hetero-adapter launch: bottleneck -> LoRA -> IA3 ----
+
+// One matmul stage: the bottleneck (use_ln = 1, act) or LoRA (use_ln = 0,
+// the identity); strides in elements, 0 for a shared operand
+template <typename Scalar>
+struct Stage {
+  const Scalar* a;
+  const Scalar* b;
+  const float* ls;
+  const float* lb;
+  long long a_bs, b_bs, ln_bs;
+  int nb, use_ln, act;
+};
+
+// Shared-memory layout of one block of the hetero launch, in bytes; the
+// same formula lives in kernels/hetero_adapter.py's planner. The x tile
+// and each stage's A_hat rows, B_hat columns and partial h as in Layout;
+// one h, LN and scratch area sized for the wider stage; s's slice last.
+struct HeteroLayout {
+  int ldx, lda[2];                                 // in elements
+  int x, a[2], b[2], part[2], h, ln, red, s, total;  // in bytes
+};
+
+__host__ __device__ inline HeteroLayout hetero_layout(int ds, int nb0,
+                                                      int nb1, int tt,
+                                                      int esz, bool mma,
+                                                      int s_esz) {
+  const int vec = 16 / esz;
+  HeteroLayout l;
+  l.ldx = ds + vec;
+  l.x = 0;
+  int at = tt * l.ldx * esz, nbmax = 0, red = 0;
+  for (int i = 0; i < 2; ++i) {
+    const int nb = i ? nb1 : nb0;  // 0: no such stage
+    l.lda[i] = nb + vec;
+    l.a[i] = at;
+    at += nb ? ds * l.lda[i] * esz : 0;
+    l.b[i] = at;
+    at += nb * ds * esz;
+    l.part[i] = at;
+    at += tt * nb * 4;
+    if (nb > nbmax) nbmax = nb;
+    const int rf = nb ? red_floats(nb, tt, vec, mma) : 0;
+    if (rf > red) red = rf;
+  }
+  l.h = at;
+  at += tt * nbmax * 4;
+  l.ln = at;
+  at += 2 * nbmax * 4;
+  l.red = at;
+  at += 4 * red;
+  l.s = at;
+  l.total = at + ds * s_esz;
+  return l;
+}
+
+// y = v * (1 + s) for the VEC values of v at slice columns e.., s in
+// shared memory as fp32 (s_bf16 = 0) or bf16: csrc/ia3_apply.cu's exact
+// arithmetic, one rounding to x's dtype
+template <typename Scalar>
+__device__ __forceinline__ uint4 ia3_scale(const uint4& v,
+                                           const unsigned char* s_s, int e,
+                                           int s_bf16) {
+  constexpr int VEC = 16 / sizeof(Scalar);
+  float y[VEC];
+  unpack<Scalar>(v, y);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float s =
+        s_bf16 ? __bfloat162float(
+                     reinterpret_cast<const __nv_bfloat16*>(s_s)[e + i])
+               : reinterpret_cast<const float*>(s_s)[e + i];
+    y[i] = __fmul_rn(y[i], __fadd_rn(1.0f, s));
+  }
+  return pack(y, Scalar());
+}
+
 template <typename Scalar, int TT, bool MMA>
-cudaError_t launch_tile(const void* x, const void* a, const void* b,
-                        const float* ls, const float* lb, void* out, int B,
-                        int T, int d, int nb, long long a_bs, long long b_bs,
-                        long long ln_bs, int use_ln, int act, int cs,
-                        cudaStream_t stream) {
-  auto kernel = fused_adapter_kernel<Scalar, TT, MMA>;
-  const Layout l = layout(d / cs, nb, TT, sizeof(Scalar), MMA);
-  if (l.total > kMaxSmem) return cudaErrorInvalidValue;
-  // set once per instantiation: the opt-ins to > 48 KB and to 16 blocks
-  static int smem_set = 0;
-  static bool wide_set = false;
+__global__ void __launch_bounds__(kThreads)
+    hetero_adapter_kernel(const Scalar* __restrict__ x,
+                          Scalar* __restrict__ out, Stage<Scalar> st0,
+                          Stage<Scalar> st1, int nst,
+                          const unsigned char* __restrict__ s,
+                          long long s_bs, int s_esz, int T, int d) {
+  constexpr int VEC = 16 / sizeof(Scalar);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = gridDim.x;
+  const int r = blockIdx.x;
+  const int ds = d / cs;
+  const HeteroLayout L =
+      hetero_layout(ds, nst > 0 ? st0.nb : 0, nst > 1 ? st1.nb : 0, TT,
+                    sizeof(Scalar), MMA, s_esz);
+  Scalar* s_x = reinterpret_cast<Scalar*>(smem + L.x);
+  float* s_h = reinterpret_cast<float*>(smem + L.h);
+  float* s_ln = reinterpret_cast<float*>(smem + L.ln);
+  float* s_red = reinterpret_cast<float*>(smem + L.red);
+  unsigned char* s_s = smem + L.s;
+
+  const long long row = blockIdx.z;
+  const int t0 = blockIdx.y * TT;
+  const int nt = min(TT, T - t0);
+  const int c0 = r * ds;
+  const Scalar* xr = x + (row * T + t0) * static_cast<long long>(d);
+  Scalar* outr = out + (row * T + t0) * static_cast<long long>(d);
+
+  // 0. every stage's copies in flight at once, one commit group each in
+  // stage order (a group with no copies completes at once): x with stage
+  // 0's A_hat rows | its B_hat columns | stage 1's A_hat rows | its B_hat
+  // columns | s's slice
+  copy_x<Scalar, TT>(s_x, L.ldx, xr, d, c0, ds, nt);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const Stage<Scalar> st = i ? st1 : st0;
+    if (i < nst)
+      copy_a(reinterpret_cast<Scalar*>(smem + L.a[i]), L.lda[i],
+             st.a + row * st.a_bs + static_cast<long long>(c0) * st.nb, ds,
+             st.nb);
+    cp_async_commit();
+    if (i < nst)
+      copy_b(reinterpret_cast<Scalar*>(smem + L.b[i]),
+             st.b + row * st.b_bs + c0, d, ds, st.nb);
+    cp_async_commit();
+  }
+  if (s_esz) {
+    const unsigned char* sr = s + (row * s_bs + c0) * s_esz;
+    for (int v = threadIdx.x; v < ds * s_esz / 16; v += kThreads)
+      cp_async16(s_s + 16 * v, sr + 16 * v, true);
+  }
+  cp_async_commit();
+  if (nst > 0 && st0.use_ln)
+    load_ln(s_ln, st0.ls + row * st0.ln_bs, st0.lb + row * st0.ln_bs,
+            st0.nb);
+
+  // the last stage's output: IA3 in its epilogue, 16-byte stores
+  auto store_out = [&](int t, int e, const uint4& v) {
+    *reinterpret_cast<uint4*>(outr + static_cast<long long>(t) * d + c0 +
+                              e) =
+        s_esz ? ia3_scale<Scalar>(v, s_s, e, s_esz == 2) : v;
+  };
+  if (nst == 0) {  // IA3 alone
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int v = threadIdx.x; v < nt * (ds / VEC); v += kThreads) {
+      const int t = v / (ds / VEC), e = (v % (ds / VEC)) * VEC;
+      store_out(t, e, *reinterpret_cast<const uint4*>(s_x + t * L.ldx + e));
+    }
+    return;
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i >= nst) break;
+    const Stage<Scalar> st = i ? st1 : st0;
+    const bool last = i + 1 == nst;
+    Scalar* s_a = reinterpret_cast<Scalar*>(smem + L.a[i]);
+    Scalar* s_b = reinterpret_cast<Scalar*>(smem + L.b[i]);
+    float* s_part = reinterpret_cast<float*>(smem + L.part[i]);
+    // the stage's input (x, or the previous stage's y in the x tile) and
+    // its A_hat rows
+    if (i == 0)
+      cp_async_wait<4>();
+    else
+      cp_async_wait<2>();
+    __syncthreads();
+    partial_h<Scalar, TT, MMA>(s_x, L.ldx, s_a, L.lda[i], ds, st.nb, s_part,
+                               s_red);
+    // also: every peer has read the previous stage's partials
+    cluster.sync();
+    sum_partials(cluster, s_part, s_h, nt * st.nb, cs);
+    if (last) cluster_arrive();  // done reading the peers
+    __syncthreads();
+    ln_act(s_h, s_ln, nt, st.nb, st.use_ln, st.act);
+    if (last)
+      cp_async_wait<0>();  // its B_hat columns and s
+    else
+      cp_async_wait<3>();  // its B_hat columns
+    __syncthreads();
+    if (last)
+      up_project<Scalar, TT>(s_b, s_h, s_x, L.ldx, ds, st.nb, nt, s_red,
+                             store_out);
+    else
+      up_project<Scalar, TT>(
+          s_b, s_h, s_x, L.ldx, ds, st.nb, nt, s_red,
+          [&](int t, int e, const uint4& v) {
+            *reinterpret_cast<uint4*>(s_x + t * L.ldx + e) = v;
+          });
+  }
+  // no block leaves while a peer may still read its last partial
+  cluster_wait();
+}
+
+// One cluster launch: grid (cs, T-tiles, B), cluster (cs, 1, 1), with the
+// kernel's opt-ins (> 48 KB of shared memory, 16 blocks) set once per
+// instantiation through smem_set / wide_set
+template <typename... P, typename... A>
+cudaError_t launch_clusters(void (*kernel)(P...), int smem, int cs, int B,
+                            int T, int tt, int& smem_set, bool& wide_set,
+                            cudaStream_t stream, A... args) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err;
-  if (l.total > smem_set) {
+  if (smem > smem_set) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.total);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_set = l.total;
+    smem_set = smem;
   }
   if (cs > 8 && !wide_set) {
     err = cudaFuncSetAttribute(
@@ -445,10 +733,10 @@ cudaError_t launch_tile(const void* x, const void* a, const void* b,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(cs),
-                     static_cast<unsigned>((T + TT - 1) / TT),
+                     static_cast<unsigned>((T + tt - 1) / tt),
                      static_cast<unsigned>(B));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(l.total);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -457,12 +745,99 @@ cudaError_t launch_tile(const void* x, const void* a, const void* b,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const Scalar*>(x),
-      static_cast<const Scalar*>(a), static_cast<const Scalar*>(b), ls, lb,
-      static_cast<Scalar*>(out), T, d, nb, a_bs, b_bs, ln_bs, use_ln, act);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename Scalar, int TT, bool MMA>
+cudaError_t launch_tile(const void* x, const void* a, const void* b,
+                        const float* ls, const float* lb, void* out, int B,
+                        int T, int d, int nb, long long a_bs, long long b_bs,
+                        long long ln_bs, int use_ln, int act, int cs,
+                        cudaStream_t stream) {
+  static int smem_set = 0;
+  static bool wide_set = false;
+  const Layout l = layout(d / cs, nb, TT, sizeof(Scalar), MMA);
+  return launch_clusters(
+      fused_adapter_kernel<Scalar, TT, MMA>, l.total, cs, B, T, TT, smem_set,
+      wide_set, stream, static_cast<const Scalar*>(x),
+      static_cast<const Scalar*>(a), static_cast<const Scalar*>(b), ls, lb,
+      static_cast<Scalar*>(out), T, d, nb, a_bs, b_bs, ln_bs, use_ln, act);
+}
+
+template <typename Scalar, int TT, bool MMA>
+cudaError_t launch_hetero(const void* x, void* out, const Stage<Scalar>& st0,
+                          const Stage<Scalar>& st1, int nst, const void* s,
+                          long long s_bs, int s_esz, int B, int T, int d,
+                          int cs, cudaStream_t stream) {
+  static int smem_set = 0;
+  static bool wide_set = false;
+  const HeteroLayout l =
+      hetero_layout(d / cs, nst > 0 ? st0.nb : 0, nst > 1 ? st1.nb : 0, TT,
+                    sizeof(Scalar), MMA, s_esz);
+  return launch_clusters(
+      hetero_adapter_kernel<Scalar, TT, MMA>, l.total, cs, B, T, TT,
+      smem_set, wide_set, stream, static_cast<const Scalar*>(x),
+      static_cast<Scalar*>(out), st0, st1, nst,
+      static_cast<const unsigned char*>(s), s_bs, s_esz, T, d);
+}
+
+// The checks both entry points share: batch, tokens, cluster size
+bool valid_grid(int B, int T, int d, int cluster) {
+  return B >= 1 && B <= 65535 && T >= 1 && d >= 1 &&
+         (cluster == 8 || cluster == kMaxCluster) && d % cluster == 0 &&
+         (T + kTileT - 1) / kTileT <= 65535;
+}
+
+// The slice (d / cluster) and a bottleneck width nb as the kernel takes
+// them in a dtype: whole 16-byte vectors (the slice a multiple of the
+// tensor-core depth 16 in bf16)
+bool valid_widths(int ds, int nb, int dtype) {
+  if (nb < 1 || nb > kMaxB) return false;
+  return dtype == 1 ? ds % 16 == 0 && nb % 8 == 0
+                    : ds % 4 == 0 && nb % 4 == 0;
+}
+
+template <typename Scalar>
+cudaError_t dispatch_hetero(const void* x, void* out, const Stage<Scalar>& st0,
+                            const Stage<Scalar>& st1, int nst, const void* s,
+                            long long s_bs, int s_esz, int B, int T, int d,
+                            int cs, cudaStream_t st) {
+  constexpr bool kBf16 = sizeof(Scalar) == 2;
+  if (T == 1)
+    return launch_hetero<Scalar, 1, false>(x, out, st0, st1, nst, s, s_bs,
+                                           s_esz, B, T, d, cs, st);
+  return launch_hetero<Scalar, kTileT, kBf16>(x, out, st0, st1, nst, s,
+                                              s_bs, s_esz, B, T, d, cs, st);
+}
+
+template <typename Scalar>
+Stage<Scalar> make_stage(const void* a, const void* b, const void* ls,
+                         const void* lb, long long a_bs, long long b_bs,
+                         long long ln_bs, int nb, int use_ln, int act) {
+  return Stage<Scalar>{static_cast<const Scalar*>(a),
+                       static_cast<const Scalar*>(b),
+                       static_cast<const float*>(ls),
+                       static_cast<const float*>(lb),
+                       a_bs, b_bs, ln_bs, nb, use_ln, act};
+}
+
+template <typename Scalar>
+cudaError_t hetero(const void* x, const void* bn_a, const void* bn_b,
+                   const void* ls, const void* lb, const void* lora_a,
+                   const void* lora_b, const void* s, void* out, int B,
+                   int T, int d, int nb, int nr, long long bn_a_bs,
+                   long long bn_b_bs, long long ln_bs, long long lora_a_bs,
+                   long long lora_b_bs, long long s_bs, int s_esz, int act,
+                   int cs, cudaStream_t st) {
+  const Stage<Scalar> bn = make_stage<Scalar>(bn_a, bn_b, ls, lb, bn_a_bs,
+                                              bn_b_bs, ln_bs, nb, 1, act);
+  const Stage<Scalar> lora = make_stage<Scalar>(
+      lora_a, lora_b, nullptr, nullptr, lora_a_bs, lora_b_bs, 0, nr, 0, 0);
+  const int nst = (bn_a != nullptr) + (lora_a != nullptr);
+  return dispatch_hetero<Scalar>(x, out, bn_a ? bn : lora, lora, nst, s,
+                                 s_bs, s_esz, B, T, d, cs, st);
 }
 
 }  // namespace
@@ -481,19 +856,14 @@ extern "C" int xpeft_fused_adapter_batched(
     const void* lb, void* out, int B, int T, int d, int nb, long long a_bs,
     long long b_bs, long long ln_bs, int dtype, int use_ln, int act,
     int cluster, void* stream) {
-  if (B < 1 || B > 65535 || T < 1 || d < 1 || nb < 1 || nb > kMaxB)
+  if (!valid_grid(B, T, d, cluster) || (dtype != 0 && dtype != 1) ||
+      !valid_widths(d / cluster, nb, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((cluster != 8 && cluster != kMaxCluster) || d % cluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((T + kTileT - 1) / kTileT > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ds = d / cluster;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lsp = static_cast<const float*>(ls);
   const float* lbp = static_cast<const float*>(lb);
   cudaError_t err;
   if (dtype == 1) {
-    if (ds % 16 || nb % 8) return static_cast<int>(cudaErrorInvalidValue);
     if (T == 1)
       err = launch_tile<__nv_bfloat16, 1, false>(
           x, a, b, lsp, lbp, out, B, T, d, nb, a_bs, b_bs, ln_bs, use_ln,
@@ -502,8 +872,7 @@ extern "C" int xpeft_fused_adapter_batched(
       err = launch_tile<__nv_bfloat16, kTileT, true>(
           x, a, b, lsp, lbp, out, B, T, d, nb, a_bs, b_bs, ln_bs, use_ln,
           act, cluster, s);
-  } else if (dtype == 0) {
-    if (ds % 4 || nb % 4) return static_cast<int>(cudaErrorInvalidValue);
+  } else {
     if (T == 1)
       err = launch_tile<float, 1, false>(x, a, b, lsp, lbp, out, B, T, d,
                                          nb, a_bs, b_bs, ln_bs, use_ln, act,
@@ -512,8 +881,50 @@ extern "C" int xpeft_fused_adapter_batched(
       err = launch_tile<float, kTileT, false>(
           x, a, b, lsp, lbp, out, B, T, d, nb, a_bs, b_bs, ln_bs, use_ln,
           act, cluster, s);
-  } else {
-    err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// The hetero-adapter launch: the bottleneck (bn_a / bn_b, [B, d, nb] /
+// [B, nb, d] or shared, with fp32 LN affines ls / lb and act as above),
+// LoRA (lora_a / lora_b, rank nr) and IA3 (s, [B, d] or shared [d], fp32
+// (s_dtype 0) or bf16 (1)), each present where its pointer is non-null,
+// at least one of them; applied in that order with #2's layout rules for
+// each matmul stage (x, every A_hat / B_hat, out and s 16-byte aligned,
+// batch strides whole 16-byte vectors) and s's slice a whole number of
+// 16-byte vectors. dtype and cluster as above; the wrapper's planner picks
+// the cluster for both stages together. Returns the launch's cudaError_t.
+extern "C" int xpeft_hetero_adapter_batched(
+    const void* x, const void* bn_a, const void* bn_b, const void* ls,
+    const void* lb, const void* lora_a, const void* lora_b, const void* s,
+    void* out, int B, int T, int d, int nb, int nr, long long bn_a_bs,
+    long long bn_b_bs, long long ln_bs, long long lora_a_bs,
+    long long lora_b_bs, long long s_bs, int dtype, int s_dtype, int act,
+    int cluster, void* stream) {
+  if (!valid_grid(B, T, d, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ds = d / cluster;
+  const bool has_bn = bn_a != nullptr, has_lora = lora_a != nullptr;
+  const int s_esz = s ? (s_dtype == 1 ? 2 : 4) : 0;
+  if ((dtype != 0 && dtype != 1) ||
+      (!has_bn && !has_lora && !s) || (bn_b != nullptr) != has_bn ||
+      (lora_b != nullptr) != has_lora ||
+      (has_bn && (!ls || !lb || !valid_widths(ds, nb, dtype))) ||
+      (has_lora && !valid_widths(ds, nr, dtype)) ||
+      (s && ((s_dtype != 0 && s_dtype != 1) || (ds * s_esz) % 16 ||
+             (s_bs * s_esz) % 16)) ||
+      ds % (dtype == 1 ? 16 : 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1)
+    err = hetero<__nv_bfloat16>(x, bn_a, bn_b, ls, lb, lora_a, lora_b, s,
+                                out, B, T, d, nb, nr, bn_a_bs, bn_b_bs, ln_bs,
+                                lora_a_bs, lora_b_bs, s_bs, s_esz, act,
+                                cluster, st);
+  else
+    err = hetero<float>(x, bn_a, bn_b, ls, lb, lora_a, lora_b, s, out, B, T,
+                        d, nb, nr, bn_a_bs, bn_b_bs, ln_bs, lora_a_bs,
+                        lora_b_bs, s_bs, s_esz, act, cluster, st);
   return static_cast<int>(err);
 }

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "terms.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 128;
@@ -61,47 +63,6 @@ constexpr int kMaxK = 1024;
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Compacts the kept terms of profile-row p (nonzero weight, index inside
-// the bank) into s_idx / s_w in j order, one warp ballot per 32 terms;
-// returns their number. Every thread of the block must call it.
-__device__ __forceinline__ int compact_terms(const int* __restrict__ idx,
-                                             const float* __restrict__ w,
-                                             long long p, int k,
-                                             long long n_rows, int* s_idx,
-                                             float* s_w, int* s_count) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int n = 0;
-  for (int j0 = 0; j0 < k; j0 += blockDim.x) {
-    const int j = j0 + threadIdx.x;
-    int r = 0;
-    float wj = 0.0f;
-    bool keep = false;
-    if (j < k) {
-      r = idx[p * k + j];
-      wj = w[p * k + j];
-      keep = wj != 0.0f && r >= 0 && r < n_rows;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) s_count[warp] = __popc(ballot);
-    __syncthreads();
-    int pos = n;
-    for (int v = 0; v < n_warps; ++v) {
-      if (v == warp) pos += __popc(ballot & ((1u << lane) - 1u));
-      const int c = s_count[v];
-      if (v < warp) pos += c;
-      n += c;
-    }
-    if (keep) {
-      s_idx[pos] = r;
-      s_w[pos] = wj;
-    }
-    __syncthreads();
-  }
-  return n;
 }
 
 // acc += w * vals, each a rounded multiply then a rounded add
@@ -135,7 +96,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   __shared__ float s_w[kMaxK];
   __shared__ int s_count[kMaxThreads / 32];
   const long long p = blockIdx.x;
-  const int n = compact_terms(idx, w, p, k, n_rows, s_idx, s_w, s_count);
+  const int n =
+      xpeft::compact_terms(idx, w, p, k, n_rows, s_idx, s_w, s_count);
 
   const long long e0 =
       (static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x) * VEC;

@@ -2,12 +2,12 @@
 
 Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds each in seconds; ``csrc/*.cuh`` holds device code they
-share (``dequant.cuh``). All sources compile at once, one ``nvcc``
-process per file, and link into ONE shared library in ``<repo>/build/``
-(listed in .gitignore), loaded with ``ctypes``. The library's name carries
-a hash of the sources, headers and flags: it is built at first use and
-rebuilt when a source changes. Nothing here runs at import; a failed
-build raises with the compiler's output.
+share (``dequant.cuh``, ``terms.cuh``). All sources compile at once, one
+``nvcc`` process per file, and link into ONE shared library in
+``<repo>/build/`` (listed in .gitignore), loaded with ``ctypes``. The
+library's name carries a hash of the sources, headers and flags: it is
+built at first use and rebuilt when a source changes. Nothing here runs
+at import; a failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -33,10 +33,12 @@ SIGNATURES = {
     "xpeft_mask_aggregate_batched":
         [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _I, _P],
     "xpeft_mask_aggregate_quant_batched":
-        [_P] * 5 + [_I] * 5 + [_LL, _I, _P],
+        [_P] * 5 + [_I] * 5 + [_LL, _I, _I, _I, _P],
     "xpeft_fused_adapter_batched":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _I, _I,
          _I, _P],
+    "xpeft_hetero_adapter_batched":
+        [_P] * 9 + [_I] * 5 + [_LL] * 6 + [_I] * 4 + [_P],
     "xpeft_fused_adapter_quant_batched":
         [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 4 + [_P],
     "xpeft_ia3_apply_batched":

@@ -6,10 +6,12 @@ Replaces the Pallas TPU kernel
 (``csrc/mask_aggregate_quant.cu``) is bound by bytes on the H100: it reads
 the k selected quantized rows of every output row once (int8 bytes or
 packed int4 nibbles, with their fp16 scales) and writes the fp32 output
-once. Its design is the unquantized aggregation's (one block row per
-output row, indices in shared memory, 16-byte loads along the row, fp32
-sums in k order) with the rows widened in registers by the shared
-``csrc/dequant.cuh``, so it equals its plain version bit for bit.
+once. Its design is the unquantized aggregation's (terms of weight 0
+dropped, the kept ones compacted into shared memory in k order, ``unroll``
+16-byte row loads in flight per thread, block size and loads in flight
+from ``plan``) with the rows widened in registers by ``csrc/dequant.cuh``'s
+exact conversion that needs no integer-to-float instruction, and 16-byte
+stores; it equals its plain version bit for bit.
 
 On a CPU tensor the wrapper computes the plain version
 (``kernels/ref.py``); on a CUDA tensor it launches the kernel or raises.
@@ -25,6 +27,30 @@ from repro_torch.quant.schemes import check_scheme
 
 MAX_K = 1024
 Q_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+THREADS = (64, 128)             # block sizes the kernel is built for
+UNROLLS = (1, 2, 8, 16)         # loads in flight per thread, likewise
+
+
+def plan(P, row_bytes, scheme: str):
+    """(threads per block, loads in flight per thread) for P output rows
+    over bank rows of ``row_bytes`` quantized bytes (a thread owns 16 of
+    them: 16 int8 or 32 int4 values): 128 threads where that still gives
+    every SM a block, else 64. Loads in flight where the grid holds 256
+    threads per SM or more: 1 (int8) or 2 (int4), the fastest in a sweep
+    of 1-16 at admission's shapes on an NVIDIA H100 80GB HBM3 at 700 W
+    (``tools/agg_quant_probe.py --sweep``: within 4%, memory-bound); below
+    that, where latency needs them, #1's measured rule (16 under 64
+    threads per SM, else 8). Always one of ``THREADS`` x ``UNROLLS``."""
+    check_scheme(scheme)
+    nvec = row_bytes // 16
+    threads = 128 if P * -(-nvec // 128) >= SMS else 64
+    total = P * nvec
+    if total < 64 * SMS:
+        return threads, 16
+    if total < 256 * SMS:
+        return threads, 8
+    return threads, 2 if scheme == "int4" else 1
 
 
 def check_rows(q, scale, scheme: str, name: str = "q"):
@@ -65,6 +91,7 @@ def mask_aggregate_quant_batched(q, scale, idx, w, *, scheme: str):
     n, groups = _check(q, scale, idx, w, scheme)
     P, k = idx.shape
     N, d = q.shape[:2]
+    threads, unroll = plan(P, q[0].numel(), scheme)
     out = torch.empty((P, d, n), dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -72,7 +99,7 @@ def mask_aggregate_quant_batched(q, scale, idx, w, *, scheme: str):
         err = lib.xpeft_mask_aggregate_quant_batched(
             q.data_ptr(), scale.data_ptr(), idx.data_ptr(), w.data_ptr(),
             out.data_ptr(), d, n, groups, P, k, N, int(scheme == "int4"),
-            stream)
+            threads, unroll, stream)
     if err:
         raise RuntimeError(f"mask_aggregate_quant launch failed: CUDA "
                            f"error {err}")

@@ -13,9 +13,10 @@ through here (``models/model.py`` ``_xpeft_apply`` and
 
 The Pallas backends (``pallas``, ``interpret``) have no counterpart.
 
-Heterogeneous banks (``XPeftConfig.bank_spec``) add two routes:
+Heterogeneous banks (``XPeftConfig.bank_spec``) add three routes:
 ``lora_adapter`` (the fused adapter kernel with the LN skipped and the
-identity) and ``ia3_apply`` (``y = x * (1 + s)``).
+identity), ``ia3_apply`` (``y = x * (1 + s)``) and ``hetero_adapter``
+(an entry's bottleneck, LoRA and IA3 in that order, one launch).
 
 The quantized-bank routes (``mask_aggregate_quant_batched``,
 ``fused_adapter_quant``; ``XPeftConfig.bank_quant``) take int8 / planar
@@ -31,6 +32,8 @@ from repro_torch.kernels.decode_fused import (
 from repro_torch.kernels.fused_adapter import fused_adapter as _fused_cuda
 from repro_torch.kernels.fused_adapter_batched import (
     fused_adapter_batched as _fused_cuda_batched)
+from repro_torch.kernels.hetero_adapter import (
+    hetero_adapter_batched as _hetero_cuda)
 from repro_torch.kernels.ia3_apply import ia3_apply_batched as _ia3_cuda
 from repro_torch.kernels.mask_aggregate import mask_aggregate as _agg_cuda
 from repro_torch.kernels.fused_adapter_quant import (
@@ -105,6 +108,30 @@ def ia3_apply(x, s, *, impl: str = "auto"):
     else:
         out = _ia3_cuda(x, s)
     return out[0] if squeeze else out
+
+
+# a heterogeneous entry's leaves, by stage, in the order they apply
+HETERO_STAGES = {"bottleneck": ("a_hat", "b_hat", "ln_scale", "ln_bias"),
+                 "lora": ("lora_a", "lora_b"), "ia3": ("ia3_s",)}
+
+
+def hetero_adapter(x, masks_l, *, activation: str = "gelu",
+                   impl: str = "auto"):
+    """A heterogeneous entry's adapters in one launch: x [B, T, d] through
+    the bottleneck (``a_hat``/``b_hat``/``ln_*`` with ``activation``),
+    LoRA (``lora_a``/``lora_b``) and IA3 (``ia3_s``), the stages whose
+    leaves ``masks_l`` carries, in that order, each rounded to x's dtype:
+    equal to ``fused_adapter`` -> ``lora_adapter`` -> ``ia3_apply``."""
+    if x.ndim != 3:
+        raise ValueError(f"hetero_adapter is batched-only: x must be "
+                         f"[B, T, d], got ndim={x.ndim}")
+    stages = {name: tuple(masks_l[k] for k in keys)
+              for name, keys in HETERO_STAGES.items() if keys[0] in masks_l}
+    if "ia3" in stages:
+        stages["ia3"] = stages["ia3"][0]
+    fn = ref.hetero_adapter_batched_ref if resolve_impl(impl) == "ref" \
+        else _hetero_cuda
+    return fn(x, activation=activation, **stages)
 
 
 def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,

@@ -5,11 +5,12 @@ Twins of ``repro.kernels.ref``'s ``mask_aggregate_ref``,
 ``fused_adapter_batched_ref``, ``ia3_apply_batched_ref``,
 ``mask_aggregate_quant_batched_ref``,
 ``fused_adapter_quant_batched_ref`` and ``decode_block_ref`` (with the
-per-slot math of ``repro.kernels.decode_fused.decode_block_row``). The
-quantized ones dequantize through ``quant.schemes.dequant_block``. The
-CPU path of every wrapper, the oracle ``chip_smoke.py`` holds each CUDA
-kernel to on the card, and, under ``kernel_impl="ref"``, the end-to-end
-reference run.
+per-slot math of ``repro.kernels.decode_fused.decode_block_row``), and
+``hetero_adapter_batched_ref``, three of them composed as JAX's model
+composes a heterogeneous entry's adapters. The quantized ones dequantize
+through ``quant.schemes.dequant_block``. The CPU path of every wrapper,
+the oracle ``chip_smoke.py`` holds each CUDA kernel to on the card, and,
+under ``kernel_impl="ref"``, the end-to-end reference run.
 Not a yardstick of speed: they repeat the kernels' arithmetic op by op.
 """
 from __future__ import annotations
@@ -105,6 +106,24 @@ def ia3_apply_batched_ref(x, s):
     if s.ndim == 2:
         s = s[:, None, :]
     return (x.float() * (1.0 + s.float())).to(x.dtype)
+
+
+def hetero_adapter_batched_ref(x, *, bottleneck=None, lora=None, ia3=None,
+                               activation: str = "gelu"):
+    """x [B, T, d] with any of ``bottleneck`` = (a_hat, b_hat, ln_scale,
+    ln_bias), ``lora`` = (lora_a, lora_b) and ``ia3`` = s -> [B, T, d] in
+    x's dtype: ``fused_adapter_batched_ref`` (with ``activation``), its
+    LoRA route (no LN, identity) and ``ia3_apply_batched_ref``, composed
+    in that order, each rounded to x's dtype — the hetero adapter
+    launch's exact stages."""
+    if bottleneck is not None:
+        x = fused_adapter_batched_ref(x, *bottleneck, activation=activation)
+    if lora is not None:
+        x = fused_adapter_batched_ref(x, *lora, None, None,
+                                      activation="identity", use_ln=False)
+    if ia3 is not None:
+        x = ia3_apply_batched_ref(x, ia3)
+    return x
 
 
 def mask_aggregate_quant_batched_ref(q, scale, idx, w, *, scheme: str):

@@ -7,9 +7,10 @@ becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
 attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
 A heterogeneous bank's entries (``lora_a``, ``ia3_s``, ``prefix_skip``)
-compose in JAX's fixed order, bottleneck -> LoRA -> IA3, with each
-layer's ``prefix_skip`` gating the prefix KV rows the engine hydrated
-into the cache. Every other block pattern, MoE, sliding windows and the
+compose in JAX's fixed order, bottleneck -> LoRA -> IA3 (two or three of
+them in one ``ops.hetero_adapter`` launch per layer), with each layer's
+``prefix_skip`` gating the prefix KV rows the engine hydrated into the
+cache. Every other block pattern, MoE, sliding windows and the
 mask routes other than the admission-time aggregated ones (``a_hat`` and
 the typed hetero entries, or the quantized ``a_q`` records of a
 ``bank_quant`` engine) raise ``NotImplementedError`` naming their ROADMAP
@@ -144,9 +145,14 @@ def _xpeft_apply(x, masks_l, cfg):
             impl=cfg.xpeft.kernel_impl)
     # admission-time aggregated adapters; a heterogeneous entry composes in
     # the fixed per-layer order bottleneck -> LoRA -> IA3 (its prefix rows
-    # live in the KV cache), and one with none of these leaves (a
-    # prefix-only bank_spec) leaves x as it is
+    # live in the KV cache): two or three of them in one launch, one alone
+    # on its own route; one with none of these leaves (a prefix-only
+    # bank_spec) leaves x as it is
     impl = cfg.xpeft.kernel_impl
+    if sum(k in masks_l for k in ("a_hat", "lora_a", "ia3_s")) >= 2:
+        return ops.hetero_adapter(x, masks_l,
+                                  activation=cfg.xpeft.adapter_activation,
+                                  impl=impl)
     if "a_hat" in masks_l:
         x = ops.fused_adapter(x, masks_l["a_hat"], masks_l["b_hat"],
                               masks_l["ln_scale"], masks_l["ln_bias"],

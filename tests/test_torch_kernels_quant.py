@@ -37,6 +37,7 @@ from repro_torch.kernels import decode_fused as KD
 from repro_torch.kernels import fused_adapter_quant as KFQ
 from repro_torch.kernels import mask_aggregate_quant as KAQ
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.quant import schemes as TQS
 
 SUM_ATOL = 5e-7
@@ -232,6 +233,141 @@ def test_fused_adapter_quant_layer_slices_and_dispatch(scheme, group):
         ops.fused_adapter_quant(x[0], *[t[:, 0] for t in
                                         (aq, as_, bq, bs, ls, lb)],
                                 scheme=scheme)
+
+
+@pytest.mark.parametrize("scheme,group", [("int8", 32), ("int4", 32),
+                                          ("int4", 16)])
+def test_dropping_zero_weight_terms_changes_no_bit_quant(scheme, group):
+    """The arithmetic #5's skip rests on, as
+    ``test_dropping_zero_weight_terms_changes_no_bit`` holds it for #1: a
+    k-order fp32 sum from +0 (the kernel's) over only the terms of nonzero
+    weight and an index inside the bank is bitwise the same sum over every
+    term, and equals the plain version (which starts from its first term;
+    the two can differ only in the sign of a sum of -0 terms, which
+    ``torch.equal`` counts equal), at ~90% zero weights with -0.0 weights,
+    terms that cancel exactly, a pad row and an index past the bank (its
+    weight zeroed and its index moved into the bank for the plain
+    version, which cannot read outside it). The kernel itself is held to
+    the plain version on the card by ``chip_smoke.py``."""
+    rng = np.random.default_rng(12)
+    N, d, b, P, k = 12, 8, 64, 6, 10
+    x = (0.05 * rng.normal(size=(N, d, b))).astype(np.float32)
+    x[3] = -x[2]
+    q, sc = (torch.from_numpy(v) for v in _q(x, scheme, group,
+                                              jax_side=False))
+    idx = torch.from_numpy(rng.integers(0, N, (P, k)).astype(np.int32))
+    w = torch.from_numpy((rng.uniform(0.1, 1, (P, k))
+                          * (rng.uniform(size=(P, k)) < 0.1))
+                         .astype(np.float32))
+    w[0, :3] = torch.tensor([0.5, 0.5, -0.0])
+    idx[0, :3] = torch.tensor([2, 3, 5], dtype=torch.int32)  # cancels to 0
+    w[1] = 0.0                                              # a pad row
+    idx[2, 4], w[2, 4] = N, 0.7                             # past the bank
+    deq = TQS.dequant_block(q, sc, scheme)
+    full = torch.zeros((P, d, b))
+    kept = torch.zeros((P, d, b))
+    for p in range(P):
+        for j in range(k):
+            r = int(idx[p, j])
+            inside = 0 <= r < N
+            term = w[p, j] * deq[r if inside else 0] * (1.0 if inside
+                                                        else 0.0)
+            full[p] = full[p] + term
+            if w[p, j] != 0 and inside:
+                kept[p] = kept[p] + w[p, j] * deq[r]
+    assert kept.numpy().tobytes() == full.numpy().tobytes()
+    idx_in, w_in = idx.clone(), w.clone()
+    idx_in[2, 4], w_in[2, 4] = 0, 0.0
+    want = tref.mask_aggregate_quant_batched_ref(q, sc, idx_in, w_in,
+                                                 scheme=scheme)
+    assert torch.equal(kept, want)
+    assert not want[1].abs().max().item()
+
+
+@pytest.mark.parametrize("P,row_bytes,scheme,want", [
+    (96, 1024 * 64, "int8", (128, 1)),    # admission's A_hat / B_hat, P=96
+    (96, 1024 * 32, "int4", (128, 2)),    # ... int4: half the threads
+    (24, 1024 * 64, "int8", (128, 1)),    # one profile's 24 layers
+    (1, 1024 * 64, "int8", (64, 16)),     # one profile-row: 4096 threads
+    (1, 1024 * 32, "int4", (64, 16)),     # ... int4: 2048
+])
+def test_mask_aggregate_quant_plan(P, row_bytes, scheme, want):
+    """#5's block size and loads in flight: 128 threads where every SM
+    still gets a block, else 64; 1 (int8) or 2 (int4) loads in flight at
+    256 threads per SM or more (admission), 8 below, 16 below 64 (one
+    profile-row: 4096 or 2048 threads)."""
+    assert KAQ.plan(P, row_bytes, scheme) == want
+    assert want[0] in KAQ.THREADS and want[1] in KAQ.UNROLLS
+
+
+def test_mask_aggregate_quant_plan_checks():
+    """Every plan is one the kernel is built for: the C entry point takes
+    exactly the block sizes ``THREADS`` and instantiates exactly the loads
+    in flight ``UNROLLS``."""
+    import re
+    from repro_torch.kernels._build import CSRC
+    src = (CSRC / "mask_aggregate_quant.cu").read_text()
+    body = src[src.index("cudaError_t launch_u"):]
+    body = body[:body.index("}  // namespace")]
+    assert tuple(int(u) for u in re.findall(r"case (\d+):", body)) \
+        == KAQ.UNROLLS
+    entry = src[src.index(
+        'extern "C" int xpeft_mask_aggregate_quant_batched'):]
+    assert tuple(int(t) for t in re.findall(r"threads != (\d+)", entry)) \
+        == KAQ.THREADS
+    for P in (1, 2, 24, 96, 192, 1024):
+        for row in (1024, 32 * 1024, 64 * 1024):
+            for scheme in ("int8", "int4"):
+                assert KAQ.plan(P, row, scheme)[0] in KAQ.THREADS
+                assert KAQ.plan(P, row, scheme)[1] in KAQ.UNROLLS
+
+
+@pytest.mark.parametrize("bias,shift", [(128, 0), (8, 0), (8, 4)])
+def test_i2f_free_dequant_is_exact(bias, shift):
+    """``csrc/dequant.cuh``'s conversion without I2F, emulated with its
+    exact arithmetic: the byte permute's selector, then the stored value
+    v = (q + bias) * 2^shift in bits
+    8..15 of 2^23, then ONE rounding of M * m + c (an FFMA), with
+    m = s * 2^-(8 + shift) and c = -(2^23 + bias * 2^(8 + shift)) * m
+    each rounded to fp32 as the kernel rounds them, gives float(q) * s bit
+    for bit for every stored integer (int8 -128..127 as byte ^ 0x80;
+    int4 nibbles 0..15 in the low or the high half of a byte) and fp16
+    scales from the smallest subnormal to the largest value."""
+    rng = np.random.default_rng(13)
+    # the byte permute as the kernel selects: result byte b is byte
+    # (sel >> 4b) & 7 of (0x4B000000, word), so byte j of word lands in
+    # bits 8..15 under 0x4B in bits 24..31
+    words = rng.integers(0, 2 ** 32, 64, dtype=np.uint64)
+    for j in range(4):
+        sel = 0x3000 | ((4 + j) << 4)
+        pool = (0x4B000000 | (words << 32)).astype(np.uint64)
+        perm = sum(((pool >> np.uint64(8 * ((sel >> (4 * i)) & 7)))
+                    & np.uint64(0xFF)) << np.uint64(8 * i) for i in range(4))
+        want_bits = 0x4B000000 | (((words >> np.uint64(8 * j))
+                                   & np.uint64(0xFF)) << np.uint64(8))
+        assert np.array_equal(perm, want_bits)
+    scales = np.concatenate([
+        np.array([0.0, 2.0 ** -24, 2.0 ** -14, 6.1e-5, 1.0, 65504.0]),
+        np.abs(rng.normal(size=200)) * 10.0 ** rng.uniform(-6, 4, 200)])
+    s16 = scales.astype(np.float16).astype(np.float32)
+    qs = np.arange(-128, 128) if bias == 128 else np.arange(-8, 8)
+    v = ((qs + bias) << shift).astype(np.uint32)
+    big = ((0x4B000000 | (v << 8)).astype(np.uint32)).view(np.float32)
+    assert np.array_equal(big.astype(np.float64),
+                          2.0 ** 23 + v.astype(np.float64) * 256)
+    m = (s16 * np.float32(2.0 ** -(8 + shift))).astype(np.float32)
+    c = (np.float32(-(2.0 ** 23 + bias * 2.0 ** (8 + shift))) * m).astype(
+        np.float32)
+    # both factors of c and m are exact in fp32, and so is M * m + c in
+    # fp64 (at most 27 significant bits each): one rounding to fp32 is
+    # the FFMA's
+    assert np.array_equal(c.astype(np.float64),
+                          -(2.0 ** 23 + bias * 2.0 ** (8 + shift))
+                          * s16.astype(np.float64) * 2.0 ** -(8 + shift))
+    got = (big[None, :].astype(np.float64) * m[:, None].astype(np.float64)
+           + c[:, None].astype(np.float64)).astype(np.float32)
+    want = qs[None, :].astype(np.float32) * s16[:, None]
+    assert np.array_equal(got, want)
 
 
 # ----------------------------------------------------------------------------
