@@ -102,6 +102,26 @@ Phases, in order; any failed check exits non-zero:
              the composed run's. Then #7 on the entries it keeps (IA3
              alone) through the model's forward: 24 launches, bitwise the
              kernel_impl="ref" forward.
+7. train   — the paper's loop on qwen1.5-0.5b at full width. One xpeft
+             train step on the card against the same step on the CPU (2
+             layers, float32, TF32 off, the same weights, batch and Gumbel
+             draws): the k-hot selection bitwise, the loss and every
+             trainable gradient leaf within the stated tolerances. Ten
+             steps at full depth in bf16 through ``launch/train.py``'s
+             loop (8 profiles, B=8, T=64): every loss and grad norm
+             finite, the mask logits moved; ms per step (CUDA events),
+             tokens/s, peak memory, then device time and kernels per step
+             under the profiler. The trained table packed into a hard
+             (k=50) and a soft store, each saved, loaded back and held
+             byte for byte. The hard store served per step
+             (``precompute=False``): the aggregation, the fused adapter
+             and, with ``decode_fused=True``, the megakernel must not
+             launch; held to the same store's precompute=True
+             kernel_impl="ref" run. The soft store served precomputed
+             (dense admission, the fused adapter 24 times per decode step
+             and prefill batch, the aggregation never), held to its ref
+             run. A ``{"train": ...}`` JSON line carries the training
+             numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -175,6 +195,14 @@ FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
 FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
 E2E_STEPS = 4
 E2E_SHARE_REL = 0.5
+# - training (phase 7), one step on the card against the same step on the
+#   CPU, both float32 with TF32 off: the k-hot selection bitwise; the loss
+#   within TRAIN_LOSS_RTOL of the CPU's (fp32 sums over 151936 logits and
+#   512 tokens in other orders); each trainable gradient leaf within
+#   TRAIN_GRAD_REL_L2 relative L2 error (gradients pass back through the
+#   LM head, 2 layers and the straight-through softmax).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_L2 = 1e-3
 
 # #1-#4, #6 and #8 as this script timed them before their redesign for
 # Hopper (one block row per output row; one block per batch row and
@@ -976,6 +1004,14 @@ def prefill_logits(torch, eng, reqs, bare=False):
         logits, _ = eng.prefill_logits(toks.to(eng.device), None,
                                        lens.to(eng.device))
         return logits
+    if not eng.precompute:
+        # per-step serving: the store's weights, as admission hydrates them
+        masks = dict(zip(eng._entry_keys, (
+            t.to(eng.device) for t in eng.store.batch_mask_weights(
+                [r.profile_id for r in reqs]))))
+        logits, _ = eng.prefill_logits(toks.to(eng.device), masks,
+                                       lens.to(eng.device))
+        return logits
     rows = [eng.profile_cache.peek(r.profile_id) for r in reqs]
     masks = {k: torch.stack([row[k] for row in rows])
              for k in eng._entry_keys}
@@ -990,16 +1026,37 @@ def prefill_logits(torch, eng, reqs, bare=False):
 
 
 def forced_decode(torch, MDL, ServeEngine, Request, run_cfg, params, store,
-                  reqs, forced, bare=False):
+                  reqs, forced, bare=False, eng_kw=None, prefill_out=None):
     """Decode-step logits [R, n-1, V] of a fresh engine serving ``reqs``
     as the free runs do (one engine, 4 slots, the scheduler's own
     admission waves, so every prefill batch is the free run's), each
     slot's step fed the token ``forced[uid]`` holds at that step (teacher
     forcing) instead of its own greedy pick. The model call is the
     engine's decode step with the logits kept (``bare``: with the adapter
-    left out)."""
+    left out; ``eng_kw``: more engine options, e.g. precompute). With
+    ``prefill_out`` (a dict), each request's prefill logits [V], as its
+    admission wave computed them, are kept there by uid."""
     eng = ServeEngine(run_cfg, params, store, max_slots=4, max_seq=128,
-                      sync_every=8)
+                      sync_every=8, **(eng_kw or {}))
+    if prefill_out is not None:
+        # admission prefills the groups of group_by_bucket in sorted
+        # order, one prefill_logits call each, row j for group[j]
+        groups = []
+        group_by_bucket = eng.scheduler.group_by_bucket
+        prefill = eng.prefill_logits
+
+        def spy_groups(wave):
+            out = group_by_bucket(wave)
+            groups.extend(out[pad] for pad in sorted(out))
+            return out
+
+        def spy_prefill(*args, **kwargs):
+            logits, mini = prefill(*args, **kwargs)
+            for j, r in enumerate(groups.pop(0)):
+                prefill_out[r.uid] = logits[j]
+            return logits, mini
+        eng.scheduler.group_by_bucket = spy_groups
+        eng.prefill_logits = spy_prefill
     dev = params["embed"].device
     n = len(forced[reqs[0].uid]) - 1
     rows = {r.uid: [] for r in reqs}
@@ -1091,13 +1148,14 @@ def explain_divergence(torch, reqs, ref_reqs, pre, dec):
     return agree, total
 
 
-def serve_once(torch, cfg, params, store, reqs):
+def serve_once(torch, cfg, params, store, reqs, eng_kw=None):
     """Drain ``reqs`` on a fresh engine (4 slots, max_seq 128, sync_every
-    8): (engine, engine steps, seconds, each wave's last_admission)."""
+    8, and ``eng_kw``): (engine, engine steps, seconds, each wave's
+    last_admission)."""
     from repro_torch.serve import ServeEngine
 
     eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
-                      sync_every=8)
+                      sync_every=8, **(eng_kw or {}))
     waves = []
     hydrate = eng._hydrate_stacked
 
@@ -1114,7 +1172,8 @@ def serve_once(torch, cfg, params, store, reqs):
 
 
 def drive_path(torch, label, cfg, params, store, counters, check_launches,
-               check_runs=None, report_share=False):
+               check_runs=None, report_share=False, eng_kw=None,
+               ref_kw=None, own_prefill=False):
     """One serving path end to end: a warm-up drain, then the 8 requests
     with every counter in ``counters`` set to 0 just before
     (``check_launches(launches, serve_stats, waves)`` asserts what must
@@ -1122,17 +1181,23 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     ``check_runs(kernel_engine, ref_engine)`` compares what admission left
     in each), the prefill and teacher-forced decode-step logits held to
     the ref run, every greedy flip explained, and a profiled decode
-    step."""
+    step. ``eng_kw`` are the path's engine options, ``ref_kw`` the ref
+    run's (default: the same); ``own_prefill`` holds the prefill logits
+    the teacher-forced runs' own admission waves computed, in place of
+    one padded bucket of all 8 requests."""
+    ref_kw = eng_kw if ref_kw is None else ref_kw
     from repro_torch.models import model as MDL
     from repro_torch.serve import Request, ServeEngine
 
     serve_once(torch, cfg, params, store,
-               make_requests(Request, cfg.vocab_size, n=4, max_new=4))
+               make_requests(Request, cfg.vocab_size, n=4, max_new=4),
+               eng_kw)
     torch.cuda.reset_peak_memory_stats()
     reqs = make_requests(Request, cfg.vocab_size)
     for _, fn in counters:
         fn.launches = 0
-    eng, steps, dt, waves = serve_once(torch, cfg, params, store, reqs)
+    eng, steps, dt, waves = serve_once(torch, cfg, params, store, reqs,
+                                       eng_kw)
     launches = {name: fn.launches for name, fn in counters}
     toks = sum(len(r.generated) for r in reqs)
     st = eng.serve_stats()
@@ -1149,7 +1214,7 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     for wave in waves:
         log(f"  admission: path {wave['path']}, hits {wave['cache_hits']}, "
             f"misses {wave['cache_misses']}, aggregated "
-            f"{wave['aggregated_profiles']}, store-hydrated "
+            f"{wave.get('aggregated_profiles', 0)}, store-hydrated "
             f"{wave.get('store_hydrated_profiles', 0)}, bank bytes/request "
             f"{wave['bank_bytes_per_request']}")
     assert all(r.done and len(r.generated) == 16 for r in reqs)
@@ -1161,23 +1226,37 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     for _, fn in counters:
         fn.launches = 0
     ref_eng, _, ref_dt, _ = serve_once(torch, ref_cfg, params, store,
-                                       ref_reqs)
+                                       ref_reqs, ref_kw)
     assert not any(fn.launches for _, fn in counters)
     ref_toks = sum(len(r.generated) for r in ref_reqs)
     log(f"serve {label} (kernel_impl=ref): {ref_toks} tokens, "
         f"{ref_dt:.3f}s = {ref_toks / ref_dt:.1f} tok/s")
     if check_runs is not None:
         check_runs(eng, ref_eng)
-    pre = [prefill_logits(torch, e, rs) for e, rs in
-           ((eng, reqs), (ref_eng, ref_reqs))]
-    assert torch.isfinite(pre[0]).all()
-    assert pre[0].shape == (8, cfg.vocab_size)
-    e2e_check("prefill logits", *pre,
-              prefill_logits(torch, ref_eng, ref_reqs, bare=True))
+    def check_prefill(pre):
+        assert torch.isfinite(pre[0]).all()
+        assert pre[0].shape == (8, cfg.vocab_size)
+        e2e_check("prefill logits", *pre,
+                  prefill_logits(torch, ref_eng, ref_reqs, bare=True))
+
+    if not own_prefill:
+        pre = [prefill_logits(torch, e, rs) for e, rs in
+               ((eng, reqs), (ref_eng, ref_reqs))]
+        check_prefill(pre)
     forced = {q.uid: q.generated for q in ref_reqs}
+    seen = ({}, {}, None) if own_prefill else (None, None, None)
     dec = [forced_decode(torch, MDL, ServeEngine, Request, c, params, store,
-                         reqs, forced, bare=bare)
-           for c, bare in ((cfg, False), (ref_cfg, False), (ref_cfg, True))]
+                         reqs, forced, bare=bare, eng_kw=kw, prefill_out=po)
+           for (c, bare, kw), po in zip(
+               ((cfg, False, eng_kw), (ref_cfg, False, ref_kw),
+                (ref_cfg, True, ref_kw)), seen)]
+    if own_prefill:
+        # the prefill logits of the runs' own admission waves: the
+        # per-step aggregation is a skinny GEMM whose rounding follows the
+        # batch's row count, so one bucket of all 8 would not be the
+        # free run's prefill
+        pre = [torch.stack([d[r.uid] for r in reqs]) for d in seen[:2]]
+        check_prefill(pre)
     assert torch.isfinite(dec[0]).all()
     assert dec[0].shape == (8, 15, cfg.vocab_size)
     ref_tokens = torch.tensor([q.generated[1:] for q in ref_reqs],
@@ -1199,13 +1278,13 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
         # adapter kernel and, with decode_fused, the megakernel's other
         # phases make of the difference
         bare_k = forced_decode(torch, MDL, ServeEngine, Request, cfg, params,
-                               store, reqs, forced, bare=True)
+                               store, reqs, forced, bare=True, eng_kw=eng_kw)
         extra["bare_decode_logit_err"] = (bare_k - dec[2]).abs().max().item()
         log(f"  decode steps with the adapter left out of both runs "
             f"(prefill keeps it): kernel vs ref max|d logit| "
             f"{extra['bare_decode_logit_err']:.4e}")
     step = profile_decode(torch, ServeEngine, Request, cfg, params, store,
-                          label)
+                          label, eng_kw)
     return eng, reqs, launches, dict(
         tok_s=toks / dt, ref_tok_s=ref_toks / ref_dt,
         greedy_agree_ref=agree / total, decode_logit_err=e2e["max_abs_err"],
@@ -1946,14 +2025,284 @@ def phase_serve_hetero(torch, KA, KF, KI, KH, KAQ, KFQ, KD, ctx):
     return launches, stats, ia3_n["ia3_apply_batched"]
 
 
-def profile_decode(torch, ServeEngine, Request, cfg, params, store, label):
+# ----------------------------------------------------------------------------
+# phase 7: training -> pack -> save/load -> serve the trained profiles
+# ----------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "qwen1.5-0.5b", "--mode", "xpeft", "--steps", "10",
+              "--batch", "8", "--seq", "64", "--profiles", "8", "--seed",
+              "0", "--device", "cuda"]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_train_step_vs_cpu(torch):
+    """(a) One xpeft train step's forward and gradient on the card against
+    the same step on the CPU: qwen1.5-0.5b at full width (the 151936-wide
+    LM head included) cut to 2 layers, float32 with TF32 off, the same
+    weights, batch and Gumbel draws. The k-hot selection must be bitwise
+    equal, the loss within TRAIN_LOSS_RTOL and each trainable gradient
+    leaf within TRAIN_GRAD_REL_L2 (relative L2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import masks as M
+    from repro_torch.core import xpeft as XP
+    from repro_torch.data import MarkovLM
+    from repro_torch.train import steps as ST
+
+    cfg = get_config("qwen1.5-0.5b").with_(num_layers=2, dtype="float32") \
+        .with_xpeft(max_profiles=8)
+    xp = cfg.xpeft
+    state = ST.init_train_state(cfg, "xpeft", seed=0, device="cuda")
+    batch = MarkovLM(cfg.vocab_size, 8, seed=0).sample(0, 8, 64)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shape = (8, cfg.num_layers, xp.num_adapters)
+    noise = tuple(M.gumbel(shape, generator=gen, device="cuda")
+                  for _ in range(2))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        st = state if dev == "cuda" else _tree_to(state, "cpu")
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        nz = tuple(n.to(dev) for n in noise)
+        prof = XP.gather_profiles(st["trainable"]["table"],
+                                  tb["profile_ids"])
+        w = XP.profile_mask_weights(prof, xp, noise=nz)
+        t = time.perf_counter()
+        grads, metrics = ST.grads_for_batch(st["frozen"], st["trainable"],
+                                            tb, cfg, "xpeft", nz)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = dict(w=[x.detach().cpu() for x in w],
+                         grads=_tree_to(grads, "cpu"),
+                         loss=float(metrics["loss"]),
+                         s=time.perf_counter() - t)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    khot_equal = all(torch.equal(a > 0.5 / xp.k, b > 0.5 / xp.k)
+                     for a, b in zip(gpu["w"], cpu["w"]))
+    st_err = max((a - b).abs().max().item()
+                 for a, b in zip(gpu["w"], cpu["w"]))
+    loss_err = abs(gpu["loss"] - cpu["loss"])
+    rel = {}
+    for k in gpu["grads"]["table"]:
+        a, b = gpu["grads"]["table"][k], cpu["grads"]["table"][k]
+        rel[k] = ((a - b).norm() / b.norm()).item() if b.norm() > 0 \
+            else (a - b).norm().item()
+    log(f"train (a): one xpeft step, {cfg.name} L=2 d={cfg.d_model} "
+        f"V={cfg.vocab_size} float32, B=8 T=64: card {gpu['s']:.3f}s, CPU "
+        f"{cpu['s']:.3f}s; k-hot selection bitwise equal {khot_equal}, "
+        f"straight-through weights max|d| {st_err:.3e}; loss card "
+        f"{gpu['loss']:.6f} CPU {cpu['loss']:.6f} |d| {loss_err:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL * abs(cpu['loss']):.3e}); grad relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (tol {TRAIN_GRAD_REL_L2})")
+    assert khot_equal
+    assert loss_err <= TRAIN_LOSS_RTOL * abs(cpu["loss"]), loss_err
+    assert all(v <= TRAIN_GRAD_REL_L2 for v in rel.values()), rel
+    assert all(gpu["grads"]["table"][k].abs().max() > 0 for k in rel)
+    return dict(khot_bitwise=khot_equal, st_weights_max_abs_err=st_err,
+                loss_card=gpu["loss"], loss_cpu=cpu["loss"],
+                loss_abs_err=loss_err, grad_rel_l2=rel)
+
+
+def phase_train_full(torch):
+    """(b) Ten xpeft steps of qwen1.5-0.5b at full width and depth in bf16
+    through ``launch/train.py``'s loop (its defaults: 8 profiles, B=8,
+    T=64, lr 1e-3): every loss and grad norm finite, the grad norm > 0,
+    the mask logits moved; ms per step (CUDA events, median of steps
+    3-10), tokens/s, peak memory; then 3 more steps of the same loop's
+    step function under torch.profiler for device ms and kernels per
+    step."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as LT
+
+    args = LT.parse_args(TRAIN_ARGV)
+    ev, walls, first = [], [], {}
+
+    @contextlib.contextmanager
+    def observe(i, state):
+        if i == 0:
+            first["table"] = {k: v.clone() for k, v in
+                              state["trainable"]["table"].items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        ev.append(a.elapsed_time(b))
+
+    # the run's own peak: above what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = LT.run(args, observe=observe)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    hist = out["history"]
+    losses = [float(m["loss"]) for m in hist]
+    gnorms = [float(m["grad_norm"]) for m in hist]
+    table = out["state"]["trainable"]["table"]
+    moved = max((table[k] - first["table"][k]).abs().max().item()
+                for k in ("mA", "mB"))
+    ms = statistics.median(ev[2:])
+    wall = statistics.median(walls[2:])
+    tokens = args.batch * args.seq
+    # the same loop's step, 3 more steps under the profiler
+    state, step, src, gen = out["state"], out["step"], out["source"], \
+        out["generator"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(args.steps, args.steps + 3):
+            state, _ = step(state, src.sample(i, args.batch, args.seq), gen)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 3
+    n_kernels = sum(e.count for e in rows) / 3
+    cfg = out["cfg"]
+    log(f"train (b): {args.steps} xpeft steps, {cfg.name} L={cfg.num_layers}"
+        f" d={cfg.d_model} V={cfg.vocab_size} {cfg.dtype}, N="
+        f"{cfg.xpeft.num_adapters} b={cfg.xpeft.bottleneck} k={cfg.xpeft.k}"
+        f", {args.profiles} profiles, B={args.batch} T={args.seq}: "
+        f"{total_s:.2f}s in all (init and first-call costs included)")
+    log("  loss " + " ".join(f"{v:.4f}" for v in losses))
+    log("  grad_norm " + " ".join(f"{v:.4e}" for v in gnorms))
+    log("  ms/step (CUDA events) " + " ".join(f"{v:.2f}" for v in ev))
+    log(f"  median of steps 3-{args.steps}: {ms:.3f} ms/step (host wall "
+        f"{wall:.3f}), {tokens / ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+        f"before; mask logits moved by up to {moved:.3e}")
+    log(f"  profiled steps: device {dev_ms:.3f} ms/step in "
+        f"{n_kernels:.0f} kernels/step -> busy share {dev_ms / ms:.4f}; "
+        "top kernels by device time:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / 3:.4f} ms/step "
+            f"{e.count / 3:5.0f} launches/step  {e.key[:72]}")
+    assert all(math.isfinite(v) for v in losses + gnorms)
+    assert all(v > 0 for v in gnorms) and moved > 0
+    stats = dict(steps=args.steps, batch=args.batch, seq=args.seq,
+                 losses=losses, grad_norms=gnorms, ms_per_step=ms,
+                 ms_per_step_all=ev, host_wall_ms_per_step=wall,
+                 tokens_per_s=tokens / ms * 1e3, peak_memory_bytes=peak,
+                 memory_held_before_bytes=held,
+                 device_ms_per_step=dev_ms, kernels_per_step=n_kernels,
+                 busy_share=dev_ms / ms, mask_logits_moved=moved)
+    return out, stats
+
+
+def phase_pack_reload(torch, out):
+    """(c) The trained table packed into a hard store (k=50) and a soft
+    store; each saved, loaded back and held byte for byte to what was
+    saved (keys, dtypes, bytes, checksums; nothing quarantined)."""
+    import tempfile
+
+    from repro_torch.core.profiles import ProfileStore
+
+    cfg = out["cfg"]
+    xp = cfg.xpeft
+    table = out["state"]["trainable"]["table"]
+    stores = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mtype in ("hard", "soft"):
+            store = ProfileStore(cfg.num_layers, xp.num_adapters,
+                                 xp.bottleneck, mtype, xp.k)
+            for pid in range(table["mA"].shape[0]):
+                store.add_profile(pid, {k: v[pid] for k, v in table.items()})
+            path = os.path.join(tmp, f"{mtype}.npz")
+            store.save(path)
+            back = ProfileStore.load(path)
+            equal = back.profile_ids() == store.profile_ids() and all(
+                list(back._rec[p]) == list(store._rec[p])
+                and all(back._rec[p][k].dtype == v.dtype
+                        and back._rec[p][k].tobytes() == v.tobytes()
+                        for k, v in store._rec[p].items())
+                and back._crc[p] == store._crc[p]
+                for p in store.profile_ids())
+            log(f"train (c): {mtype} store of {len(store.profile_ids())} "
+                f"trained profiles, {store.record_nbytes(0)} B/record, "
+                f"{os.path.getsize(path)} B on disk; reloaded byte-equal "
+                f"{equal}, quarantined {back.quarantined_ids()}")
+            assert equal and not back.quarantined_ids()
+            stores[mtype] = back
+    return stores
+
+
+def phase_serve_trained(torch, KA, KF, KD, out, stores):
+    """(d) The hard store served per step (precompute=False): composed,
+    #1 and #2 never launch (each layer aggregates the k-hot weights
+    against the bank in plain torch ops); held to the same store's
+    precompute=True kernel_impl="ref" run. With decode_fused=True the
+    megakernel must not launch either (per-step entries keep the composed
+    path) and the tokens equal the composed per-step run's. (e) The soft
+    store served with precompute=True: dense einsum admission (#1 0
+    times), #2 24 times per decode step and prefill batch; held to its
+    kernel_impl="ref" run."""
+    cfg, params = out["cfg"], out["state"]["frozen"]
+    L = cfg.num_layers
+    counters = (("mask_aggregate_batched", KA.mask_aggregate_batched),
+                ("fused_adapter_batched", KF.fused_adapter_batched),
+                ("decode_block_fused", KD.decode_block_fused))
+
+    def per_step_launches(launches, st, waves):
+        assert {w["path"] for w in waves} == {"per_step"}, waves
+        assert not any(launches.values()), launches
+
+    _, reqs, launches, per_step = drive_path(
+        torch, "per-step (precompute=False)", cfg, params, stores["hard"],
+        counters, per_step_launches, report_share=True,
+        eng_kw=dict(precompute=False), ref_kw=dict(precompute=True),
+        own_prefill=True)
+    per_step["launches"] = launches
+
+    from repro_torch.serve import Request
+    fcfg = cfg.with_(decode_fused=True)
+    for _, fn in counters:
+        fn.launches = 0
+    freqs = make_requests(Request, cfg.vocab_size)
+    _, _, _, fwaves = serve_once(torch, fcfg, params, stores["hard"], freqs,
+                                 dict(precompute=False))
+    flaunch = {name: fn.launches for name, fn in counters}
+    feq = tokens_equal(freqs, reqs)
+    log(f"serve per-step with decode_fused=True: launches {flaunch}; "
+        f"tokens equal to the composed per-step run {feq:.3f}")
+    assert not any(flaunch.values()), flaunch
+    assert {w["path"] for w in fwaves} == {"per_step"}
+    assert feq == 1.0
+    per_step_fused = dict(launches=flaunch, tokens_equal_composed=feq)
+
+    def soft_launches(launches, st, waves):
+        assert waves[0]["path"] == "dense", waves[0]
+        assert launches["mask_aggregate_batched"] == 0
+        assert launches["decode_block_fused"] == 0
+        assert launches["fused_adapter_batched"] == \
+            L * (st["device_steps"] + st["prefill_batches"]) > 0
+
+    _, _, launches, soft = drive_path(
+        torch, "soft precompute", cfg, params, stores["soft"], counters,
+        soft_launches, report_share=True)
+    soft["launches"] = launches
+    return per_step, per_step_fused, soft
+
+
+def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
+                   eng_kw=None):
     """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
     the host clock without the profiler, then 8 steps under torch.profiler
     for the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
-                      sync_every=8)
+                      sync_every=8, **(eng_kw or {}))
     eng.submit(make_requests(Request, cfg.vocab_size, n=4))
     eng.admit_many(eng.scheduler.next_batch(4))
     for _ in range(3):
@@ -2051,6 +2400,16 @@ def main():
     lora, agg_typed = phase_hetero_kernels(torch, KA, KF, ref)
     hetero_launches, serve_hetero, ia3_launches = phase_serve_hetero(
         torch, KA, KF, KI, KH, KAQ, KFQ, KD, ctx)
+    # 7. training: one step on the card against the CPU, ten full-depth
+    # steps through the launcher's loop, the trained profiles packed,
+    # saved and reloaded, then served per step and from soft masks
+    del ctx
+    torch.cuda.empty_cache()
+    train_step = phase_train_step_vs_cpu(torch)
+    trained, train = phase_train_full(torch)
+    stores = phase_pack_reload(torch, trained)
+    serve_per_step, serve_per_step_fused, serve_soft = phase_serve_trained(
+        torch, KA, KF, KD, trained, stores)
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -2123,6 +2482,12 @@ def main():
              launches=by_shape["lora"])
         for T, err in lora.items()]
     kernels[7]["launches_hetero_path"] = hetero_launches["ia3_apply_batched"]
+    # the training phase's serving paths: per-step serving launches no
+    # kernel of the path; soft-mask serving #2 alone
+    for row in kernels[:2] + kernels[4:5]:
+        row["launches_per_step_path"] = serve_per_step["launches"][
+            row["name"]]
+        row["launches_soft_path"] = serve_soft["launches"][row["name"]]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -2131,10 +2496,14 @@ def main():
         row["launches"] = n
         serve_quant[f"{scheme}_{'decode_fused' if fused else 'composed'}"] \
             = row
+    log(json.dumps({"train": dict(train, step_vs_cpu=train_step)}))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,
-                    "serve_hetero": serve_hetero}))
+                    "serve_hetero": serve_hetero,
+                    "serve_per_step": serve_per_step,
+                    "serve_per_step_decode_fused": serve_per_step_fused,
+                    "serve_soft": serve_soft}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

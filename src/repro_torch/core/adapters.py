@@ -3,13 +3,19 @@
 The bank is ONE tensor per submodule, in ``repro.core.adapters``' layout:
 ``bank_a [L, N, d, b]`` (down-proj) and ``bank_b [L, N, b, d]`` (up-proj).
 A heterogeneous ``bank_spec`` gets one leaf pair or vector per adapter
-family instead (``init_hetero_bank``).
+family instead (``init_hetero_bank``). Aggregation is a mask-bank
+contraction (``aggregate_dense``, or ``aggregate_sparse`` over the k
+selected rows); application is two products (``apply_adapter``). All
+three are plain differentiable torch ops, as their JAX twins are jnp
+einsums outside any Pallas kernel: training and per-step serving run
+them.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def init_adapter_bank(num_layers: int, num_adapters: int, d: int, b: int,
@@ -67,3 +73,51 @@ def init_hetero_bank(num_layers: int, xp, d: int, kv_dim: int,
             bank["prefix_k"] = draw(shape, 0.02)
             bank["prefix_v"] = draw(shape, 0.02)
     return bank
+
+
+def aggregate_dense(bank_l: dict, w_a, w_b):
+    """Dense aggregation for one layer.
+
+    bank_l: {"bank_a": [N, d, b], "bank_b": [N, b, d]}; w_a, w_b: [..., N]
+    mask weights (soft, or straight-through hard in training), cast to the
+    bank's dtype first, as JAX's einsum takes them. Returns
+    (A_hat [..., d, b], B_hat [..., b, d]) in the bank's dtype."""
+    bank_a, bank_b = bank_l["bank_a"], bank_l["bank_b"]
+    a_hat = torch.einsum("...n,ndb->...db", w_a.to(bank_a.dtype), bank_a)
+    b_hat = torch.einsum("...n,nbd->...bd", w_b.to(bank_b.dtype), bank_b)
+    return a_hat, b_hat
+
+
+def aggregate_sparse(bank_l: dict, idx_a, w_a, idx_b, w_b):
+    """k-sparse aggregation: gather only the k selected adapters.
+
+    idx_*: [..., k] int, w_*: [..., k]. The plain twin of the aggregation
+    kernel, reading N/k less of the bank than ``aggregate_dense``."""
+    bank_a, bank_b = bank_l["bank_a"], bank_l["bank_b"]
+    ga = bank_a[idx_a.long()]                           # [..., k, d, b]
+    gb = bank_b[idx_b.long()]                           # [..., k, b, d]
+    a_hat = torch.einsum("...k,...kdb->...db", w_a.to(bank_a.dtype), ga)
+    b_hat = torch.einsum("...k,...kbd->...bd", w_b.to(bank_b.dtype), gb)
+    return a_hat, b_hat
+
+
+def _ln(x, scale, bias, eps: float = 1e-6):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def apply_adapter(x, a_hat, b_hat, ln_scale, ln_bias,
+                  activation: str = "gelu"):
+    """Bottleneck adapter with the paper's LN after the down-projection:
+    x [..., T, d]; a_hat [..., d, b] or [d, b]; returns
+    x + B̂(act(LN(Â x))). ``activation='identity'`` is the literal paper
+    formula; ``gelu`` is the tanh form, as ``jax.nn.gelu``'s default."""
+    h = torch.matmul(x, a_hat)
+    h = _ln(h, ln_scale, ln_bias)
+    if activation == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    y = torch.matmul(h, b_hat)
+    return x + y.to(x.dtype)

@@ -1,4 +1,5 @@
-"""X-PEFT mask tensors: k-hot hard masks and byte-level bit packing.
+"""X-PEFT mask tensors: soft masks, hard (k-hot) masks with straight-through
+Gumbel top-k (paper Algorithm 1), and byte-level bit packing.
 
 A profile's trainable state is two mask-logit tensors ``M_A, M_B [L, N]``,
 the adapter-LN affine ``[L, b]`` and optionally a task head. Hard masks
@@ -33,6 +34,68 @@ def init_profile_params(num_layers: int, num_adapters: int, bottleneck: int,
 def _topk_stable(x: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest along the last axis, ties to lower index."""
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def gumbel(shape, *, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel draws ``-log(-log(u))``, u uniform in [tiny, 1), as
+    ``jax.random.gumbel`` forms them (other bits: another generator)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def soft_mask_weights(logits):
+    """Soft masks: each row is a softmax distribution over the N adapters."""
+    return torch.softmax(torch.as_tensor(logits).float(), dim=-1)
+
+
+def _khot(idx, n: int, k: int) -> torch.Tensor:
+    out = torch.zeros(idx.shape[:-1] + (n,), dtype=torch.float32,
+                      device=idx.device)
+    return out.scatter_(-1, idx, 1.0) / k
+
+
+def khot_from_topk(logits, k: int) -> torch.Tensor:
+    """Deterministic k-hot (eval/serving path): top-k of the logits, /k."""
+    logits = torch.as_tensor(logits).float()
+    return _khot(_topk_stable(logits.detach(), k), logits.shape[-1], k)
+
+
+def hard_mask_weights(logits, k: int, *, tau: float = 1.0, nu: float = 1.0,
+                      noise=None, generator: torch.Generator = None,
+                      training: bool = True):
+    """Paper Algorithm 1: Gumbel top-k with straight-through estimation.
+
+    logits: [..., N]. Returns weights [..., N] that are k-hot (/k) in the
+    forward pass and carry d(softmax)/d(logits) in the backward pass.
+    ``noise``: standard Gumbel draws of the logits' shape (JAX draws them
+    from ``jax.random``; the tests inject those), else drawn from
+    ``generator`` on the logits' device; with neither, or at eval time
+    (training=False), no noise is added."""
+    logits = logits.float()
+    if training and nu > 0 and (noise is not None or generator is not None):
+        if noise is None:
+            noise = gumbel(logits.shape, generator=generator,
+                           device=logits.device)
+        logits = logits + nu * noise.to(logits.device, torch.float32)
+    y_soft = torch.softmax(logits / tau, dim=-1)
+    y_hard = _khot(_topk_stable(y_soft.detach(), k), logits.shape[-1], k)
+    # straight-through, in JAX's order so the forward values round as its
+    # do: forward = y_hard, backward = d y_soft
+    return y_hard - y_soft.detach() + y_soft
+
+
+def mask_weights(logits, cfg, *, noise=None, generator=None,
+                 training: bool = True):
+    """Dispatch on cfg.mask_type ('soft'|'hard')."""
+    if cfg.mask_type == "soft":
+        return soft_mask_weights(logits)
+    if training:
+        return hard_mask_weights(logits, cfg.k, tau=cfg.tau, nu=cfg.nu,
+                                 noise=noise, generator=generator,
+                                 training=True)
+    return khot_from_topk(logits, cfg.k)
 
 
 def binarize(logits, k: int) -> torch.Tensor:

@@ -1,19 +1,25 @@
 """ProfileStore: byte-level persistence of per-profile X-PEFT state.
 
 Host-side (numpy) records, byte-equal to ``repro.core.profiles``'s for the
-same mask logits: hard masks bit-packed, LN affines fp16, a per-field
-crc32 sidecar verified at every hydration. Serving hydrates through the
-vectorized public API (``batch_sparse_indices``, ``ln_affines``).
+same mask logits: hard masks bit-packed (or soft-mask logits in fp16), LN
+affines and optional per-profile heads in fp16, a per-field crc32 sidecar
+verified at every hydration. Serving hydrates through the vectorized
+public API (``batch_sparse_indices``, ``batch_mask_weights``,
+``ln_affines``).
 
-Ported here: hard-mask records (a heterogeneous bank's ``bank_spec`` kept
-as part of the store's identity), integrity checks, change notifications,
-and a quantized store's aggregated Â/B̂ records (``quant`` int8/int4:
-graduation may attach them, quantized on write, and serving then admits
-the profile with zero bank reads). Soft-mask records, ``save``/``load``
-and ``merge_from`` wait for ROADMAP queue 1, item 3.
+A heterogeneous bank's ``bank_spec`` is part of the store's identity; a
+quantized store (``quant`` int8/int4) may carry each profile's aggregated
+Â/B̂, quantized on write, so serving admits it with zero bank reads.
+``save``/``load`` write and read the JAX package's ``.npz`` layout (keys
+``"<pid>:<field>"`` and a JSON ``__meta__`` with the checksums): a file
+written by either package loads in the other, and a record that fails its
+checksums on load is quarantined, never served.
 """
 from __future__ import annotations
 
+import json
+import os
+import tempfile
 import weakref
 from typing import Dict, Iterable
 
@@ -34,9 +40,8 @@ class ProfileStore:
     def __init__(self, num_layers: int, num_adapters: int, bottleneck: int,
                  mask_type: str = "hard", k: int = 50, quant: str = "none",
                  quant_group: int = 32, bank_spec=()):
-        if mask_type != "hard":
-            raise NotImplementedError("soft-mask records are not ported "
-                                      "(ROADMAP queue 1, item 3)")
+        if mask_type not in ("hard", "soft"):
+            raise ValueError(f"mask_type {mask_type!r}")
         self.L = num_layers
         self.N = num_adapters
         self.b = bottleneck
@@ -82,7 +87,9 @@ class ProfileStore:
     def add_profile(self, pid: int, profile_params: dict, *,
                     agg=None) -> None:
         """Freeze a profile (mask logits mA/mB [L, N] + LN affines [L, b],
-        tensors or arrays) into its byte-level record.
+        and optionally a classifier head head_w/head_b; tensors or arrays)
+        into its byte-level record: hard masks bit-packed from their top-k,
+        soft masks as fp16 logits.
 
         ``agg`` (quantized stores only): the profile's aggregated
         ``(Â [L, d, b], B̂ [L, b, d])``, quantized on write with the
@@ -92,11 +99,13 @@ class ProfileStore:
         rec = {
             "ln_scale": _host(profile_params["ln_scale"]).astype(np.float16),
             "ln_bias": _host(profile_params["ln_bias"]).astype(np.float16),
-            "mA": M.pack_mask(M.binarize(
-                torch.as_tensor(_host(profile_params["mA"])), self.k)),
-            "mB": M.pack_mask(M.binarize(
-                torch.as_tensor(_host(profile_params["mB"])), self.k)),
         }
+        for m in ("mA", "mB"):
+            if self.mask_type == "hard":
+                rec[m] = M.pack_mask(M.binarize(
+                    torch.as_tensor(_host(profile_params[m])), self.k))
+            else:
+                rec[m] = _host(profile_params[m]).astype(np.float16)
         if "head_w" in profile_params:
             rec["head_w"] = _host(profile_params["head_w"]).astype(np.float16)
             rec["head_b"] = _host(profile_params["head_b"]).astype(np.float16)
@@ -128,7 +137,10 @@ class ProfileStore:
         if pid in self._quarantined:
             raise RecordIntegrityError(pid, (), self._quarantined[pid])
         rec = self._rec[pid]
-        want = self._crc[pid]
+        want = self._crc.get(pid)
+        if want is None:  # a record saved without checksums: bless it
+            self._crc[pid] = record_crc(rec)
+            return
         bad = [k for k in sorted(set(rec) | set(want))
                if k not in rec or k not in want
                or array_crc(np.asarray(rec[k])) != want[k]]
@@ -146,9 +158,39 @@ class ProfileStore:
         self._notify(pid)
         raise RecordIntegrityError(pid, bad)
 
+    def quarantined_ids(self):
+        return sorted(self._quarantined)
+
+    def integrity_stats(self) -> dict:
+        return dict(corrupt_detected=self.corrupt_detected,
+                    quarantined=self.quarantined_ids(),
+                    agg_dropped=sorted(set(self.agg_dropped)))
+
     # ---------------------------------------------------------------- fetch
+    def mask_weights(self, pid: int):
+        """Float mask weights ([L, N], [L, N]) fp32 of one profile: k-hot
+        (1/k at the set bits) or the softmax of the fp16 logits."""
+        self.check_record(pid)
+        rec = self._rec[int(pid)]
+        if self.mask_type == "hard":
+            return tuple(M.khot_weights_from_bits(
+                M.unpack_mask(rec[m], self.N), self.k) for m in ("mA", "mB"))
+        return tuple(M.soft_mask_weights(torch.from_numpy(
+            rec[m].astype(np.float32))) for m in ("mA", "mB"))
+
+    def batch_mask_weights(self, pids: Iterable[int]):
+        """Stacked [B, L, N] weights x2 + [B, L, b] LN affines x2, fp32
+        host tensors, for per-step serving and soft-mask admission."""
+        pids = list(pids)
+        ws = [self.mask_weights(pid) for pid in pids]
+        ln_s, ln_b = self.ln_affines(pids)
+        return (torch.stack([w[0] for w in ws]),
+                torch.stack([w[1] for w in ws]), ln_s, ln_b)
+
     def sparse_indices(self, pid: int):
         """([L, k] int32 idx, [L, k] fp32 w) x2 for sparse aggregation."""
+        if self.mask_type != "hard":
+            raise ValueError("sparse indices need hard-mask records")
         self.check_record(pid)
         rec = self._rec[int(pid)]
         ia = M.mask_indices(M.unpack_mask(rec["mA"], self.N), self.k)
@@ -199,8 +241,87 @@ class ProfileStore:
                 torch.from_numpy(biases.astype(np.float32)))
 
     # ------------------------------------------------------------- accounting
+    def profile_ids(self):
+        return sorted(self._rec)
+
+    def _identity(self):
+        return (self.L, self.N, self.b, self.mask_type, self.k, self.quant,
+                self.quant_group, self.bank_spec)
+
+    def merge_from(self, other: "ProfileStore") -> None:
+        """Adopt another store's records and checksums (never a record
+        that store quarantined); each adopted pid is notified, so a
+        serving engine drops its cached aggregate of a replaced record."""
+        if self._identity() != other._identity():
+            raise ValueError(f"store shape mismatch: {self._identity()} vs "
+                             f"{other._identity()}")
+        for pid, rec in other._rec.items():
+            if int(pid) in other._quarantined:
+                continue
+            self._rec[int(pid)] = rec
+            self._crc[int(pid)] = dict(
+                other._crc.get(int(pid)) or record_crc(rec))
+            self._quarantined.pop(int(pid), None)
+            self._notify(int(pid))
+
     def bytes_per_profile(self, include_ln: bool = False) -> int:
         core = M.bytes_per_profile(self.N, self.L, self.mask_type)
         if include_ln:
             core += 2 * self.b * self.L * 2  # fp16 LN affine
         return core
+
+    def record_nbytes(self, pid: int) -> int:
+        """True byte size of one persisted record (masks, fp16 affines and
+        heads, and a quantized store's aggregated payload)."""
+        return sum(v.nbytes for v in self._rec[int(pid)].values())
+
+    # ---------------------------------------------------------------- persist
+    def save(self, path: str) -> None:
+        """Write every record not quarantined to ``path`` (``.npz``),
+        atomically: a temporary file in the same directory, then a
+        rename."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        saved = [p for p in sorted(self._rec) if p not in self._quarantined]
+        payload = {f"{pid}:{k}": v for pid in saved
+                   for k, v in self._rec[pid].items()}
+        meta = dict(L=self.L, N=self.N, b=self.b, mask_type=self.mask_type,
+                    k=self.k, quant=self.quant,
+                    quant_group=self.quant_group,
+                    bank_spec=[list(s) for s in self.bank_spec], pids=saved,
+                    crc={str(pid): self._crc.get(pid)
+                         or record_crc(self._rec[pid]) for pid in saved})
+        # a .npz suffix: np.savez appends one to names that lack it
+        fd, tmp = tempfile.mkstemp(suffix=".npz",
+                                   dir=os.path.dirname(path) or ".")
+        os.close(fd)
+        np.savez(tmp, __meta__=json.dumps(meta), **payload)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "ProfileStore":
+        """Read a store written by ``save`` (either package's); every
+        record is checked against its saved checksums here, and one that
+        fails is quarantined (``integrity_stats``)."""
+        z = np.load(path, allow_pickle=False)
+        meta = json.loads(str(z["__meta__"]))
+        store = cls(meta["L"], meta["N"], meta["b"], meta["mask_type"],
+                    meta["k"], meta.get("quant", "none"),
+                    meta.get("quant_group", 32),
+                    bank_spec=meta.get("bank_spec", ()))
+        crcs = meta.get("crc", {})
+        for pid in meta["pids"]:
+            # a variable field set (optional heads, agg payloads): adopt
+            # every "<pid>:<field>" entry
+            prefix = f"{pid}:"
+            store._rec[int(pid)] = {key[len(prefix):]: z[key]
+                                    for key in z.files
+                                    if key.startswith(prefix)}
+            want = crcs.get(str(pid))
+            if want is not None:
+                store._crc[int(pid)] = {k: int(v) for k, v in want.items()}
+        for pid in list(store._rec):
+            try:
+                store.check_record(pid)
+            except RecordIntegrityError:
+                pass  # quarantined; surfaced through integrity_stats()
+        return store

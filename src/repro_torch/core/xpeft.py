@@ -1,19 +1,30 @@
-"""X-PEFT admission aggregation + the multi-profile mask table.
+"""X-PEFT layer application, admission aggregation + the multi-profile
+mask table.
+
+The per-profile trainables live in a TABLE (leading dim = max_profiles):
+each training example gathers its profile's row (``gather_profiles``),
+its mask logits become weights (``profile_mask_weights``: straight-through
+Gumbel top-k in training, k-hot or softmax otherwise), and a layer applies
+them on the fly, densely (``apply_xpeft_layer``) or over the k selected
+rows (``apply_xpeft_layer_sparse``). These are plain differentiable torch
+ops, as their JAX twins are jnp einsums outside any Pallas kernel;
+autograd scatters the gradient back into the table's rows.
 
 Serving aggregates each admitted profile's k selected adapters into one
 Â/B̂ pair per layer (``precompute_effective_adapters_sparse``, or
 ``precompute_effective_adapters_sparse_quant`` over a quantized bank, or
 one typed aggregate per adapter family with
 ``precompute_effective_adapters_sparse_hetero`` over a heterogeneous
-bank), through the kernel dispatch layer, and ``apply_precomputed_layer``
-applies one layer of such a record to a [T, d] sequence. The dense /
-soft-mask paths of ``repro.core.xpeft`` (the hetero ones included) wait
-for ROADMAP queue 1, items 2 and 7.
+bank), through the kernel dispatch layer; soft masks aggregate densely
+(``precompute_effective_adapters_dense_batched``). ``apply_precomputed_layer``
+applies one layer of such a record to a [T, d] sequence. The hetero dense
+forms wait for ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import adapters as A
 from repro_torch.core import masks as M
 
 
@@ -55,6 +66,69 @@ def init_profile_table(cfg, *, seed: int = 0, device="cpu") -> dict:
                                   device=device)
             for _ in range(xp.max_profiles)]
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def gather_profiles(table: dict, profile_ids) -> dict:
+    """Select rows of the profile table for a batch: [B, L, N] / [B, L, b]."""
+    ids = torch.as_tensor(profile_ids).long()
+    return {k: v[ids.to(v.device)] for k, v in table.items()}
+
+
+def profile_mask_weights(profile_params: dict, xp, *, noise=None,
+                         generator=None, training: bool = True):
+    """Logits -> (w_a, w_b) mask weights, shape [..., L, N].
+
+    ``noise``: a (noise_a, noise_b) pair of standard Gumbel draws, one per
+    mask (JAX splits one key into ka, kb), or None; ``generator`` draws
+    them instead, A's then B's."""
+    na, nb = noise if noise is not None else (None, None)
+    w_a = M.mask_weights(profile_params["mA"], xp, noise=na,
+                         generator=generator, training=training)
+    w_b = M.mask_weights(profile_params["mB"], xp, noise=nb,
+                         generator=generator, training=training)
+    return w_a, w_b
+
+
+def apply_xpeft_layer(x, bank_l: dict, w_a_l, w_b_l, ln_scale_l, ln_bias_l,
+                      xp):
+    """Apply the layer-l X-PEFT adapter to activations x [..., T, d].
+
+    w_*_l: [N] (one profile) or [B, N] (per-example profiles); bank_l:
+    {"bank_a": [N, d, b], "bank_b": [N, b, d]}, the layer's slice."""
+    a_hat, b_hat = A.aggregate_dense(bank_l, w_a_l, w_b_l)
+    return A.apply_adapter(x, a_hat, b_hat, ln_scale_l, ln_bias_l,
+                           activation=xp.adapter_activation)
+
+
+def apply_xpeft_layer_sparse(x, bank_l: dict, idx_a_l, w_a_l, idx_b_l, w_b_l,
+                             ln_scale_l, ln_bias_l, xp):
+    """Hard-mask path over the k selected rows (N/k cheaper)."""
+    a_hat, b_hat = A.aggregate_sparse(bank_l, idx_a_l, w_a_l, idx_b_l, w_b_l)
+    return A.apply_adapter(x, a_hat, b_hat, ln_scale_l, ln_bias_l,
+                           activation=xp.adapter_activation)
+
+
+def precompute_effective_adapters(bank: dict, profile_params: dict, xp):
+    """Admission-time dense aggregation of one profile: its eval-time mask
+    weights against the whole bank in fp32, once -> {"a_hat" [L, d, b],
+    "b_hat" [L, b, d] in the bank dtype, "ln_scale", "ln_bias"}."""
+    w_a, w_b = profile_mask_weights(profile_params, xp, training=False)
+    a_hat = torch.einsum("ln,lndb->ldb", w_a, bank["bank_a"].float())
+    b_hat = torch.einsum("ln,lnbd->lbd", w_b, bank["bank_b"].float())
+    return {"a_hat": a_hat.to(bank["bank_a"].dtype),
+            "b_hat": b_hat.to(bank["bank_b"].dtype),
+            "ln_scale": profile_params["ln_scale"],
+            "ln_bias": profile_params["ln_bias"]}
+
+
+def precompute_effective_adapters_dense_batched(bank: dict, w_a, w_b):
+    """Dense admission aggregation for a batch of profiles (soft masks):
+    w_* [R, L, N] -> (Â [R, L, d, b], B̂ [R, L, b, d]) in the bank dtype,
+    summed in fp32. Soft masks are dense by construction: no sparse
+    shortcut."""
+    a_hat = torch.einsum("rln,lndb->rldb", w_a.float(), bank["bank_a"].float())
+    b_hat = torch.einsum("rln,lnbd->rlbd", w_b.float(), bank["bank_b"].float())
+    return a_hat.to(bank["bank_a"].dtype), b_hat.to(bank["bank_b"].dtype)
 
 
 def precompute_effective_adapters_sparse(bank: dict, idx_a, w_a, idx_b, w_b,

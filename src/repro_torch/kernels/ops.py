@@ -13,6 +13,12 @@ through here (``models/model.py`` ``_xpeft_apply`` and
 
 The Pallas backends (``pallas``, ``interpret``) have no counterpart.
 
+No hand-written kernel has a backward. With grad mode on, every entry
+here refuses an input that requires grad on its way to a kernel (a CUDA
+tensor under ``auto``), so training never loses a gradient through one
+unseen; the plain versions (``ref``, or any CPU tensor) are plain torch
+ops that autograd differentiates.
+
 Heterogeneous banks (``XPeftConfig.bank_spec``) add three routes:
 ``lora_adapter`` (the fused adapter kernel with the LN skipped and the
 identity), ``ia3_apply`` (``y = x * (1 + s)``) and ``hetero_adapter``
@@ -25,6 +31,8 @@ registers, #6 from shared memory); their plain versions share the op
 sequence ``quant.schemes.dequant_block``.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_fused import (
@@ -53,11 +61,30 @@ def resolve_impl(impl: str) -> str:
     return impl
 
 
+def _no_grad_into_kernel(name, *tensors) -> None:
+    """Raise when, with grad mode on, an input that requires grad would
+    reach the hand-written kernel (any tensor off the CPU: the wrappers
+    compute the plain version only on CPU tensors)."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if isinstance(t, dict):
+            _no_grad_into_kernel(name, *t.values())
+        elif torch.is_tensor(t) and t.requires_grad \
+                and t.device.type != "cpu":
+            raise RuntimeError(
+                f"{name}: an input requires grad, and the hand-written "
+                "kernel has no backward; run it under torch.no_grad(), or "
+                "take the differentiable route (kernel_impl='ref', or the "
+                "on-the-fly mask weights)")
+
+
 def mask_aggregate(bank, idx, w, *, impl: str = "auto"):
     """k-sparse bank aggregation. bank [N,d,b], idx [k], w [k] -> [d,b]
     fp32."""
     if resolve_impl(impl) == "ref":
         return ref.mask_aggregate_ref(bank, idx, w)
+    _no_grad_into_kernel("mask_aggregate", bank, w)
     return _agg_cuda(bank, idx, w)
 
 
@@ -65,6 +92,7 @@ def mask_aggregate_batched(bank, idx, w, *, impl: str = "auto"):
     """bank [N,d,b], idx [P,k], w [P,k] -> [P,d,b] fp32 (one launch)."""
     if resolve_impl(impl) == "ref":
         return ref.mask_aggregate_batched_ref(bank, idx, w)
+    _no_grad_into_kernel("mask_aggregate_batched", bank, w)
     return _agg_cuda_batched(bank, idx, w)
 
 
@@ -78,6 +106,9 @@ def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
     ``use_ln=False`` with the identity is the LoRA route."""
     plain = resolve_impl(impl) == "ref"
     kw = dict(activation=activation, use_ln=use_ln)
+    if not plain:
+        _no_grad_into_kernel("fused_adapter", x, a_hat, b_hat, ln_scale,
+                             ln_bias)
     if x.ndim == 3:
         if plain:
             return ref.fused_adapter_batched_ref(x, a_hat, b_hat, ln_scale,
@@ -106,6 +137,7 @@ def ia3_apply(x, s, *, impl: str = "auto"):
     if resolve_impl(impl) == "ref":
         out = ref.ia3_apply_batched_ref(x, s)
     else:
+        _no_grad_into_kernel("ia3_apply", x, s)
         out = _ia3_cuda(x, s)
     return out[0] if squeeze else out
 
@@ -129,9 +161,11 @@ def hetero_adapter(x, masks_l, *, activation: str = "gelu",
               for name, keys in HETERO_STAGES.items() if keys[0] in masks_l}
     if "ia3" in stages:
         stages["ia3"] = stages["ia3"][0]
-    fn = ref.hetero_adapter_batched_ref if resolve_impl(impl) == "ref" \
-        else _hetero_cuda
-    return fn(x, activation=activation, **stages)
+    if resolve_impl(impl) == "ref":
+        return ref.hetero_adapter_batched_ref(x, activation=activation,
+                                              **stages)
+    _no_grad_into_kernel("hetero_adapter", x, masks_l)
+    return _hetero_cuda(x, activation=activation, **stages)
 
 
 def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
@@ -151,6 +185,8 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     if resolve_impl(impl) == "ref":
         return ref.decode_block_ref(x, pos, block, k_cache, v_cache,
                                     masks_l, **kw)
+    _no_grad_into_kernel("decode_block_fused", x, block, k_cache, v_cache,
+                         masks_l)
     return _decode_cuda(x, pos, block, k_cache, v_cache, masks_l, **kw)
 
 
@@ -168,6 +204,7 @@ def mask_aggregate_quant_batched(q, scale, idx, w, *, scheme: str,
     if resolve_impl(impl) == "ref":
         return ref.mask_aggregate_quant_batched_ref(q, scale, idx, w,
                                                     scheme=scheme)
+    _no_grad_into_kernel("mask_aggregate_quant_batched", q, scale, w)
     return _agg_cuda_quant(q, scale, idx, w, scheme=scheme)
 
 
@@ -185,5 +222,7 @@ def fused_adapter_quant(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *,
     if resolve_impl(impl) == "ref":
         return ref.fused_adapter_quant_batched_ref(
             x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, **kw)
+    _no_grad_into_kernel("fused_adapter_quant", x, a_scale, b_scale,
+                         ln_scale, ln_bias)
     return _fused_cuda_quant(x, a_q, a_scale, b_q, b_scale, ln_scale,
                              ln_bias, **kw)

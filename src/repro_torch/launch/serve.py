@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --requests 8 --slots 4 --sync-every 8          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --no-precompute       # per-step mask serving (the paper's path)
 
 Builds the model with random weights from seed 0, adds hard-mask
 profiles to a ``ProfileStore`` and drains the requests through the
@@ -32,6 +34,10 @@ def main(argv=None):
                     "slot state; 1 = a round trip per token)")
     ap.add_argument("--cache-mb", type=int, default=64,
                     help="profile-cache capacity in MiB (0 disables)")
+    ap.add_argument("--no-precompute", action="store_true",
+                    help="per-step mask serving: aggregate the masks "
+                    "against the bank in every layer of every step instead "
+                    "of once at admission (greedy tokens equal)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, reduce_for_smoke
@@ -59,7 +65,8 @@ def main(argv=None):
 
     eng = ServeEngine(cfg, params, store, max_slots=args.slots,
                       max_seq=args.max_seq, sync_every=args.sync_every,
-                      cache_bytes=args.cache_mb << 20)
+                      cache_bytes=args.cache_mb << 20,
+                      precompute=not args.no_precompute)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,

@@ -10,16 +10,19 @@ A heterogeneous bank's entries (``lora_a``, ``ia3_s``, ``prefix_skip``)
 compose in JAX's fixed order, bottleneck -> LoRA -> IA3 (two or three of
 them in one ``ops.hetero_adapter`` launch per layer), with each layer's
 ``prefix_skip`` gating the prefix KV rows the engine hydrated into the
-cache. Every other block pattern, MoE, sliding windows and the
-mask routes other than the admission-time aggregated ones (``a_hat`` and
-the typed hetero entries, or the quantized ``a_q`` records of a
-``bank_quant`` engine) raise ``NotImplementedError`` naming their ROADMAP
-item.
+cache. The on-the-fly mask routes (``w_a``/``w_b`` weights, dense or with
+``idx_a``/``idx_b`` over the k selected rows) aggregate against the
+layer's bank slice in plain torch ops: the uncached forward is
+differentiable in ``profile_masks`` (training), and per-step serving
+takes the same route. Every other block pattern, MoE, sliding windows and
+dense weights over a heterogeneous bank raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
@@ -126,14 +129,12 @@ def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
 # Forward
 # ----------------------------------------------------------------------------
 
-def _xpeft_apply(x, masks_l, cfg):
+def _xpeft_apply(x, bank_l, masks_l, cfg):
+    """The layer's adapter on x [B, T, d]: ``bank_l`` is the layer's slice
+    of the bank (read only by the on-the-fly mask routes), ``masks_l`` the
+    layer's slice of ``profile_masks``."""
     if masks_l is None or not cfg.xpeft.enabled:
         return x
-    if "w_a" in masks_l:
-        raise NotImplementedError(
-            f"mask route with keys {sorted(masks_l)}: only the admission-"
-            "time aggregated routes are ported (dense/sparse masks: ROADMAP "
-            "queue 1, item 2; dense hetero: item 7)")
     if "a_q" in masks_l:
         # quantized aggregated records (bank_quant serving): int8 / planar
         # int4 Â/B̂ with fp16 scales, dequantized inside the kernel
@@ -143,6 +144,21 @@ def _xpeft_apply(x, masks_l, cfg):
             scheme=cfg.xpeft.bank_quant,
             activation=cfg.xpeft.adapter_activation,
             impl=cfg.xpeft.kernel_impl)
+    if "w_a" in masks_l:
+        # on-the-fly mask weights (training, per-step serving): aggregate
+        # against the layer's bank slice and apply, in plain torch ops
+        if cfg.xpeft.is_hetero:
+            raise NotImplementedError(
+                "on-the-fly mask weights over a heterogeneous bank are not "
+                "ported (ROADMAP queue 1, item 7)")
+        ln_s = masks_l["ln_scale"][..., None, :]
+        ln_b = masks_l["ln_bias"][..., None, :]
+        if "idx_a" in masks_l:
+            return XP.apply_xpeft_layer_sparse(
+                x, bank_l, masks_l["idx_a"], masks_l["w_a"],
+                masks_l["idx_b"], masks_l["w_b"], ln_s, ln_b, cfg.xpeft)
+        return XP.apply_xpeft_layer(x, bank_l, masks_l["w_a"],
+                                    masks_l["w_b"], ln_s, ln_b, cfg.xpeft)
     # admission-time aggregated adapters; a heterogeneous entry composes in
     # the fixed per-layer order bottleneck -> LoRA -> IA3 (its prefix rows
     # live in the KV cache): two or three of them in one launch, one alone
@@ -226,8 +242,10 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     "ln_bias" [B,L,b]} (admission-time aggregated adapters), their
     quantized form {"a_q", "a_scale", "b_q", "b_scale", "ln_scale",
     "ln_bias"}, a heterogeneous entry (any of those bottleneck leaves,
-    "lora_a"/"lora_b", "ia3_s" [B,L,d], "prefix_skip" [B,L] int32), or
-    None. With a cache, each layer's "prefix_skip" masks that many key
+    "lora_a"/"lora_b", "ia3_s" [B,L,d], "prefix_skip" [B,L] int32),
+    on-the-fly mask weights {"w_a", "w_b" [B,L,N], "ln_scale", "ln_bias"}
+    (plus "idx_a", "idx_b" [B,L,k] for the k-sparse form, w_* then
+    [B,L,k]), or None. With a cache, each layer's "prefix_skip" masks that many key
     slots at the front of the cache (the hydrated prefix rows).
     cache: from ``init_cache``, written IN PLACE at ``cache_pos`` (a
     scalar, or [B] per-slot offsets) and returned; None runs uncached."""
@@ -242,6 +260,7 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
             positions = (int(cache_pos) + torch.arange(
                 T, dtype=torch.int32, device=x.device))[None].expand(B, T)
     blocks = params["blocks"]
+    bank = params.get("xpeft_bank")
     fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
                                       T)
     for l in range(cfg.num_layers):
@@ -251,6 +270,10 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
             {"k": cache["k"][l], "v": cache["v"][l]}
         masks_l = None if profile_masks is None else \
             {k: v[:, l] for k, v in profile_masks.items()}
+        # the bank's layer slice, for the on-the-fly mask routes only
+        bank_l = {k: v[l] for k, v in bank.items()} \
+            if bank is not None and masks_l is not None \
+            and "w_a" in masks_l else None
         if fused_route is not None:
             # the block and the adapter in one launch: no _xpeft_apply
             x = _decode_fused_apply(block, x, masks_l, cfg,
@@ -264,7 +287,7 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
         x = _attn_block_apply(block, x, cfg, positions=positions,
                               cache_l=cache_l, cache_pos=cache_pos,
                               front_skip=front_skip)
-        x = _xpeft_apply(x, masks_l, cfg)
+        x = _xpeft_apply(x, bank_l, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -1,8 +1,10 @@
 """Serving engine orchestrator: scheduler + slot state + profile cache.
 
-The port of ``repro.serve.engine.ServeEngine`` in windowed mode with
-admission-time aggregation (``continuous=False``, ``precompute=True``),
-hard-mask profiles and a type-pure bank, unquantized or quantized
+The port of ``repro.serve.engine.ServeEngine`` in windowed mode
+(``continuous=False``). With admission-time aggregation
+(``precompute=True``) it serves hard- or soft-mask profiles from a
+type-pure bank (soft masks aggregate densely, one einsum per wave),
+unquantized or quantized
 (``XPeftConfig.bank_quant`` int8/int4: the bank is quantized once at
 construction and dropped from the resident params; admission aggregates
 the quantized rows and the slot buffers hold quantized records), or an
@@ -25,6 +27,13 @@ Admission of a wave:
 3. batched bucketed prefill: every same-length-bucket group goes through
    ONE prefill call (stacked [B, pad] batch, per-request last-token argmax
    on the device), then one batched KV-cache insert per group.
+
+With ``precompute=False`` (the paper's per-step path) admission only
+hydrates each request's float mask weights and LN affines from the store
+into the slot buffers, and every prefill and decode step aggregates them
+against the bank in every layer (``models.model._xpeft_apply``'s ``w_a``
+route; ``last_admission["path"] == "per_step"``). With X-PEFT disabled the
+engine serves the bare PLM.
 
 Decode then advances every slot one token per ``step()``; the host syncs
 every ``sync_every`` steps, bounded by the tokens any live request can
@@ -55,8 +64,9 @@ def _rate(num, den, nd: int = 4) -> float:
     return round(num / den, nd) if den else 0.0
 
 
-def _check_hetero(cfg, *, precompute, max_seq) -> None:
-    """The JAX engine's refusals for a heterogeneous bank (ValueError)."""
+def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
+    """The JAX engine's refusals for a heterogeneous bank (ValueError), and
+    its per-step path, which waits for ROADMAP queue 1, item 7."""
     xp = cfg.xpeft
     if not (xp.enabled and xp.is_hetero):
         return
@@ -65,15 +75,21 @@ def _check_hetero(cfg, *, precompute, max_seq) -> None:
             "bank_quant engines do not serve heterogeneous bank_specs "
             "(quantize_bank_hetero covers storage; serve with "
             "bank_quant='none')")
-    if not xp.has_prefix:
-        return
-    if not precompute:
+    if precompute and store.mask_type != "hard":
+        raise ValueError("heterogeneous precompute serving requires "
+                         "hard-mask profiles (per-type k-sparse "
+                         "aggregation)")
+    if xp.has_prefix and not precompute:
         raise ValueError(
             "per-step mask serving cannot hydrate prefix KV rows; a "
             "prefix-bearing bank_spec requires precompute=True")
-    if xp.prefix_tokens >= max_seq - 1:
+    if xp.has_prefix and xp.prefix_tokens >= max_seq - 1:
         raise ValueError("prefix_tokens must leave room for the prompt "
                          f"(max_seq={max_seq})")
+    if not precompute:
+        raise NotImplementedError(
+            "per-step mask serving over a heterogeneous bank is not ported "
+            "(ROADMAP queue 1, item 7)")
 
 
 def _check_quant(cfg, store, *, precompute) -> None:
@@ -94,16 +110,12 @@ def _check_quant(cfg, store, *, precompute) -> None:
 
 def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
                  fault_plan, obs) -> None:
-    _check_hetero(cfg, precompute=precompute, max_seq=max_seq)
+    _check_hetero(cfg, store, precompute=precompute, max_seq=max_seq)
     _check_quant(cfg, store, precompute=precompute)
     MDL.check_supported(cfg)
     if continuous:
         raise NotImplementedError("continuous batching is not ported "
                                   "(ROADMAP queue 1, item 5)")
-    if not precompute or not cfg.xpeft.enabled:
-        raise NotImplementedError(
-            "per-step mask serving (precompute=False) and X-PEFT-disabled "
-            "serving are not ported (ROADMAP queue 1, item 2)")
     if cfg.spec_enable and cfg.decode_fused:
         raise ValueError(
             "spec_enable and decode_fused are exclusive per engine: "
@@ -112,9 +124,6 @@ def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
     if cfg.spec_enable:
         raise NotImplementedError("speculative decoding is not ported "
                                   "(ROADMAP queue 1, item 5)")
-    if store.mask_type != "hard":
-        raise NotImplementedError("soft-mask serving is not ported "
-                                  "(ROADMAP queue 1, item 2)")
     if mesh is not None:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(ROADMAP queue 1, item 11)")
@@ -137,10 +146,11 @@ class ServeEngine:
         self.store = store
         self.device = params["embed"].device
         xp = cfg.xpeft
+        self.precompute = precompute and xp.enabled
         # quantized bank: quantized ONCE here and DROPPED from the resident
         # params; every admission reads the int8/int4 rows and every step
         # the quantized Â/B̂ records
-        self.quant = xp.bank_quant
+        self.quant = xp.bank_quant if self.precompute else "none"
         self.qbank = None
         self._qrow_bytes = 0
         if self.quant != "none":
@@ -175,7 +185,20 @@ class ServeEngine:
         L, b, d = cfg.num_layers, xp.bottleneck, cfg.d_model
         dt = MDL.torch_dtype(cfg.dtype)
         dev = self.device
-        if self.quant != "none":
+        if not xp.enabled:
+            self._entry_keys = ()
+            self.masks = None
+        elif not self.precompute:
+            # per-step: each slot's float mask weights and LN affines, which
+            # every prefill and decode step aggregates against the bank
+            self._entry_keys = ("w_a", "w_b", "ln_scale", "ln_bias")
+            N = xp.num_adapters
+            self.masks = {
+                "w_a": torch.zeros((max_slots, L, N), device=dev),
+                "w_b": torch.zeros((max_slots, L, N), device=dev),
+                "ln_scale": torch.ones((max_slots, L, b), device=dev),
+                "ln_bias": torch.zeros((max_slots, L, b), device=dev)}
+        elif self.quant != "none":
             # per-slot QUANTIZED Â/B̂ records + fp16 scales, read by the
             # decode step and widened in registers
             aq_s, aq_dt, as_s = QS.quant_spec((max_slots, L, d, b),
@@ -328,12 +351,25 @@ class ServeEngine:
 
     @torch.no_grad()
     def _hydrate_stacked(self, reqs: List[Request]) -> dict:
-        """Stacked [R, ...] aggregated mask rows for an admission wave:
-        profile-cache hits first; every missing profile aggregates
-        k-sparse against the bank in ONE call padded to a pow2 count (one
-        per typed leaf of a heterogeneous bank). A prefix-bearing bank
+        """Stacked [R, ...] mask rows for an admission wave, or None with
+        X-PEFT disabled. Per-step (``precompute=False``): each request's
+        float mask weights and LN affines, straight from the store, no
+        cache. Otherwise aggregated rows: profile-cache hits first; every
+        missing profile aggregates against the bank in ONE call padded to
+        a pow2 count, k-sparse for hard masks (one call per typed leaf of
+        a heterogeneous bank), dense for soft ones. A prefix-bearing bank
         also sets each request's ``prefix_len`` (P or 0)."""
+        if self.masks is None:
+            return None
         pids = [int(r.profile_id) for r in reqs]
+        if not self.precompute:
+            w_a, w_b, ln_s, ln_b = self.store.batch_mask_weights(pids)
+            self.last_admission = dict(
+                path="per_step", requests=len(pids), cache_hits=0,
+                cache_misses=len(pids), degraded=0,
+                bank_bytes_per_request=0)
+            return {key: t.to(self.device) for key, t in zip(
+                self._entry_keys, (w_a, w_b, ln_s, ln_b))}
         if self.quant != "none":
             return self._hydrate_stacked_quant(pids)
         entries, hits, misses, missing = self._lookup(pids)
@@ -351,7 +387,26 @@ class ServeEngine:
             slice_bytes = 2 * d * b * bank["bank_a"].element_size()
         aggregated = bank_bytes = 0
         path = "cached"
-        if missing:
+        if missing and self.store.mask_type == "soft":
+            # soft masks are dense by construction: one einsum over the
+            # whole bank for the padded wave
+            M, Mp = len(missing), pow2_count(len(missing))
+            w_a, w_b, ln_s, ln_b = self.store.batch_mask_weights(missing)
+            pad = torch.zeros((Mp - M,) + tuple(w_a.shape[1:]))
+            a_hat, b_hat = XP.precompute_effective_adapters_dense_batched(
+                bank, torch.cat([w_a, pad]).to(self.device),
+                torch.cat([w_b, pad]).to(self.device))
+            agg = {"a_hat": a_hat, "b_hat": b_hat,
+                   "ln_scale": ln_s.to(self.device),
+                   "ln_bias": ln_b.to(self.device)}
+            path, aggregated = "dense", Mp
+            bank_bytes = xp.num_adapters * L * slice_bytes
+            for i, pid in enumerate(missing):
+                entry = {key: agg[key][i].clone()
+                         for key in self._entry_keys}
+                self.profile_cache.put(pid, entry)
+                entries[pid] = entry
+        elif missing:
             idx_h, w_h = self._wave_indices(missing)
             idx, w = idx_h.to(self.device), w_h.to(self.device)
             aggregated = idx.shape[1]
@@ -488,10 +543,12 @@ class ServeEngine:
             # prefix KV rows go into the cache at prefill, not into the
             # slot buffers
             prefix_rows = (stacked.pop("prefix_k"), stacked.pop("prefix_v"))
-        # ONE scatter into the per-slot buffers for the whole wave
-        slot_t = torch.tensor(assigned, dtype=torch.long, device=self.device)
-        for key, buf in self.masks.items():
-            buf[slot_t] = stacked[key].to(buf.dtype)
+        if stacked is not None:
+            # ONE scatter into the per-slot buffers for the whole wave
+            slot_t = torch.tensor(assigned, dtype=torch.long,
+                                  device=self.device)
+            for key, buf in self.masks.items():
+                buf[slot_t] = stacked[key].to(buf.dtype)
 
         slot_of = {id(r): s for r, s in zip(reqs, assigned)}
         idx_of = {id(r): i for i, r in enumerate(reqs)}
@@ -507,7 +564,8 @@ class ServeEngine:
                 lens[j] = len(r.prompt)
             sel = torch.tensor([idx_of[id(r)] for r in group]
                                + [0] * (Bp - B), device=self.device)
-            rows = {key: t[sel] for key, t in stacked.items()}
+            rows = None if stacked is None else \
+                {key: t[sel] for key, t in stacked.items()}
             cpos = prows = None
             if prefix_rows is not None:
                 # the prompt lands at buffer slot P for prefix-on requests,
@@ -527,10 +585,11 @@ class ServeEngine:
             self.prefill_batches += 1
             self.prefill_rows += Bp
             self.prefill_real += B
-        self.last_admission["prefill_batches"] = len(groups)
-        self.last_admission["prefill_occupancy"] = round(
-            len(reqs) / max(sum(pow2_count(len(g))
-                                for g in groups.values()), 1), 3)
+        if self.last_admission is not None:
+            self.last_admission["prefill_batches"] = len(groups)
+            self.last_admission["prefill_occupancy"] = round(
+                len(reqs) / max(sum(pow2_count(len(g))
+                                    for g in groups.values()), 1), 3)
 
         # slot lengths include the hydrated prefix rows: the length is the
         # KV write position and the decode RoPE position, so a prefix-on

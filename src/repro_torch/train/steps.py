@@ -1,0 +1,266 @@
+"""Train steps, the port of ``repro.train.steps``.
+
+Modes (paper §4 baselines, one mechanism):
+- "xpeft":   trainable = the per-profile mask table. THE paper workload:
+             multi-profile mask training against a frozen PLM and a frozen
+             shared adapter bank, k-hot masks by straight-through Gumbel
+             top-k.
+- "adapter": the single-adapter baseline: one fresh bottleneck adapter
+             (a bank of N=1 under a fixed mask) and its LN, PLM frozen.
+- "full":    full training of every weight (the non-paper path).
+
+The state is JAX's tree, ``{"frozen", "trainable", "opt"}``. The trainable
+subtree is separate from the frozen params, and the frozen tensors never
+require grad, so autograd computes no weight gradient for them, as XLA
+drops them in JAX. Gradients come from autograd through plain torch ops:
+no hand-written kernel has a backward, and ``kernels/ops.py`` refuses an
+input that requires grad.
+
+The encoder's classification branch (``cls_loss``, per-profile heads) and
+the ``head_only`` mode wait for the encoder, ROADMAP queue 1, item 2 (order
+step 3); the slot-packed gang step for the profile lifecycle, item 8.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import masks as M
+from repro_torch.core import xpeft as XP
+from repro_torch.core.adapters import init_adapter_bank
+from repro_torch.models import model as MDL
+from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.utils import resolve_device
+from repro_torch.utils.tree import merge_trees, tree_leaves, tree_map
+
+MODES = ("xpeft", "adapter", "full")
+
+
+def _no_encoder(cfg, what: str) -> None:
+    if cfg.num_labels:
+        raise NotImplementedError(
+            f"{what} with a classification head is not ported (the encoder, "
+            "ROADMAP queue 1, item 2)")
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "head_only":
+        raise NotImplementedError("head_only training is not ported (the "
+                                  "encoder, ROADMAP queue 1, item 2)")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; expected one of {MODES}")
+
+
+# ----------------------------------------------------------------------------
+# Trainable init per mode
+# ----------------------------------------------------------------------------
+
+def init_xpeft_trainable(cfg, *, seed: int = 0, device=None) -> dict:
+    """The per-profile mask table, [max_profiles, ...] rows."""
+    _no_encoder(cfg, "xpeft training")
+    return {"table": XP.init_profile_table(cfg, seed=seed,
+                                           device=resolve_device(device))}
+
+
+def init_adapter_trainable(cfg, *, seed: int = 0, device=None) -> dict:
+    """single_adapter baseline: one adapter (a bank of N=1) + its LN."""
+    _no_encoder(cfg, "adapter training")
+    device = resolve_device(device)
+    xp = cfg.xpeft
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (cfg.num_layers, xp.bottleneck)
+    return {
+        "bank": init_adapter_bank(cfg.num_layers, 1, cfg.d_model,
+                                  xp.bottleneck, MDL.torch_dtype(cfg.dtype),
+                                  generator=gen, device=device),
+        "ln_scale": torch.ones(shape, dtype=torch.float32, device=device),
+        "ln_bias": torch.zeros(shape, dtype=torch.float32, device=device),
+    }
+
+
+def init_trainable(cfg, mode: str, *, seed: int = 0, device=None) -> dict:
+    _check_mode(mode)
+    if mode == "xpeft":
+        return init_xpeft_trainable(cfg, seed=seed, device=device)
+    if mode == "adapter":
+        return init_adapter_trainable(cfg, seed=seed, device=device)
+    raise ValueError(f"mode {mode!r} has no separate trainable init")
+
+
+def init_train_state(cfg, mode: str = "xpeft", *, seed: int = 0,
+                     device=None) -> dict:
+    """{"frozen", "trainable", "opt"}: the frozen LM from ``seed``, the
+    mode's trainables from ``seed + 1``; ``full`` trains the LM itself."""
+    _check_mode(mode)
+    frozen = MDL.init_lm(cfg, seed=seed, device=device)
+    if mode == "full":
+        return {"frozen": {}, "trainable": frozen, "opt": adamw_init(frozen)}
+    trainable = init_trainable(cfg, mode, seed=seed + 1, device=device)
+    return {"frozen": frozen, "trainable": trainable,
+            "opt": adamw_init(trainable)}
+
+
+# ----------------------------------------------------------------------------
+# Losses
+# ----------------------------------------------------------------------------
+
+def lm_loss(logits, labels):
+    """Mean next-token CE. logits [B,T,V] fp32, labels [B,T]."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def lm_loss_chunked(params, hidden, labels, cfg, chunk: int = 512):
+    """CE without materializing [B,T,V] at once: the sequence in chunks of
+    ``chunk`` tokens, each chunk's logits recomputed in the backward
+    (``torch.utils.checkpoint``, where JAX checkpoints the scan body).
+    T <= chunk, or T not a multiple of it, takes ``lm_loss`` whole."""
+    B, T, _ = hidden.shape
+    if T <= chunk or T % chunk != 0:
+        return lm_loss(MDL.lm_logits(params, hidden, cfg), labels)
+
+    def body(h, lab):
+        logits = MDL.lm_logits(params, h, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        return torch.sum(lse - gold)
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T, chunk):
+        total = total + checkpoint(body, hidden[:, i:i + chunk],
+                                   labels[:, i:i + chunk],
+                                   use_reentrant=False)
+    return total / (B * T)
+
+
+# ----------------------------------------------------------------------------
+# Forward under each mode
+# ----------------------------------------------------------------------------
+
+def _noise_kw(rng) -> dict:
+    """A ``torch.Generator`` draws the Gumbel noise; a (noise_a, noise_b)
+    pair is used as given; None adds none."""
+    if isinstance(rng, torch.Generator):
+        return {"generator": rng}
+    return {"noise": rng}
+
+
+def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
+    """(hidden [B,T,d], aux, params) of the batch under ``mode``."""
+    _check_mode(mode)
+    _no_encoder(cfg, "the forward of a train step")
+    tokens = batch["tokens"]
+    masks = None
+    params = frozen
+    if mode == "xpeft":
+        prof = XP.gather_profiles(trainable["table"], batch["profile_ids"])
+        w_a, w_b = XP.profile_mask_weights(prof, cfg.xpeft,
+                                           training=training,
+                                           **_noise_kw(rng))
+        masks = {"w_a": w_a, "w_b": w_b, "ln_scale": prof["ln_scale"],
+                 "ln_bias": prof["ln_bias"]}
+    elif mode == "adapter":
+        B = tokens.shape[0]
+        ones = torch.ones((B, cfg.num_layers, 1), dtype=torch.float32,
+                          device=tokens.device)
+        masks = {"w_a": ones, "w_b": ones,
+                 "ln_scale": trainable["ln_scale"].expand(
+                     (B,) + tuple(trainable["ln_scale"].shape)),
+                 "ln_bias": trainable["ln_bias"].expand(
+                     (B,) + tuple(trainable["ln_bias"].shape))}
+        params = merge_trees(frozen, {"xpeft_bank": trainable["bank"]})
+    else:
+        params = trainable
+    hidden, _, aux = MDL.forward(params, tokens, cfg, profile_masks=masks)
+    return hidden, aux, params
+
+
+def loss_for_batch(frozen, trainable, batch, cfg, mode, rng, training=True):
+    """(total loss, metrics) of one batch: the LM objective,
+    sequence-chunked CE plus 0.01 x the auxiliary loss."""
+    hidden, aux, params = _forward_mode(frozen, trainable, batch, cfg, mode,
+                                        rng, training)
+    loss = lm_loss_chunked(params, hidden, batch["labels"], cfg)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
+
+
+# ----------------------------------------------------------------------------
+# Step factory
+# ----------------------------------------------------------------------------
+
+def make_gang_step(cfg, **kwargs):
+    raise NotImplementedError("the slot-packed gang step is not ported (the "
+                              "profile lifecycle, ROADMAP queue 1, item 8)")
+
+
+def grads_for_batch(frozen, trainable, batch, cfg, mode, rng):
+    """(grads in the trainables' dtypes, zeros where a leaf is unused;
+    metrics) of one batch (tensors on the trainables' device), by
+    autograd: ``jax.value_and_grad`` of ``loss_for_batch``."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
+    total, metrics = loss_for_batch(frozen, leaves, batch, cfg, mode, rng)
+    total.backward()
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), leaves)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
+                    clip_norm: float = 1.0, accum: int = 1):
+    """Returns ``step(state, batch, rng) -> (state, metrics)``.
+
+    ``batch``: {"tokens", "labels" [B, T], "profile_ids" [B]}, tensors or
+    numpy arrays (moved to the trainables' device). ``rng``: a
+    ``torch.Generator`` that draws the step's Gumbel noise, a
+    (noise_a, noise_b) pair of standard Gumbel draws of the (micro-)batch's
+    [B / accum, L, N] mask shape, or None (no noise).
+
+    With ``accum > 1`` the batch splits into ``accum`` micro-batches along
+    its leading axis, and each micro-batch sees the SAME noise (JAX passes
+    one rng to every micro-batch); gradients sum in fp32 and are divided
+    by ``accum`` (metrics likewise). Clipping is global, after
+    accumulation."""
+    _check_mode(mode)
+    _no_encoder(cfg, "make_train_step")
+    xp = cfg.xpeft
+
+    def step(state, batch, rng):
+        frozen, trainable = state["frozen"], state["trainable"]
+        dev = tree_leaves(trainable)[0].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        if isinstance(rng, torch.Generator) and mode == "xpeft" \
+                and xp.mask_type == "hard" and xp.nu > 0:
+            # one draw per step, shared by every micro-batch
+            shape = (B // accum, cfg.num_layers, xp.num_adapters)
+            rng = tuple(M.gumbel(shape, generator=rng, device=dev)
+                        for _ in range(2))
+        if accum > 1:
+            mb = B // accum
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device),
+                             trainable)
+            metrics = None
+            for i in range(accum):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                g, m = grads_for_batch(frozen, trainable, part, cfg, mode, rng)
+                grads = tree_map(torch.add, grads, g)
+                metrics = m if metrics is None else \
+                    {k: metrics[k] + m[k] for k in m}
+            grads = tree_map(lambda g: g / accum, grads)
+            metrics = {k: v / accum for k, v in metrics.items()}
+        else:
+            grads, metrics = grads_for_batch(frozen, trainable, batch, cfg,
+                                             mode, rng)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            new_params, new_opt = adamw_update(
+                grads, state["opt"], trainable, lr=lr,
+                weight_decay=weight_decay)
+        metrics["grad_norm"] = gnorm
+        return {"frozen": frozen, "trainable": new_params,
+                "opt": new_opt}, metrics
+
+    return step

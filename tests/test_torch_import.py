@@ -27,12 +27,17 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 26, names
-# the quantized-bank and heterogeneous-bank slices' modules are among them
+assert len(names) >= 59, names
+# the quantized-bank, heterogeneous-bank and training slices' modules are
+# among them
 for name in ("repro_torch.quant", "repro_torch.quant.schemes",
              "repro_torch.kernels.mask_aggregate_quant",
              "repro_torch.kernels.fused_adapter_quant",
-             "repro_torch.kernels.ia3_apply"):
+             "repro_torch.kernels.ia3_apply",
+             "repro_torch.data", "repro_torch.data.synthetic",
+             "repro_torch.optim", "repro_torch.optim.adamw",
+             "repro_torch.train", "repro_torch.train.steps",
+             "repro_torch.launch.train", "repro_torch.utils.tree"):
     assert name in names and name in sys.modules, name
 """
 

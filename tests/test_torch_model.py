@@ -189,6 +189,9 @@ def test_outside_the_slice_raises(model):
     with pytest.raises(NotImplementedError):
         TMDL.init_lm(treduce(tget_config("rwkv6-7b")), device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
+    # dense masks are ported; over a heterogeneous bank they wait for
+    # ROADMAP queue 1, item 7
     dense = {"w_a": torch.zeros((1, tcfg.num_layers, 8))}
-    with pytest.raises(NotImplementedError):
-        TMDL.forward(tparams, toks, tcfg, profile_masks=dense)
+    hcfg = tcfg.with_xpeft(bank_spec=(("bottleneck", 4), ("lora", 4)))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TMDL.forward(tparams, toks, hcfg, profile_masks=dense)

@@ -158,8 +158,8 @@ def test_tokens_invariant_to_sync_every(served):
 
 
 def test_engine_options_outside_the_slice_raise(served):
-    for kw in (dict(precompute=False), dict(continuous=True),
-               dict(mesh=object())):
+    # precompute=False is ported (tests/test_torch_serve_perstep.py)
+    for kw in (dict(continuous=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             TEngine(served["tcfg"], served["tparams"], served["tstore"],
                     **kw)
