@@ -122,6 +122,26 @@ Phases, in order; any failed check exits non-zero:
              and prefill batch, the aggregation never), held to its ref
              run. A ``{"train": ...}`` JSON line carries the training
              numbers.
+8. encoder — the paper's own model, bert-base-xpeft, at full width (12
+             layers, d=768, vocab 30522, learned positions, bidirectional
+             attention, N=100, b=48, k=50, 15 labels) on 8 profiles of
+             ProfileClassification at the paper's shape (B=64, T=128),
+             bf16, lr 3e-2: (a) one step of xpeft (hard masks, the same
+             Gumbel draws), adapter and head_only on the card against the
+             CPU (2 layers, float32, TF32 off) within phase 7's bounds,
+             accuracy equal; (b) ten full-depth xpeft steps through
+             ``make_train_step`` (timed and profiled as phase 7's), three
+             each of xpeft soft, adapter and head_only, with no hand-
+             written kernel launched; (c) held-out accuracy (reported);
+             (d) the trained profiles and heads packed into a hard store,
+             saved, loaded back byte-equal, and scored from it through
+             the dense mask weights; (e) the same store admitted through
+             the kernels: #1 twice (P=96, k=50), #2 once per layer (B=64,
+             T=128, b=48), the logits held to the same route's
+             kernel_impl="ref" run. An ``{"encoder": ...}`` JSON line
+             carries its numbers. Phase 3 also checks and times #1 at
+             the encoder's bank [1200, 768, 48] (both sides) and #2 at its
+             B=64, T=128 shape and at b=48, bf16 T=1 and fp32 T=16.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -203,6 +223,11 @@ E2E_SHARE_REL = 0.5
 #   LM head, 2 layers and the straight-through softmax).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL_L2 = 1e-3
+# - the encoder (phase 8): its card-vs-CPU step under phase 7's two bounds
+#   for every mode, with the accuracy equal (fp32 logits of 15 classes);
+#   its kernel route against the same route's kernel_impl="ref" run under
+#   E2E_STEPS bf16 steps at the largest |logit|, each predicted-label flip
+#   on a ref top-2 gap of at most twice the max |d logit|.
 
 # #1-#4, #6 and #8 as this script timed them before their redesign for
 # Hopper (one block row per output row; one block per batch row and
@@ -314,8 +339,9 @@ def bound(nbytes, flops, dtype):
 # ----------------------------------------------------------------------------
 
 def agg_inputs(torch, gen, d, b, L=24, N=256, P=96, k=50):
-    """A bank [L*N, d, b] bf16 and P = 4 profiles x L layer-folded index
-    rows of k sorted distinct adapters each, as admission builds them."""
+    """A bank [L*N, d, b] bf16 and P index rows (P / L profiles x L
+    layers, layer-folded) of k sorted distinct adapters each, as admission
+    builds them."""
     dev = "cuda"
     bank = (torch.randn((L * N, d, b), generator=gen, device=dev)
             * 0.05).to(torch.bfloat16)
@@ -326,65 +352,86 @@ def agg_inputs(torch, gen, d, b, L=24, N=256, P=96, k=50):
     return bank, idx.contiguous(), w
 
 
+def agg_row(torch, KA, ref, F, label, sets, before=None):
+    """One timed row of #1: the first (bank, idx, w) set bitwise against
+    the plain version, padded rows exact zeros, two calls bitwise equal;
+    then cold CUDA-graph replays rotating over ``sets`` (one set where its
+    bank alone is far past the 50 MB L2), eager calls, the plain version
+    and embedding_bag, beside the bound of the first set's bytes."""
+    bank, idx, w = sets[0]
+    P, k = idx.shape
+    d, b = bank.shape[1:]
+    got = KA.mask_aggregate_batched(bank, idx, w)
+    want = ref.mask_aggregate_batched_ref(bank, idx, w)
+    again = KA.mask_aggregate_batched(bank, idx, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (P, d, b)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
+        f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} "
+        f"(bitwise {torch.equal(got, want)}; atol {AGG_ATOL})")
+    assert err <= AGG_ATOL, err
+    # padded profile-rows (idx 0, w 0) come out as exact zeros
+    pad = KA.mask_aggregate_batched(bank, torch.zeros_like(idx[:2]),
+                                    torch.zeros_like(w[:2]))
+    assert not pad.abs().max().item()
+
+    ms = device_ms(torch, rotating(KA.mask_aggregate_batched, sets),
+                   calls=8 * len(sets))
+    host_ms = eager_ms(torch, rotating(KA.mask_aggregate_batched, sets),
+                       calls=3 * len(sets))
+    plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
+        bank, idx, w), calls=1)
+    row_bytes = d * b * bank.element_size()
+    uniq = int(torch.unique(idx).numel())
+    nbytes = uniq * row_bytes + idx.numel() * 4 + w.numel() * 4 \
+        + P * d * b * 4
+    flops = 2 * P * k * d * b
+    bound_ms, bound_by = bound(nbytes, flops, "float32")
+    # yardstick only, never called by the port: embedding_bag with
+    # per-sample weights computes the same weighted sum of rows
+    bags = [(i, t.view(t.shape[0], -1), v.to(t.dtype)) for t, i, v in sets]
+
+    def bag(i, flat, w16):
+        return F.embedding_bag(i, flat, per_sample_weights=w16, mode="sum")
+    lib_ms = device_ms(torch, rotating(bag, bags), calls=8 * len(sets))
+    lib_eager = eager_ms(torch, rotating(bag, bags), calls=3 * len(sets))
+    log(f"  ms {ms:.4f} (cold graph replay) | eager {host_ms:.4f}"
+        + (f" (before: eager {before})" if before else "")
+        + f" | plain {plain_ms:.4f} | embedding_bag {lib_ms:.4f} (eager "
+        f"{lib_eager:.4f}) | bound {bound_ms:.4f} ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {uniq} distinct rows) | "
+        f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                eager_ms=host_ms, library_eager_ms=lib_eager)
+
+
 def phase_mask_aggregate(torch, KA, ref, F):
     """#1 at admission's A_hat / B_hat shapes (P=96, k=50): bitwise, padded
     rows exact zeros, two calls bitwise equal; timed as cold CUDA-graph
     replays (the 805 MB bank holds every call's ~525 MB of selected rows
     far past the 50 MB L2, so no rotation is needed) and as eager calls
     (the reading before the redesign), beside embedding_bag and the plain
-    version."""
+    version. Then the same at the encoder's shapes (bert-base-xpeft's
+    bank [12 x 100, 768, 48] and its B side, P = 8 profiles x 12 layers,
+    k=50), rotating over three banks (88 MB each) to stay cold."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = []
     for label, (d, b) in (("A_hat", (1024, 64)), ("B_hat", (64, 1024))):
-        bank, idx, w = agg_inputs(torch, gen, d, b)
-        P, k = idx.shape
-        got = KA.mask_aggregate_batched(bank, idx, w)
-        want = ref.mask_aggregate_batched_ref(bank, idx, w)
-        again = KA.mask_aggregate_batched(bank, idx, w)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape == (P, d, b)
-        assert torch.isfinite(got).all()
-        assert torch.equal(got, again)
-        err = (got - want).abs().max().item()
-        log(f"mask_aggregate_batched[{label}] P={P} k={k} bank "
-            f"{tuple(bank.shape)} bf16: max_abs_err {err:.3e} "
-            f"(bitwise {torch.equal(got, want)}; atol {AGG_ATOL})")
-        assert err <= AGG_ATOL, err
-        # padded profile-rows (idx 0, w 0) come out as exact zeros
-        pad = KA.mask_aggregate_batched(bank, torch.zeros_like(idx[:2]),
-                                        torch.zeros_like(w[:2]))
-        assert not pad.abs().max().item()
-
-        ms = device_ms(torch, lambda: KA.mask_aggregate_batched(
-            bank, idx, w), calls=8)
-        host_ms = eager_ms(torch, lambda: KA.mask_aggregate_batched(
-            bank, idx, w), calls=3)
-        plain_ms = eager_ms(torch, lambda: ref.mask_aggregate_batched_ref(
-            bank, idx, w), calls=1)
-        row_bytes = d * b * bank.element_size()
-        uniq = int(torch.unique(idx).numel())
-        nbytes = uniq * row_bytes + idx.numel() * 4 + w.numel() * 4 \
-            + P * d * b * 4
-        flops = 2 * P * k * d * b
-        bound_ms, bound_by = bound(nbytes, flops, "float32")
-        # yardstick only, never called by the port: embedding_bag with
-        # per-sample weights computes the same weighted sum of rows
-        flat = bank.view(bank.shape[0], -1)
-        w16 = w.to(bank.dtype)
-        lib_ms = device_ms(torch, lambda: F.embedding_bag(
-            idx, flat, per_sample_weights=w16, mode="sum"), calls=8)
-        lib_eager = eager_ms(torch, lambda: F.embedding_bag(
-            idx, flat, per_sample_weights=w16, mode="sum"), calls=3)
-        log(f"  ms {ms:.4f} (cold graph replay) | eager {host_ms:.4f} "
-            f"(before: eager {BEFORE_MS[label]}) | plain {plain_ms:.4f} | "
-            f"embedding_bag {lib_ms:.4f} (eager {lib_eager:.4f}) | bound "
-            f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, {uniq} "
-            f"distinct rows) | {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
-        results.append(dict(shape=label, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=lib_ms,
-                            eager_ms=host_ms, library_eager_ms=lib_eager))
-        del bank, flat, got, want, again
+        sets = [agg_inputs(torch, gen, d, b)]
+        results.append(agg_row(torch, KA, ref, F, label, sets,
+                               BEFORE_MS[label]))
+        del sets
+        torch.cuda.empty_cache()
+    for label, (d, b) in (("encoder A_hat", (768, 48)),
+                          ("encoder B_hat", (48, 768))):
+        sets = [agg_inputs(torch, gen, d, b, L=12, N=100)
+                for _ in range(3)]
+        results.append(agg_row(torch, KA, ref, F, label, sets))
+        del sets
         torch.cuda.empty_cache()
     return results
 
@@ -511,7 +558,62 @@ def phase_fused_adapter(torch, KF, ref):
                             bound_by=bound_by, library_ms=None,
                             warm_ms=warm_ms, eager_ms=host_ms))
         del sets
-    return results
+    return results + fa_encoder_rows(torch, KF, ref, gen)
+
+
+def fa_encoder_rows(torch, KF, ref, gen):
+    """#2 at the encoder's shapes (bert-base-xpeft: d=768, b=48), on layer
+    slices of [B, 12, ...] Â/B̂/LN buffers as the encoder's admitted entry
+    hands them to each layer: B=64, T=128 bf16 (the path's own shape; two
+    calls bitwise equal), then B=4 at bf16 T=1 and fp32 T=16, where the
+    CUDA-core path splits each column over 256 // 48 = 5 sub-slices and
+    the LN loop runs over 48 columns. Each checked within #2's bounds and
+    timed as cold CUDA-graph replays rotating over the 12 layers' slices
+    and four x (the B=64 rotation holds ~160 MB, past the 50 MB L2),
+    beside the plain version and the bound of one call's bytes."""
+    d, nb, L = 768, 48, 12
+    rows = []
+    for B, T, dtype in ((64, 128, torch.bfloat16), (4, 1, torch.bfloat16),
+                        (4, 16, torch.float32)):
+        bf16 = dtype == torch.bfloat16
+        rtol, atol = (FA_BF16_RTOL, FA_BF16_ATOL) if bf16 else \
+            (FA_F32_RTOL, FA_F32_ATOL)
+        layers = [fa_inputs(torch, gen, B, T, d, nb, dtype)
+                  for _ in range(L)]
+        xs = [t[0] for t in layers[:4]]
+        a3, b3, ls3, lb3 = (torch.stack(t, 1)
+                            for t in zip(*(t[1:] for t in layers)))
+        del layers
+        sets = [(xs[l % 4], a3[:, l], b3[:, l], ls3[:, l], lb3[:, l])
+                for l in range(L)]
+        label = f"encoder B={B} T={T} d={d} b={nb} " \
+            f"{'bf16' if bf16 else 'fp32'}"
+        err = check_fa(torch, KF, ref, sets[1], {}, rtol, atol, label)
+        first = KF.fused_adapter_batched(*sets[1])
+        second = KF.fused_adapter_batched(*sets[1])
+        torch.cuda.synchronize()
+        log(f"  check two calls {label}: bitwise "
+            f"{torch.equal(first, second)}")
+        assert torch.equal(first, second), label
+        ms = device_ms(torch, rotating(KF.fused_adapter_batched, sets),
+                       calls=len(sets))
+        plain_ms = device_ms(torch, rotating(ref.fused_adapter_batched_ref,
+                                             sets), calls=len(sets))
+        x = sets[0][0]
+        nbytes = sum(t.numel() * t.element_size() for t in sets[0]) \
+            + x.numel() * x.element_size()
+        flops = 4 * B * T * d * nb
+        bound_ms, bound_by = bound(nbytes, flops,
+                                   "bfloat16" if bf16 else "float32")
+        log(f"fused_adapter_batched {label}: ms {ms:.5f} (cold) | plain "
+            f"{plain_ms:.5f} (cold) | bound {bound_ms:.5f} ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB)")
+        rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+        del sets, xs, a3, b3, ls3, lb3, first, second
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------------------------
@@ -2200,6 +2302,18 @@ def phase_train_full(torch):
     return out, stats
 
 
+def stores_equal(back, store):
+    """Two stores hold the same records byte for byte: the same profiles,
+    fields, dtypes, bytes and checksums."""
+    return back.profile_ids() == store.profile_ids() and all(
+        list(back._rec[p]) == list(store._rec[p])
+        and all(back._rec[p][k].dtype == v.dtype
+                and back._rec[p][k].tobytes() == v.tobytes()
+                for k, v in store._rec[p].items())
+        and back._crc[p] == store._crc[p]
+        for p in store.profile_ids())
+
+
 def phase_pack_reload(torch, out):
     """(c) The trained table packed into a hard store (k=50) and a soft
     store; each saved, loaded back and held byte for byte to what was
@@ -2221,13 +2335,7 @@ def phase_pack_reload(torch, out):
             path = os.path.join(tmp, f"{mtype}.npz")
             store.save(path)
             back = ProfileStore.load(path)
-            equal = back.profile_ids() == store.profile_ids() and all(
-                list(back._rec[p]) == list(store._rec[p])
-                and all(back._rec[p][k].dtype == v.dtype
-                        and back._rec[p][k].tobytes() == v.tobytes()
-                        for k, v in store._rec[p].items())
-                and back._crc[p] == store._crc[p]
-                for p in store.profile_ids())
+            equal = stores_equal(back, store)
             log(f"train (c): {mtype} store of {len(store.profile_ids())} "
                 f"trained profiles, {store.record_nbytes(0)} B/record, "
                 f"{os.path.getsize(path)} B on disk; reloaded byte-equal "
@@ -2292,6 +2400,409 @@ def phase_serve_trained(torch, KA, KF, KD, out, stores):
         soft_launches, report_share=True)
     soft["launches"] = launches
     return per_step, per_step_fused, soft
+
+
+# ----------------------------------------------------------------------------
+# phase 8: the paper's encoder (bert-base-xpeft)
+# ----------------------------------------------------------------------------
+
+# as examples/train_multiprofile.py --preset paper: ProfileClassification
+# over 8 profiles (seed 3), a 16-row table, lr 3e-2; at the paper's
+# training shape (PAPER_SHAPE: B=64, T=128)
+ENC_PROFILES, ENC_LR, ENC_STEPS = 8, 3e-2, 10
+
+
+def kernel_counters():
+    """Every hand-written kernel's wrapper by name (#1-#8 and the hetero
+    launch); each counts its own launches."""
+    from repro_torch.kernels import decode_fused, fused_adapter, \
+        fused_adapter_batched, fused_adapter_quant, hetero_adapter, \
+        ia3_apply, mask_aggregate, mask_aggregate_quant
+    return {
+        "mask_aggregate_batched": mask_aggregate.mask_aggregate_batched,
+        "mask_aggregate": mask_aggregate.mask_aggregate,
+        "fused_adapter_batched": fused_adapter_batched.fused_adapter_batched,
+        "fused_adapter": fused_adapter.fused_adapter,
+        "decode_block_fused": decode_fused.decode_block_fused,
+        "mask_aggregate_quant_batched":
+            mask_aggregate_quant.mask_aggregate_quant_batched,
+        "fused_adapter_quant_batched":
+            fused_adapter_quant.fused_adapter_quant_batched,
+        "ia3_apply_batched": ia3_apply.ia3_apply_batched,
+        "hetero_adapter_batched": hetero_adapter.hetero_adapter_batched}
+
+
+def enc_setup(layers=None, dtype="bfloat16"):
+    """(cfg, data, B, T): bert-base-xpeft (12 layers, d=768, 12 x 64 heads,
+    d_ff 3072, vocab 30522, learned positions, LayerNorm, tanh-GELU MLP;
+    N=100, b=48, k=50 hard masks, 15 labels) with a 16-row table, or cut to
+    ``layers``; the 8-profile classification data; the paper's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PAPER_SHAPE
+    from repro_torch.data import ProfileClassification
+
+    cfg = get_config("bert-base-xpeft").with_(dtype=dtype) \
+        .with_xpeft(max_profiles=16)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
+    data = ProfileClassification(cfg.vocab_size, cfg.num_labels,
+                                 num_profiles=ENC_PROFILES, seed=3)
+    return cfg, data, PAPER_SHAPE.global_batch, PAPER_SHAPE.seq_len
+
+
+def named_leaves(tree, prefix=""):
+    """[(path, leaf)] in the port's leaf order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def phase_encoder_step_vs_cpu(torch):
+    """(a) One train step's loss, accuracy and gradients on the card
+    against the same step on the CPU, for xpeft (hard masks, the same
+    Gumbel draws), adapter and head_only: bert-base-xpeft at full width
+    and vocabulary cut to 2 layers, float32 with TF32 off, B=64, T=128.
+    The k-hot selection bitwise (xpeft), the loss within TRAIN_LOSS_RTOL,
+    the accuracy equal, each trainable gradient leaf within
+    TRAIN_GRAD_REL_L2 (relative L2)."""
+    from repro_torch.core import masks as M
+    from repro_torch.core import xpeft as XP
+    from repro_torch.train import steps as ST
+
+    cfg, data, B, T = enc_setup(layers=2, dtype="float32")
+    xp = cfg.xpeft
+    batch = data.sample(0, B, T)
+    out = {}
+    for mode in ("xpeft", "adapter", "head_only"):
+        state = ST.init_train_state(cfg, mode, seed=0, device="cuda")
+        noise = None
+        if mode == "xpeft":
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            shape = (B, cfg.num_layers, xp.num_adapters)
+            noise = tuple(M.gumbel(shape, generator=gen, device="cuda")
+                          for _ in range(2))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            st = state if dev == "cuda" else _tree_to(state, "cpu")
+            tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            nz = None if noise is None else tuple(n.to(dev) for n in noise)
+            w = None
+            if mode == "xpeft":
+                prof = XP.gather_profiles(st["trainable"]["table"],
+                                          tb["profile_ids"])
+                w = [x.detach().cpu()
+                     for x in XP.profile_mask_weights(prof, xp, noise=nz)]
+            t = time.perf_counter()
+            grads, metrics = ST.grads_for_batch(
+                st["frozen"], st["trainable"], tb, cfg, mode, nz)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = dict(w=w, grads=named_leaves(_tree_to(grads, "cpu")),
+                             loss=float(metrics["loss"]),
+                             acc=float(metrics["accuracy"]),
+                             s=time.perf_counter() - t)
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        khot = None if w is None else all(
+            torch.equal(a > 0.5 / xp.k, b > 0.5 / xp.k)
+            for a, b in zip(gpu["w"], cpu["w"]))
+        loss_err = abs(gpu["loss"] - cpu["loss"])
+        rel = {}
+        for (name, a), (_, b) in zip(gpu["grads"], cpu["grads"]):
+            rel[name] = ((a - b).norm() / b.norm()).item() if b.norm() > 0 \
+                else (a - b).norm().item()
+        log(f"encoder (a): one {mode} step, {cfg.name} L=2 d={cfg.d_model} "
+            f"V={cfg.vocab_size} float32, B={B} T={T}: card {gpu['s']:.3f}s,"
+            f" CPU {cpu['s']:.3f}s; k-hot selection bitwise equal {khot}; "
+            f"loss card {gpu['loss']:.6f} CPU {cpu['loss']:.6f} |d| "
+            f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL * abs(cpu['loss']):.3e});"
+            f" accuracy card {gpu['acc']:.4f} CPU {cpu['acc']:.4f}; grad "
+            "relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f" (tol {TRAIN_GRAD_REL_L2})")
+        assert khot is None or khot
+        assert loss_err <= TRAIN_LOSS_RTOL * abs(cpu["loss"]), loss_err
+        assert gpu["acc"] == cpu["acc"], (gpu["acc"], cpu["acc"])
+        assert all(v <= TRAIN_GRAD_REL_L2 for v in rel.values()), rel
+        assert all(a.abs().max() > 0 for _, a in gpu["grads"])
+        out[mode] = dict(khot_bitwise=khot, loss_card=gpu["loss"],
+                         loss_cpu=cpu["loss"], loss_abs_err=loss_err,
+                         accuracy_card=gpu["acc"], accuracy_cpu=cpu["acc"],
+                         grad_rel_l2=rel)
+        del state, runs
+    return out
+
+
+def phase_encoder_train(torch, counters):
+    """(b) ENC_STEPS xpeft steps (hard masks) of bert-base-xpeft at full
+    width and depth in bf16 through ``make_train_step`` at B=64, T=128, lr
+    3e-2: every loss and grad norm finite, the mask logits moved; ms per
+    step (CUDA events, median of steps 3-10), tokens/s, peak memory, then
+    3 more steps under torch.profiler for device ms and kernels per step.
+    Then 3 steps each of xpeft with soft masks, adapter and head_only,
+    losses and grad norms finite. No hand-written kernel may launch: the
+    launch counters stay at 0 from the first step to the last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import steps as ST
+
+    cfg, data, B, T = enc_setup()
+    batches = [data.sample(i, B, T) for i in range(ENC_STEPS + 3)]
+    for fn in counters.values():
+        fn.launches = 0
+    state = ST.init_train_state(cfg, "xpeft", seed=0, device="cuda")
+    step = ST.make_train_step(cfg, "xpeft", lr=ENC_LR)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    table0 = {k: v.clone() for k, v in state["trainable"]["table"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ev, walls, hist = [], [], []
+    for i in range(ENC_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batches[i], gen)
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        ev.append(a.elapsed_time(b))
+        hist.append(m)
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(m["loss"]) for m in hist]
+    gnorms = [float(m["grad_norm"]) for m in hist]
+    accs = [float(m["accuracy"]) for m in hist]
+    moved = max((state["trainable"]["table"][k] - table0[k]).abs().max()
+                .item() for k in ("mA", "mB"))
+    ms = statistics.median(ev[2:])
+    wall = statistics.median(walls[2:])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(ENC_STEPS, ENC_STEPS + 3):
+            state, _ = step(state, batches[i], gen)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 3
+    n_kernels = sum(e.count for e in rows) / 3
+    tokens = B * T
+    log(f"encoder (b): {ENC_STEPS} xpeft steps, {cfg.name} L="
+        f"{cfg.num_layers} d={cfg.d_model} V={cfg.vocab_size} {cfg.dtype},"
+        f" N={cfg.xpeft.num_adapters} b={cfg.xpeft.bottleneck} "
+        f"k={cfg.xpeft.k}, {ENC_PROFILES} profiles, B={B} T={T}, lr "
+        f"{ENC_LR}")
+    log("  loss " + " ".join(f"{v:.4f}" for v in losses))
+    log("  accuracy " + " ".join(f"{v:.4f}" for v in accs))
+    log("  grad_norm " + " ".join(f"{v:.4e}" for v in gnorms))
+    log("  ms/step (CUDA events) " + " ".join(f"{v:.2f}" for v in ev))
+    log(f"  median of steps 3-{ENC_STEPS}: {ms:.3f} ms/step (host wall "
+        f"{wall:.3f}), {tokens / ms * 1e3:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held "
+        f"before; mask logits moved by up to {moved:.3e}")
+    log(f"  profiled steps: device {dev_ms:.3f} ms/step in "
+        f"{n_kernels:.0f} kernels/step -> busy share {dev_ms / ms:.4f}; "
+        "top kernels by device time:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3 / 3:.4f} ms/step "
+            f"{e.count / 3:5.0f} launches/step  {e.key[:72]}")
+    assert all(math.isfinite(v) for v in losses + gnorms)
+    assert all(v > 0 for v in gnorms) and moved > 0
+    others = {}
+    for mode, mask in (("xpeft", "soft"), ("adapter", "hard"),
+                       ("head_only", "hard")):
+        mcfg = cfg.with_xpeft(mask_type=mask)
+        st = ST.init_train_state(mcfg, mode, seed=0, device="cuda")
+        stp = ST.make_train_step(mcfg, mode, lr=ENC_LR)
+        ms_ = []
+        for i in range(3):
+            st, m = stp(st, batches[i], gen)
+            ms_.append(m)
+        row = {k: [float(m[k]) for m in ms_]
+               for k in ("loss", "grad_norm", "accuracy")}
+        label = f"{mode}" + (f" {mask}" if mode == "xpeft" else "")
+        log(f"  3 steps {label}: loss " + " ".join(
+            f"{v:.4f}" for v in row["loss"]) + "; grad_norm " + " ".join(
+            f"{v:.4e}" for v in row["grad_norm"]))
+        assert all(math.isfinite(v) for v in row["loss"] + row["grad_norm"])
+        assert all(v > 0 for v in row["grad_norm"])
+        others[label] = row
+        del st
+    launches = {n: fn.launches for n, fn in counters.items()}
+    log(f"  hand-written kernel launches during training: {launches}")
+    assert not any(launches.values()), launches
+    stats = dict(steps=ENC_STEPS, batch=B, seq=T, lr=ENC_LR, losses=losses,
+                 accuracies=accs, grad_norms=gnorms, ms_per_step=ms,
+                 ms_per_step_all=ev, host_wall_ms_per_step=wall,
+                 tokens_per_s=tokens / ms * 1e3, peak_memory_bytes=peak,
+                 memory_held_before_bytes=held, device_ms_per_step=dev_ms,
+                 kernels_per_step=n_kernels, busy_share=dev_ms / ms,
+                 mask_logits_moved=moved, other_modes=others,
+                 kernel_launches=launches)
+    return dict(cfg=cfg, data=data, state=state, B=B, T=T), stats
+
+
+def phase_encoder_heldout(torch, enc):
+    """(c) Held-out accuracy of the trained profiles through
+    ``loss_for_batch(training=False)`` (k-hot masks) on 4 fresh batches
+    of 32, as ``benchmarks/glue_sim.py``'s ``train_and_eval`` scores it.
+    Reported, not asserted: random PLM weights and ten steps sit near
+    chance (1/15)."""
+    from repro_torch.train import steps as ST
+
+    cfg, data, state, T = enc["cfg"], enc["data"], enc["state"], enc["T"]
+    accs = []
+    with torch.no_grad():
+        for j in range(4):
+            b = data.sample(10_000 + j, 32, T)
+            batch = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+            _, m = ST.loss_for_batch(state["frozen"], state["trainable"],
+                                     batch, cfg, "xpeft", None,
+                                     training=False)
+            accs.append(float(m["accuracy"]))
+    acc = statistics.mean(accs)
+    log(f"encoder (c): held-out accuracy {acc:.4f} (batches "
+        + ", ".join(f"{a:.4f}" for a in accs) + "; chance "
+        f"{1 / cfg.num_labels:.4f})")
+    return dict(heldout_accuracy=acc, heldout_batches=accs)
+
+
+def phase_encoder_store(torch, enc):
+    """(d) The trained table and heads packed into a hard store (k=50,
+    heads fp16), saved to .npz and loaded back byte-equal; then the
+    store-hydrated evaluation of examples/train_multiprofile.py on one
+    batch of 64 rows over the 8 profiles: ``batch_mask_weights`` ->
+    ``forward`` (the dense mask-weight route) -> ``store.head`` ->
+    ``cls_logits``."""
+    import tempfile
+
+    from repro_torch.core.profiles import ProfileStore
+    from repro_torch.models import model as MDL
+
+    cfg, state, B, T = enc["cfg"], enc["state"], enc["B"], enc["T"]
+    xp, tr = cfg.xpeft, state["trainable"]
+    store = ProfileStore(cfg.num_layers, xp.num_adapters, xp.bottleneck,
+                         "hard", xp.k)
+    for pid in range(ENC_PROFILES):
+        store.add_profile(pid, {
+            **{k: v[pid] for k, v in tr["table"].items()},
+            **{k: v[pid] for k, v in tr["heads"].items()}})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "encoder.npz")
+        store.save(path)
+        size = os.path.getsize(path)
+        back = ProfileStore.load(path)
+    equal = stores_equal(back, store)
+    log(f"encoder (d): hard store of {len(store.profile_ids())} trained "
+        f"profiles with heads, {store.record_nbytes(0)} B/record, {size} B "
+        f"on disk; reloaded byte-equal {equal}, quarantined "
+        f"{back.quarantined_ids()}")
+    assert equal and not back.quarantined_ids()
+    ev = enc["data"].sample(20_000, B, T)
+    pids = [int(p) for p in ev["profile_ids"]]
+    hw, hb = zip(*(back.head(p) for p in pids))
+    heads = {"head_w": torch.stack(hw).cuda(),
+             "head_b": torch.stack(hb).cuda()}
+    wa, wb, ls, lb = (t.cuda() for t in back.batch_mask_weights(pids))
+    tokens = torch.as_tensor(ev["tokens"]).cuda()
+    labels = torch.as_tensor(ev["labels"]).cuda().long()
+    with torch.no_grad():
+        hidden = MDL.forward(state["frozen"], tokens, cfg, profile_masks={
+            "w_a": wa, "w_b": wb, "ln_scale": ls, "ln_bias": lb})[0]
+        logits = MDL.cls_logits(state["frozen"], hidden, cfg, heads)
+    acc = (logits.argmax(-1) == labels).float().mean().item()
+    log(f"  store-hydrated evaluation, dense mask weights: {B} rows over "
+        f"{len(set(pids))} profiles, accuracy {acc:.4f}")
+    assert torch.isfinite(logits).all()
+    assert logits.shape == (B, cfg.num_labels)
+    ctx = dict(store=back, pids=pids, heads=heads, tokens=tokens,
+               labels=labels, dense_logits=logits)
+    return ctx, dict(record_bytes=store.record_nbytes(0), file_bytes=size,
+                     reload_byte_equal=equal, dense_accuracy=acc)
+
+
+def phase_encoder_kernels(torch, counters, enc, ctx):
+    """(e) The same store admitted through the kernels on the same batch:
+    the 8 distinct profiles' k-sparse indices aggregated once with
+    ``precompute_effective_adapters_sparse`` (#1: 2 launches, P = 8 x 12
+    = 96 rows of 768 x 48, k=50), the aggregates gathered per row into
+    the a_hat/b_hat/ln entry and run through ``forward`` (#2: 12 launches
+    at B=64, T=128, d=768, b=48, bf16), then ``cls_logits`` with the
+    store's heads. Held to the same route on kernel_impl="ref" on the
+    card: max |d logit| <= E2E_STEPS bf16 steps at the largest |logit|,
+    every predicted-label flip on a ref top-2 gap <= 2 x that max |d|.
+    The gap to (d)'s dense-weight route is reported (the two routes round
+    the aggregates differently)."""
+    from repro_torch.core import xpeft as XP
+    from repro_torch.models import model as MDL
+
+    cfg, frozen = enc["cfg"], enc["state"]["frozen"]
+    store, pids = ctx["store"], ctx["pids"]
+    ia, wa, ib, wb = (t.cuda() for t in store.batch_sparse_indices(
+        range(ENC_PROFILES)))
+    ls, lb = (t.cuda() for t in store.ln_affines(pids))
+    rows = torch.as_tensor(pids).cuda().long()
+
+    def route(c):
+        with torch.no_grad():
+            a_hat, b_hat = XP.precompute_effective_adapters_sparse(
+                frozen["xpeft_bank"], ia, wa, ib, wb, c.xpeft)
+            entry = {"a_hat": a_hat[rows], "b_hat": b_hat[rows],
+                     "ln_scale": ls, "ln_bias": lb}
+            hidden = MDL.forward(frozen, ctx["tokens"], c,
+                                 profile_masks=entry)[0]
+            return MDL.cls_logits(frozen, hidden, c, ctx["heads"])
+
+    for fn in counters.values():
+        fn.launches = 0
+    got = route(cfg)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = route(cfg.with_xpeft(kernel_impl="ref"))
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    log(f"encoder (e): the store admitted through the kernels, launches "
+        f"{launches}")
+    assert launches["mask_aggregate_batched"] == 2, launches
+    assert launches["fused_adapter_batched"] == L, launches
+    assert sum(launches.values()) == 2 + L, launches
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = E2E_STEPS * bf16_step(scale)
+    pred, pred_ref = got.argmax(-1), want.argmax(-1)
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flips = [(int(i), gap[i].item())
+             for i in (pred != pred_ref).nonzero()[:, 0]]
+    dense_err = (got - ctx["dense_logits"]).abs().max().item()
+    labels = ctx["labels"]
+    acc = (pred == labels).float().mean().item()
+    acc_ref = (pred_ref == labels).float().mean().item()
+    log(f"  kernels vs ref: max|d logit| {err:.4e}; max|logit| {scale:.4f} "
+        f"(bf16 step {bf16_step(scale):.4e}, tol {tol:.4e}); predicted-"
+        f"label flips {len(flips)} (row, ref top-2 gap) {flips}; accuracy "
+        f"kernels {acc:.4f} ref {acc_ref:.4f}; max|d logit| to the dense-"
+        f"weight route of (d) {dense_err:.4e} (reported)")
+    assert err <= tol, (err, tol)
+    assert all(g <= 2 * err for _, g in flips), flips
+    return dict(launches=launches, max_abs_err=err, max_logit=scale,
+                flips=flips, accuracy=acc, accuracy_ref=acc_ref,
+                dense_route_max_abs_diff=dense_err)
+
+
+def phase_encoder(torch):
+    """Phase 8, (a)-(e): returns the ``{"encoder": ...}`` JSON line's
+    dict."""
+    counters = kernel_counters()
+    step_vs_cpu = phase_encoder_step_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    enc, train = phase_encoder_train(torch, counters)
+    heldout = phase_encoder_heldout(torch, enc)
+    ctx, store = phase_encoder_store(torch, enc)
+    kernels = phase_encoder_kernels(torch, counters, enc, ctx)
+    return dict(config=enc["cfg"].name, step_vs_cpu=step_vs_cpu,
+                train=train, heldout=heldout, store=store, kernels=kernels)
 
 
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
@@ -2410,6 +2921,11 @@ def main():
     stores = phase_pack_reload(torch, trained)
     serve_per_step, serve_per_step_fused, serve_soft = phase_serve_trained(
         torch, KA, KF, KD, trained, stores)
+    # 8. the paper's encoder: train at the paper's shape, pack, reload,
+    # evaluate from the store, then admit the store through #1 and #2
+    del trained, stores
+    torch.cuda.empty_cache()
+    encoder = phase_encoder(torch)
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -2488,6 +3004,17 @@ def main():
         row["launches_per_step_path"] = serve_per_step["launches"][
             row["name"]]
         row["launches_soft_path"] = serve_soft["launches"][row["name"]]
+    # the encoder path (phase 8 (e)): #1 twice, #2 once per layer, at
+    # the shapes of the rows marked "encoder" (#2: its B=64 T=128 row)
+    enc_launches = encoder["kernels"]["launches"]
+    for row in kernels:
+        row["launches_encoder_path"] = enc_launches[row["name"]]
+    for row in kernels[0]["other_shapes"]:
+        if row["shape"].startswith("encoder"):
+            row["launches_encoder_path"] = enc_launches[kernels[0]["name"]]
+    for row in kernels[1]["other_shapes"]:
+        if row["shape"].startswith("encoder B=64 T=128"):
+            row["launches_encoder_path"] = enc_launches[kernels[1]["name"]]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -2497,6 +3024,7 @@ def main():
         serve_quant[f"{scheme}_{'decode_fused' if fused else 'composed'}"] \
             = row
     log(json.dumps({"train": dict(train, step_vs_cpu=train_step)}))
+    log(json.dumps({"encoder": encoder}))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

@@ -5,7 +5,7 @@ same mask logits: hard masks bit-packed (or soft-mask logits in fp16), LN
 affines and optional per-profile heads in fp16, a per-field crc32 sidecar
 verified at every hydration. Serving hydrates through the vectorized
 public API (``batch_sparse_indices``, ``batch_mask_weights``,
-``ln_affines``).
+``ln_affines``, ``head``).
 
 A heterogeneous bank's ``bank_spec`` is part of the store's identity; a
 quantized store (``quant`` int8/int4) may carry each profile's aggregated
@@ -228,6 +228,17 @@ class ProfileStore:
                                  ("agg_a_scale", "a_scale"),
                                  ("agg_b_q", "b_q"),
                                  ("agg_b_scale", "b_scale"))}
+
+    def head(self, pid: int):
+        """The profile's classifier head (stored fp16) as float32 host
+        tensors (head_w [d, C], head_b [C]), or None for a record stored
+        without one."""
+        self.check_record(pid)
+        rec = self._rec[int(pid)]
+        if "head_w" not in rec:
+            return None
+        return (torch.from_numpy(rec["head_w"].astype(np.float32)),
+                torch.from_numpy(rec["head_b"].astype(np.float32)))
 
     def ln_affines(self, pids: Iterable[int]):
         """Stacked adapter-LN affines ([R, L, b] scale, [R, L, b] bias) as

@@ -34,7 +34,8 @@ _NOT_PORTED = {
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
-    ap.add_argument("--mode", default="xpeft", choices=["xpeft", "adapter"])
+    ap.add_argument("--mode", default="xpeft",
+                    choices=["xpeft", "adapter", "head_only"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -1,14 +1,18 @@
-"""Attention: MHA/GQA with RoPE and a KV cache (the dense path).
+"""Attention: MHA/GQA with RoPE, a KV cache and long-sequence chunking.
 
-The counterpart of ``repro.models.attention.attention`` for full causal
-attention: the cacheless self-attention, the cache write at a scalar
-``cache_pos`` and at a per-slot vector ``cache_pos``, and the dense
-softmax over the whole ``[T, S]`` logits. The chunked online-softmax path
-the JAX package takes for T > 512 (``_sdpa_chunked``) computes the same
-function and is left for a later slice (ROADMAP queue 1, item 2), as are
-sliding windows and ``extra_kv`` (the prefix rows of the dense training
-path, queue 1, item 7). ``front_skip`` (serving over prefix KV rows
-hydrated into the cache) is ported.
+The counterpart of ``repro.models.attention.attention`` for full
+attention, causal (decoders) or bidirectional (the encoder): the
+cacheless self-attention, the cache write at a scalar ``cache_pos`` and
+at a per-slot vector ``cache_pos``, the dense softmax over the whole
+``[T, S]`` logits, and, where JAX takes it (T > ``q_chunk``, T a multiple
+of ``q_chunk`` and S of ``k_chunk``, no ``front_skip``), the chunked
+online softmax ``_sdpa_chunked``: query chunks, each over key chunks with
+a running max and an fp32 accumulator, so the ``[T, S]`` logits never
+exist at once. Both are plain torch ops, as JAX computes them outside any
+Pallas kernel. ``front_skip`` (serving over prefix KV rows hydrated into
+the cache) is ported; sliding windows (ROADMAP queue 1, item 10) and
+``extra_kv`` (the prefix rows of the dense training path, queue 1, item
+7) are not.
 
 Unlike the functional JAX cache, the port writes the cache IN PLACE (one
 KV cache per engine instead of a fresh copy per layer-step) and returns
@@ -71,6 +75,46 @@ def _sdpa_dense(q, k, v, mask, scale, cap):
     return torch.einsum("bkgts,bksh->bkgth", w.to(v.dtype), v)
 
 
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, kv_valid, scale, cap,
+                  q_chunk, k_chunk):
+    """Online softmax over key chunks, for each query chunk in turn (JAX's
+    ``_sdpa_chunked``, the ``lax.scan`` pair as two loops): q [B,KV,G,Tq,
+    hd], k/v [B,KV,S,hd], q_pos [B,Tq], k_pos [S]; Tq a multiple of
+    ``q_chunk`` and S of ``k_chunk``. Logits and the accumulator in fp32,
+    ``p`` cast to v's dtype before the AV product, the row sum floored at
+    1e-30."""
+    B, KV, G, Tq, _ = q.shape
+    S, dv = k.shape[2], v.shape[-1]
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
+    outs = []
+    for i in range(0, Tq, q_chunk):
+        qi = q[:, :, :, i:i + q_chunk].float()
+        qpi = q_pos[:, i:i + q_chunk]
+        m_run = torch.full((B, KV, G, q_chunk), NEG_INF,
+                           dtype=torch.float32, device=q.device)
+        l_run = torch.zeros_like(m_run)
+        acc = torch.zeros((B, KV, G, q_chunk, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(0, S, k_chunk):
+            ki, vi = k[:, :, j:j + k_chunk], v[:, :, j:j + k_chunk]
+            logits = torch.einsum("bkgth,bksh->bkgts", qi, ki.float()) \
+                * scale
+            logits = softcap(logits, cap)
+            msk = _mask(qpi, k_pos[j:j + k_chunk], causal=causal,
+                        kv_valid=kv_valid)
+            logits = torch.where(msk[:, None, None], logits, neg)
+            m_new = torch.maximum(m_run, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgts,bksh->bkgth", p.to(vi.dtype), vi).float()
+            m_run = m_new
+        out = acc / torch.clamp_min(l_run, 1e-30)[..., None]
+        outs.append(out.to(v.dtype))
+    return torch.cat(outs, dim=3)
+
+
 def write_cache(buf, new, cache_pos):
     """Write ``new [B,T,KV,hd]`` into ``buf [B,S,KV,hd]`` in place.
 
@@ -95,7 +139,7 @@ def write_cache(buf, new, cache_pos):
 
 
 def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
-              front_skip=None):
+              front_skip=None, q_chunk=512, k_chunk=1024):
     """x [B,T,d] -> (y [B,T,d], cache).
 
     cache: {"k","v": [B, S, KV, hd]}, written in place at ``cache_pos``
@@ -104,11 +148,14 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
     attends. Without a cache, keys = queries (self-attention).
     front_skip: optional [B] int — key buffer slots ``< front_skip[b]`` are
     masked (a layer whose profile selected no prefix slot holds zero rows
-    at [0, P) that must not be attended)."""
+    at [0, P) that must not be attended).
+    q_chunk / k_chunk: the chunk sizes of the online-softmax path, taken
+    when T > q_chunk, T % q_chunk == 0, S % k_chunk == 0 and there is no
+    ``front_skip`` (JAX's condition); the dense softmax otherwise."""
     if cfg.attn_type != "full":
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r}: only full attention is ported "
-            "(ROADMAP queue 1, item 2)")
+            "(ROADMAP queue 1, item 10)")
     B, T, d = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -145,9 +192,16 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
     qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)  # [B,KV,G,T,hd]
 
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-    msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid,
-                front_skip=front_skip)
-    out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
+    use_chunked = T > q_chunk and T % q_chunk == 0 and S % k_chunk == 0
+    if use_chunked and front_skip is None:
+        out = _sdpa_chunked(qg, keys, vals, positions, k_pos,
+                            causal=cfg.causal, kv_valid=kv_valid,
+                            scale=scale, cap=cfg.logit_softcap,
+                            q_chunk=q_chunk, k_chunk=k_chunk)
+    else:
+        msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid,
+                    front_skip=front_skip)
+        out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
 
     out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
     y = torch.einsum("bthk,hkd->btd", out, params["wo"])

@@ -1,7 +1,10 @@
 """The LM: a loop over stacked transformer layers with X-PEFT adapter hooks.
 
 The port of ``repro.models.model`` for ``block_pattern="attn"``, non-MoE,
-full attention. Params are plain dicts of tensors in the JAX package's
+full attention: causal decoders with RoPE, and the encoder
+(``bert-base-xpeft``: learned positions, bidirectional attention,
+LayerNorm, the vanilla GELU MLP and the classification head,
+``cls_logits``). Params are plain dicts of tensors in the JAX package's
 layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
 becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
@@ -14,9 +17,9 @@ cache. The on-the-fly mask routes (``w_a``/``w_b`` weights, dense or with
 ``idx_a``/``idx_b`` over the k selected rows) aggregate against the
 layer's bank slice in plain torch ops: the uncached forward is
 differentiable in ``profile_masks`` (training), and per-step serving
-takes the same route. Every other block pattern, MoE, sliding windows and
-dense weights over a heterogeneous bank raise ``NotImplementedError``
-naming their ROADMAP item.
+takes the same route. Every other block pattern, MoE, sliding windows,
+frontends, embedding scaling and dense weights over a heterogeneous bank
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,12 +56,12 @@ def check_supported(cfg) -> None:
                                   "queue 1, item 10)")
     if cfg.attn_type != "full":
         raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} is not ported (ROADMAP queue 1, "
-            "item 2)")
-    if cfg.frontend != "none" or cfg.pos == "learned" or cfg.embed_scale:
+            f"attn_type {cfg.attn_type!r} is not ported (sliding windows, "
+            "ROADMAP queue 1, item 10)")
+    if cfg.frontend != "none" or cfg.embed_scale:
         raise NotImplementedError(
-            "frontends, learned positions and embedding scaling are not "
-            "ported (ROADMAP queue 1, item 2)")
+            "frontends and embedding scaling are not ported (ROADMAP queue "
+            "1, item 10)")
     if cfg.xpeft.enabled and cfg.xpeft.is_hetero \
             and cfg.xpeft.bank_quant != "none":
         raise NotImplementedError("quantized heterogeneous banks are not "
@@ -100,9 +103,20 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
                           for _ in range(cfg.num_layers)]),
         "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
     }
+    if cfg.pos == "learned":
+        params["pos_embed"] = dense_init((cfg.max_seq_len, cfg.d_model),
+                                         cfg.d_model, dtype, **kw)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
                                        cfg.d_model, dtype, **kw)
+    if cfg.num_labels:
+        d, C, f32 = cfg.d_model, cfg.num_labels, torch.float32
+        params["cls"] = {
+            "pool_w": dense_init((d, d), d, f32, **kw),
+            "pool_b": torch.zeros((d,), dtype=f32, device=device),
+            "head_w": dense_init((d, C), d, f32, **kw),
+            "head_b": torch.zeros((C,), dtype=f32, device=device),
+        }
     if cfg.xpeft.enabled and cfg.xpeft.is_hetero:
         params["xpeft_bank"] = init_hetero_bank(
             cfg.num_layers, cfg.xpeft, cfg.d_model, cfg.kv_dim, dtype, **kw)
@@ -248,7 +262,10 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     [B,L,k]), or None. With a cache, each layer's "prefix_skip" masks that many key
     slots at the front of the cache (the hydrated prefix rows).
     cache: from ``init_cache``, written IN PLACE at ``cache_pos`` (a
-    scalar, or [B] per-slot offsets) and returned; None runs uncached."""
+    scalar, or [B] per-slot offsets) and returned; None runs uncached.
+    Learned positions (``cfg.pos == "learned"``) add ``pos_embed``'s rows
+    from a scalar ``cache_pos`` on (the start clamped so T rows fit, as
+    ``lax.dynamic_slice`` clamps), or each slot's ``positions``."""
     check_supported(cfg)
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
@@ -259,6 +276,13 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
         else:
             positions = (int(cache_pos) + torch.arange(
                 T, dtype=torch.int32, device=x.device))[None].expand(B, T)
+    if cfg.pos == "learned":
+        pe = params["pos_embed"]
+        if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:
+            x = x + pe[positions.long()]
+        else:
+            start = min(max(int(cache_pos), 0), pe.shape[0] - T)
+            x = x + pe[start:start + T][None]
     blocks = params["blocks"]
     bank = params.get("xpeft_bank")
     fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
@@ -302,3 +326,27 @@ def lm_logits(params, hidden, cfg):
     else:
         logits = hidden @ params["lm_head"]
     return softcap(logits.float(), cfg.logit_softcap)
+
+
+def cls_pooled(params, hidden):
+    """The pooler: tanh of the first token's ([CLS]) hidden state through
+    ``pool_w``/``pool_b``, in fp32 -> [B, d]."""
+    cls = params["cls"]
+    return torch.tanh(hidden[:, 0, :].float() @ cls["pool_w"]
+                      + cls["pool_b"])
+
+
+def cls_logits(params, hidden, cfg, head_override=None):
+    """Encoder classification: the pooled first token ([CLS]) -> labels,
+    in fp32. ``head_override`` replaces the shared head: a per-example
+    head {"head_w" [B, d, C], "head_b" [B, C]} (the per-profile heads of
+    X-PEFT training and serving) goes through the einsum; the shared
+    head itself (``params["cls"]``, tested by identity as JAX does) or
+    None takes the plain product."""
+    cls = params["cls"]
+    pooled = cls_pooled(params, hidden)
+    head = head_override if head_override is not None else cls
+    if head is cls:
+        return pooled @ head["head_w"] + head["head_b"]
+    return torch.einsum("bd,bdc->bc", pooled, head["head_w"]) \
+        + head["head_b"]

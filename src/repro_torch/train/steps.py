@@ -1,13 +1,21 @@
 """Train steps, the port of ``repro.train.steps``.
 
 Modes (paper §4 baselines, one mechanism):
-- "xpeft":   trainable = the per-profile mask table. THE paper workload:
-             multi-profile mask training against a frozen PLM and a frozen
-             shared adapter bank, k-hot masks by straight-through Gumbel
-             top-k.
-- "adapter": the single-adapter baseline: one fresh bottleneck adapter
-             (a bank of N=1 under a fixed mask) and its LN, PLM frozen.
-- "full":    full training of every weight (the non-paper path).
+- "xpeft":     trainable = the per-profile mask table (+ per-profile heads
+               for encoders). THE paper workload: multi-profile mask
+               training against a frozen PLM and a frozen shared adapter
+               bank, k-hot masks by straight-through Gumbel top-k.
+- "adapter":   the single-adapter baseline: one fresh bottleneck adapter
+               (a bank of N=1 under a fixed mask) and its LN (+ a head),
+               PLM frozen.
+- "head_only": the head-only baseline: the encoder's classification head
+               on the bare PLM (no adapter bank).
+- "full":      full training of every weight (the non-paper path).
+
+A config with ``num_labels`` (the encoder, ``bert-base-xpeft``) trains the
+classification objective (``cls_loss``: mean CE of the pooled-[CLS]
+logits, plus accuracy); any other trains the LM objective (sequence-
+chunked next-token CE).
 
 The state is JAX's tree, ``{"frozen", "trainable", "opt"}``. The trainable
 subtree is separate from the frozen params, and the frozen tensors never
@@ -16,9 +24,8 @@ drops them in JAX. Gradients come from autograd through plain torch ops:
 no hand-written kernel has a backward, and ``kernels/ops.py`` refuses an
 input that requires grad.
 
-The encoder's classification branch (``cls_loss``, per-profile heads) and
-the ``head_only`` mode wait for the encoder, ROADMAP queue 1, item 2 (order
-step 3); the slot-packed gang step for the profile lifecycle, item 8.
+The slot-packed gang step for the profile lifecycle waits for ROADMAP
+queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -33,20 +40,10 @@ from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.utils import resolve_device
 from repro_torch.utils.tree import merge_trees, tree_leaves, tree_map
 
-MODES = ("xpeft", "adapter", "full")
-
-
-def _no_encoder(cfg, what: str) -> None:
-    if cfg.num_labels:
-        raise NotImplementedError(
-            f"{what} with a classification head is not ported (the encoder, "
-            "ROADMAP queue 1, item 2)")
+MODES = ("xpeft", "adapter", "head_only", "full")
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "head_only":
-        raise NotImplementedError("head_only training is not ported (the "
-                                  "encoder, ROADMAP queue 1, item 2)")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}; expected one of {MODES}")
 
@@ -55,36 +52,63 @@ def _check_mode(mode: str) -> None:
 # Trainable init per mode
 # ----------------------------------------------------------------------------
 
+def _head(cfg, lead, gen, device) -> dict:
+    """A classification head, JAX's init: head_w 0.02 x N(0, 1) [*lead, d,
+    C], head_b zeros [*lead, C], fp32."""
+    C = cfg.num_labels
+    return {"head_w": 0.02 * torch.randn(
+                lead + (cfg.d_model, C), generator=gen, device=device,
+                dtype=torch.float32),
+            "head_b": torch.zeros(lead + (C,), dtype=torch.float32,
+                                  device=device)}
+
+
 def init_xpeft_trainable(cfg, *, seed: int = 0, device=None) -> dict:
-    """The per-profile mask table, [max_profiles, ...] rows."""
-    _no_encoder(cfg, "xpeft training")
-    return {"table": XP.init_profile_table(cfg, seed=seed,
-                                           device=resolve_device(device))}
+    """The per-profile mask table, [max_profiles, ...] rows drawn from
+    ``seed``; with ``num_labels``, per-profile heads [max_profiles, d, C]
+    drawn from ``seed + 1``."""
+    device = resolve_device(device)
+    out = {"table": XP.init_profile_table(cfg, seed=seed, device=device)}
+    if cfg.num_labels:
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        out["heads"] = _head(cfg, (cfg.xpeft.max_profiles,), gen, device)
+    return out
 
 
 def init_adapter_trainable(cfg, *, seed: int = 0, device=None) -> dict:
-    """single_adapter baseline: one adapter (a bank of N=1) + its LN."""
-    _no_encoder(cfg, "adapter training")
+    """single_adapter baseline: one adapter (a bank of N=1) + its LN, and
+    with ``num_labels`` a head, drawn after the bank."""
     device = resolve_device(device)
     xp = cfg.xpeft
     gen = torch.Generator(device=device).manual_seed(seed)
     shape = (cfg.num_layers, xp.bottleneck)
-    return {
+    out = {
         "bank": init_adapter_bank(cfg.num_layers, 1, cfg.d_model,
                                   xp.bottleneck, MDL.torch_dtype(cfg.dtype),
                                   generator=gen, device=device),
         "ln_scale": torch.ones(shape, dtype=torch.float32, device=device),
         "ln_bias": torch.zeros(shape, dtype=torch.float32, device=device),
     }
+    if cfg.num_labels:
+        out["head"] = _head(cfg, (), gen, device)
+    return out
+
+
+def init_head_trainable(cfg, *, seed: int = 0, device=None) -> dict:
+    """head_only baseline: one head [d, num_labels]."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"head": _head(cfg, (), gen, device)}
 
 
 def init_trainable(cfg, mode: str, *, seed: int = 0, device=None) -> dict:
     _check_mode(mode)
-    if mode == "xpeft":
-        return init_xpeft_trainable(cfg, seed=seed, device=device)
-    if mode == "adapter":
-        return init_adapter_trainable(cfg, seed=seed, device=device)
-    raise ValueError(f"mode {mode!r} has no separate trainable init")
+    init = {"xpeft": init_xpeft_trainable,
+            "adapter": init_adapter_trainable,
+            "head_only": init_head_trainable}.get(mode)
+    if init is None:
+        raise ValueError(f"mode {mode!r} has no separate trainable init")
+    return init(cfg, seed=seed, device=device)
 
 
 def init_train_state(cfg, mode: str = "xpeft", *, seed: int = 0,
@@ -134,6 +158,16 @@ def lm_loss_chunked(params, hidden, labels, cfg, chunk: int = 512):
     return total / (B * T)
 
 
+def cls_loss(logits, labels):
+    """(mean CE, accuracy) of classification logits [B, C] fp32 against
+    labels [B]."""
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return torch.mean(lse - gold), acc
+
+
 # ----------------------------------------------------------------------------
 # Forward under each mode
 # ----------------------------------------------------------------------------
@@ -147,11 +181,14 @@ def _noise_kw(rng) -> dict:
 
 
 def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
-    """(hidden [B,T,d], aux, params) of the batch under ``mode``."""
+    """(hidden [B,T,d], aux, head_override, params) of the batch under
+    ``mode``: head_override is the batch's per-example heads (xpeft), the
+    one trainable head (adapter, head_only) or None (the shared head, or
+    no classification)."""
     _check_mode(mode)
-    _no_encoder(cfg, "the forward of a train step")
     tokens = batch["tokens"]
     masks = None
+    head_override = None
     params = frozen
     if mode == "xpeft":
         prof = XP.gather_profiles(trainable["table"], batch["profile_ids"])
@@ -160,6 +197,9 @@ def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
                                            **_noise_kw(rng))
         masks = {"w_a": w_a, "w_b": w_b, "ln_scale": prof["ln_scale"],
                  "ln_bias": prof["ln_bias"]}
+        if cfg.num_labels:
+            head_override = XP.gather_profiles(trainable["heads"],
+                                               batch["profile_ids"])
     elif mode == "adapter":
         B = tokens.shape[0]
         ones = torch.ones((B, cfg.num_layers, 1), dtype=torch.float32,
@@ -170,19 +210,41 @@ def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
                  "ln_bias": trainable["ln_bias"].expand(
                      (B,) + tuple(trainable["ln_bias"].shape))}
         params = merge_trees(frozen, {"xpeft_bank": trainable["bank"]})
+        if cfg.num_labels:
+            head_override = trainable["head"]
+    elif mode == "head_only":
+        params = {k: v for k, v in frozen.items() if k != "xpeft_bank"}
+        head_override = trainable["head"]
+        cfg = cfg.with_xpeft(enabled=False)
     else:
         params = trainable
     hidden, _, aux = MDL.forward(params, tokens, cfg, profile_masks=masks)
-    return hidden, aux, params
+    return hidden, aux, head_override, params
 
 
 def loss_for_batch(frozen, trainable, batch, cfg, mode, rng, training=True):
-    """(total loss, metrics) of one batch: the LM objective,
-    sequence-chunked CE plus 0.01 x the auxiliary loss."""
-    hidden, aux, params = _forward_mode(frozen, trainable, batch, cfg, mode,
-                                        rng, training)
-    loss = lm_loss_chunked(params, hidden, batch["labels"], cfg)
-    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
+    """(total loss, metrics) of one batch plus 0.01 x the auxiliary loss:
+    with ``num_labels`` the classification objective (``cls_loss``;
+    metrics carry "accuracy"), else the LM objective, sequence-chunked
+    CE."""
+    hidden, aux, head, params = _forward_mode(frozen, trainable, batch, cfg,
+                                              mode, rng, training)
+    metrics = {}
+    if cfg.num_labels:
+        if head is not None and head["head_w"].ndim == 3:
+            logits = MDL.cls_logits(params, hidden, cfg, head)
+        elif head is not None:
+            # one trainable head on the frozen pooler
+            logits = MDL.cls_pooled(params, hidden) @ head["head_w"] \
+                + head["head_b"]
+        else:
+            logits = MDL.cls_logits(params, hidden, cfg)
+        loss, metrics["accuracy"] = cls_loss(logits, batch["labels"])
+    else:
+        loss = lm_loss_chunked(params, hidden, batch["labels"], cfg)
+    metrics["loss"] = loss
+    metrics["aux_loss"] = aux
+    return loss + 0.01 * aux, metrics
 
 
 # ----------------------------------------------------------------------------
@@ -200,7 +262,10 @@ def grads_for_batch(frozen, trainable, batch, cfg, mode, rng):
     autograd: ``jax.value_and_grad`` of ``loss_for_batch``."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
     total, metrics = loss_for_batch(frozen, leaves, batch, cfg, mode, rng)
-    total.backward()
+    if total.requires_grad:
+        # else no trainable reaches the loss (head_only under the LM
+        # objective): every gradient is zero, as jax.grad gives
+        total.backward()
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), leaves)
     return grads, {k: v.detach() for k, v in metrics.items()}
@@ -210,7 +275,8 @@ def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
                     clip_norm: float = 1.0, accum: int = 1):
     """Returns ``step(state, batch, rng) -> (state, metrics)``.
 
-    ``batch``: {"tokens", "labels" [B, T], "profile_ids" [B]}, tensors or
+    ``batch``: {"tokens" [B, T], "labels" ([B, T] next tokens, or [B]
+    classes with ``num_labels``), "profile_ids" [B]}, tensors or
     numpy arrays (moved to the trainables' device). ``rng``: a
     ``torch.Generator`` that draws the step's Gumbel noise, a
     (noise_a, noise_b) pair of standard Gumbel draws of the (micro-)batch's
@@ -219,10 +285,9 @@ def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
     With ``accum > 1`` the batch splits into ``accum`` micro-batches along
     its leading axis, and each micro-batch sees the SAME noise (JAX passes
     one rng to every micro-batch); gradients sum in fp32 and are divided
-    by ``accum`` (metrics likewise). Clipping is global, after
-    accumulation."""
+    by ``accum`` (metrics, accuracy included, likewise). Clipping is
+    global, after accumulation."""
     _check_mode(mode)
-    _no_encoder(cfg, "make_train_step")
     xp = cfg.xpeft
 
     def step(state, batch, rng):

@@ -84,6 +84,16 @@ def test_chip_smoke_imports_no_jax_and_runs_only_as_main():
             assert isinstance(node.value, ast.Constant)
 
 
+@pytest.mark.parametrize("tool", sorted(
+    f for f in os.listdir(os.path.join(ROOT, "tools")) if f.endswith(".py")))
+def test_tools_import_no_jax(tool):
+    """The on-card tools (chip_smoke's phases run alone, kernel probes)
+    import the port and never jax or the JAX package."""
+    with open(os.path.join(ROOT, "tools", tool)) as f:
+        roots = set(_imported_roots(ast.parse(f.read())))
+    assert not roots & {"jax", "jaxlib", "repro"}, (tool, roots)
+
+
 @pytest.mark.parametrize("impl", ["auto", "ref"])
 def test_kernel_impls_accepted(impl):
     cfg = treduce(tget_config("qwen1.5-0.5b")).with_xpeft(kernel_impl=impl)

@@ -1,6 +1,7 @@
 """The port's training loop against the JAX package, on the CPU: the
 chunked LM loss, three train steps packed into the store, the step's own
-Gumbel draws, the refusals, and the launcher.
+Gumbel draws, head_only and a classification head on the decoder, the
+gang step's refusal, and the launcher.
 
 Config: ``reduce_for_smoke(get_config("qwen1.5-0.5b"))`` (2 layers, d=64,
 vocab 512, N=8, b=4, k=2, float32), max_profiles 4, batches of 4 x 8
@@ -127,10 +128,19 @@ def test_generator_noise_and_refusals():
     assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
     assert not torch.equal(new["trainable"]["table"]["mA"],
                            state["trainable"]["table"]["mA"])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        TST.init_train_state(tcfg, "head_only", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        TST.make_train_step(tcfg.with_(num_labels=3), "xpeft")
+    # head_only and a classification head build and step (the encoder's
+    # branch): under the LM objective no trainable reaches the loss, so
+    # head_only's gradient is zero, as jax.grad's is
+    hstate = TST.init_train_state(tcfg, "head_only", device="cpu")
+    _, hm = TST.make_train_step(tcfg, "head_only")(hstate, _batch(), None)
+    assert np.isfinite(float(hm["loss"])) and float(hm["grad_norm"]) == 0
+    ccfg = tcfg.with_(num_labels=3)
+    cstate = TST.init_train_state(ccfg, "xpeft", seed=0, device="cpu")
+    cbatch = dict(_batch(), labels=np.array([0, 2, 1, 2], np.int32))
+    cnew, cm = TST.make_train_step(ccfg, "xpeft")(cstate, cbatch, gen)
+    assert np.isfinite(float(cm["loss"])) and 0 <= float(cm["accuracy"]) <= 1
+    assert not torch.equal(cnew["trainable"]["heads"]["head_w"],
+                           cstate["trainable"]["heads"]["head_w"])
     with pytest.raises(NotImplementedError, match="item 8"):
         TST.make_gang_step(tcfg)
 
