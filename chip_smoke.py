@@ -143,6 +143,34 @@ Phases, in order; any failed check exits non-zero:
              the encoder's bank [1200, 768, 48] (both sides) and #2 at its
              B=64, T=128 shape and at b=48, bf16 T=1 and fp32 T=16.
 
+9. continuous — qwen1.5-0.5b at full width (bf16, random weights from
+             seed 0) on ``benchmarks/cb_smoke.py``'s skewed workload (12
+             requests, prompts of 3-12 tokens, 3 profiles, 1 in 3 long
+             with 40 new tokens, the rest 2), 4 slots, max_seq 128,
+             page_size 16, sync_every 8: (a) bf16 composed, continuous
+             against windowed; (b) continuous with long_new 100 on 10
+             pages (two long requests need 14: preemptions and resumes
+             must be > 0) against the unstarved pool; (c) decode_fused,
+             (d) int8 and (e) phase 6's hetero bank, each continuous
+             against windowed; (f) self-speculation (gamma 3) against
+             (a)'s continuous run, and on (b)'s starved pool against (b).
+             Each drain runs with every counter at 0 just before it and
+             must launch what its path launches per decode step (a
+             speculation round: gamma drafts and the verify, #2 in every
+             layer of each), prefill batch and aggregating wave; the
+             continuous runs must strand fewer slot steps in fewer device
+             steps than windowed, the spec runs commit more than one
+             token per step in fewer steps. Every request's tokens are
+             held to the reference run's: where they part, the first
+             recorded logits where the runs differ (the prefill, with
+             both batch shapes, or a decode step) are named and the
+             first flip must lie on a reference top-2 gap of at most
+             twice that step's max |d logit|. One step of (a) and
+             (c)-(f) is timed and profiled, with the paged gather and
+             writeback on its pool as CUDA-graph replays ((b)'s steps
+             have (a)'s shapes, the starved spec run's (f)'s). Phase 3b checks and times
+             #2 at the verify's shape (B=4, T=4, layer slices).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
 """
@@ -558,7 +586,10 @@ def phase_fused_adapter(torch, KF, ref):
                             bound_by=bound_by, library_ms=None,
                             warm_ms=warm_ms, eager_ms=host_ms))
         del sets
-    return results + fa_encoder_rows(torch, KF, ref, gen)
+    return results + fa_slice_rows(
+        torch, KF, ref, gen, "verify", 1024, 64, 24,
+        ((4, CB_GAMMA + 1, torch.bfloat16),)) + fa_encoder_rows(
+            torch, KF, ref, gen)
 
 
 def fa_encoder_rows(torch, KF, ref, gen):
@@ -567,14 +598,22 @@ def fa_encoder_rows(torch, KF, ref, gen):
     hands them to each layer: B=64, T=128 bf16 (the path's own shape; two
     calls bitwise equal), then B=4 at bf16 T=1 and fp32 T=16, where the
     CUDA-core path splits each column over 256 // 48 = 5 sub-slices and
-    the LN loop runs over 48 columns. Each checked within #2's bounds and
-    timed as cold CUDA-graph replays rotating over the 12 layers' slices
-    and four x (the B=64 rotation holds ~160 MB, past the 50 MB L2),
-    beside the plain version and the bound of one call's bytes."""
-    d, nb, L = 768, 48, 12
+    the LN loop runs over 48 columns."""
+    return fa_slice_rows(torch, KF, ref, gen, "encoder", 768, 48, 12,
+                         ((64, 128, torch.bfloat16), (4, 1, torch.bfloat16),
+                          (4, 16, torch.float32)))
+
+
+def fa_slice_rows(torch, KF, ref, gen, name, d, nb, L, shapes):
+    """#2 on layer slices of [B, L, ...] Â/B̂/LN buffers, as an admitted
+    entry hands them to each layer, at each (B, T, dtype) of ``shapes``:
+    checked within #2's bounds, two calls bitwise equal, and timed as cold
+    CUDA-graph replays rotating over the L layers' slices and four x,
+    beside the plain version and the bound of one call's bytes. Phase 9's
+    verify (B=4, T=gamma+1, qwen's d=1024, b=64) and the encoder's
+    shapes."""
     rows = []
-    for B, T, dtype in ((64, 128, torch.bfloat16), (4, 1, torch.bfloat16),
-                        (4, 16, torch.float32)):
+    for B, T, dtype in shapes:
         bf16 = dtype == torch.bfloat16
         rtol, atol = (FA_BF16_RTOL, FA_BF16_ATOL) if bf16 else \
             (FA_F32_RTOL, FA_F32_ATOL)
@@ -586,7 +625,7 @@ def fa_encoder_rows(torch, KF, ref, gen):
         del layers
         sets = [(xs[l % 4], a3[:, l], b3[:, l], ls3[:, l], lb3[:, l])
                 for l in range(L)]
-        label = f"encoder B={B} T={T} d={d} b={nb} " \
+        label = f"{name} B={B} T={T} d={d} b={nb} " \
             f"{'bf16' if bf16 else 'fp32'}"
         err = check_fa(torch, KF, ref, sets[1], {}, rtol, atol, label)
         first = KF.fused_adapter_batched(*sets[1])
@@ -2262,8 +2301,7 @@ def phase_train_full(torch):
     state, step, src, gen = out["state"], out["step"], out["source"], \
         out["generator"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(args.steps, args.steps + 3):
             state, _ = step(state, src.sample(i, args.batch, args.seq), gen)
         torch.cuda.synchronize()
@@ -2577,8 +2615,7 @@ def phase_encoder_train(torch, counters):
                 .item() for k in ("mA", "mB"))
     ms = statistics.median(ev[2:])
     wall = statistics.median(walls[2:])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(ENC_STEPS, ENC_STEPS + 3):
             state, _ = step(state, batches[i], gen)
         torch.cuda.synchronize()
@@ -2805,11 +2842,455 @@ def phase_encoder(torch):
                 train=train, heldout=heldout, store=store, kernels=kernels)
 
 
+# ----------------------------------------------------------------------------
+# phase 9: continuous batching over paged KV and pooled mask entries,
+# preempt/resume, self-speculative decoding
+# ----------------------------------------------------------------------------
+
+CB_ENGINE = dict(max_slots=4, max_seq=128, sync_every=8)
+CB_PAGE = 16
+CB_GAMMA = 3
+CB_STARVED = dict(long_new=100, max_pages=10)  # two long requests need 14
+
+
+def skewed_requests(Request, vocab, n=12, *, seed=0, long_every=3,
+                    short_new=2, long_new=40):
+    """``benchmarks/cb_smoke.py``'s workload (copied): per-uid seeded
+    prompts of 3-12 tokens, profiles uid % 3, 1 in ``long_every``
+    requests ``long_new`` new tokens, the rest ``short_new``."""
+    import numpy as np
+    reqs = []
+    for i in range(n):
+        r = np.random.default_rng(seed * 7919 + i)
+        T = int(r.integers(3, 13))
+        reqs.append(Request(
+            uid=i, prompt=r.integers(0, vocab, T), profile_id=i % 3,
+            max_new_tokens=long_new if i % long_every == 0 else short_new))
+    return reqs
+
+
+def cb_engine(cfg, params, store, continuous, **kw):
+    """An engine of phase 9's shape: 4 slots, max_seq 128, sync_every 8;
+    continuous ones on pages of 16 rows."""
+    from repro_torch.serve import ServeEngine
+    if continuous:
+        kw = dict(kw, continuous=True, page_size=CB_PAGE)
+    return ServeEngine(cfg, params, store, **CB_ENGINE, **kw)
+
+
+def cb_recorder(eng, MDL):
+    """Hooks on one engine that keep the logits behind every token a drain
+    emits, by (uid, token index): each request's prefill logits at 0, each
+    decode step's (each verify position's) at the index it produces; and
+    each request's prefill batch shape. A step's hook neither syncs nor
+    copies: it keeps a reference to the step's logits, the slots' requests
+    and their host token counts (with spec, a device copy of ``buf_len``),
+    and ``finish`` files them after the drain. ``finish`` also undoes the
+    one global hook (``MDL.lm_logits``)."""
+    logits, shapes, groups, captured, steps = {}, {}, [], [], []
+    lm = MDL.lm_logits
+    group_by_bucket = eng.scheduler.group_by_bucket
+    prefill, decode = eng.prefill_logits, eng.slots.decode_fn
+
+    def lm_logits(*args, **kwargs):
+        out = lm(*args, **kwargs)
+        captured.append(out)
+        return out
+
+    def spy_groups(wave):
+        out = group_by_bucket(wave)
+        groups.extend(out[pad] for pad in sorted(out))
+        return out
+
+    def spy_prefill(tokens, *args, **kwargs):
+        lg, mini = prefill(tokens, *args, **kwargs)
+        for j, r in enumerate(groups.pop(0)):
+            logits[(r.uid, 0)] = lg[j].float().clone()
+            shapes[r.uid] = tuple(tokens.shape)
+        return lg, mini
+
+    def spy_decode(params, cache, last_tok, lengths, masks, active):
+        # a plain step produces token len(generated) + buf_fill of each
+        # slot's request; a spec round's verify position t produces token
+        # len(generated) + buf_len + t (later rounds overwrite what this
+        # one did not commit). buf_len is zeroed in place at each sync:
+        # keep a copy
+        base = eng.slots.buf_len.clone() if eng.spec \
+            else eng.slots.buf_fill
+        captured.clear()
+        out = decode(params, cache, last_tok, lengths, masks, active)
+        steps.append((captured[-1], base, [
+            None if r is None else (r.uid, len(r.generated))
+            for r in eng.slot_req]))
+        return out
+
+    eng.scheduler.group_by_bucket = spy_groups
+    eng.prefill_logits = spy_prefill
+    eng.slots.decode_fn = spy_decode
+    MDL.lm_logits = lm_logits
+
+    def finish():
+        MDL.lm_logits = lm
+        for lg, base, slots in steps:
+            base = base.tolist() if not isinstance(base, int) \
+                else [base] * len(slots)
+            for i, slot in enumerate(slots):
+                if slot is not None:
+                    uid, n = slot
+                    for t in range(lg.shape[1]):
+                        logits[(uid, n + base[i] + t)] = lg[i, t]
+        steps.clear()
+    return dict(logits=logits, shapes=shapes, finish=finish)
+
+
+def cb_drain(torch, run, counters):
+    """Drain phase 9's workload through ``run``'s engine with the
+    recorder's hooks on (they add no host sync), every kernel counter set
+    to 0 just before and read just after: {eng, reqs, dt (seconds),
+    launches, launches_by_t (#2's, by T), waves (each wave's
+    last_admission), rec}."""
+    from repro_torch.models import model as MDL
+    from repro_torch.serve import Request
+
+    eng = cb_engine(run["cfg"], run["params"], run["store"],
+                    run["continuous"], **run["kw"])
+    reqs = skewed_requests(Request, run["cfg"].vocab_size,
+                           n=run.get("n", 12), long_new=run["long_new"])
+    waves = []
+    hydrate = eng._hydrate_stacked
+
+    def spy(wave):
+        out = hydrate(wave)
+        waves.append(dict(eng.last_admission))
+        return out
+    eng._hydrate_stacked = spy
+    rec = cb_recorder(eng, MDL)
+    for fn in counters.values():
+        fn.launches = 0
+    by_t = counters["fused_adapter_batched"].launches_by_t
+    by_t.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        eng.run_until_drained(list(reqs))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        rec["finish"]()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    launches_by_t = dict(by_t)
+    vocab = run["cfg"].vocab_size
+    assert all(r.done and len(r.generated) == r.max_new_tokens
+               for r in reqs)
+    assert all(0 <= t < vocab for r in reqs for t in r.generated)
+    return dict(eng=eng, reqs=reqs, dt=dt, launches=launches,
+                launches_by_t=launches_by_t, waves=waves, rec=rec)
+
+
+def cb_explain(torch, out, ref):
+    """Hold two recorded drains' tokens to each other: for each request
+    whose tokens part, the first token where they part, the first recorded
+    logits where the two runs differ at all (the prefill, with each run's
+    prefill batch shape, or the decode step producing that token), the
+    reference's top-2 gap there and that step's max |d logit|; the gap
+    must be at most twice the max |d logit|."""
+    agree = total = 0
+    flips = []
+    lo, lr = out["rec"]["logits"], ref["rec"]["logits"]
+    # the premise: each run's recorded logits give every token it emitted
+    for run in (out, ref):
+        lg = run["rec"]["logits"]
+        keys = [(r.uid, j) for r in run["reqs"]
+                for j in range(len(r.generated))]
+        picks = torch.stack([lg[k] for k in keys]).argmax(-1).tolist()
+        assert picks == [t for r in run["reqs"] for t in r.generated]
+    for r, q in zip(out["reqs"], ref["reqs"]):
+        assert r.uid == q.uid
+        pairs = list(zip(r.generated, q.generated))
+        agree += sum(a == b for a, b in pairs)
+        total += len(pairs)
+        j = next((t for t, (a, b) in enumerate(pairs) if a != b), None)
+        if j is None:
+            continue
+        first = next(t for t in range(j + 1)
+                     if not torch.equal(lo[(r.uid, t)], lr[(r.uid, t)]))
+        where = (f"the prefill (batch {out['rec']['shapes'][r.uid]} vs "
+                 f"{ref['rec']['shapes'][r.uid]})" if first == 0
+                 else f"the decode step producing token {first}")
+        k_, r_ = lo[(r.uid, j)], lr[(r.uid, j)]
+        top = r_.topk(2)
+        gap = (top.values[0] - top.values[1]).item()
+        d = (k_ - r_).abs().max().item()
+        log(f"  first flip: request {r.uid}, token {j}: reference "
+            f"{q.generated[j]}, this run {r.generated[j]}; the runs first "
+            f"differ at {where}; reference top-2 gap {gap:.4e}, the step's "
+            f"max|d logit| {d:.4e}")
+        assert int(k_.argmax()) == r.generated[j], (r.uid, j)
+        assert int(r_.argmax()) == q.generated[j], (r.uid, j)
+        assert gap <= 2 * d, (r.uid, j, gap, d)
+        flips.append(dict(uid=r.uid, token=j, first_diverging_token=first,
+                          gap=gap, max_d_logit=d))
+    return dict(agree=agree, total=total, flips=flips)
+
+
+def cb_profile(torch, run, label):
+    """One step of ``run``'s engine (a speculation round with spec) with 4
+    live requests of 100 new tokens: 4 steps on the host clock, 2 under
+    torch.profiler tracing the card only, for the device time by kernel
+    (host op events would multiply its cost: a composed step launches
+    ~2,700 kernels, a round 11,000); then the paged gather
+    (``dense_view``) and the one-position writeback on this engine's
+    pool, as CUDA-graph replays."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request
+    from repro_torch.serve import pages as PG
+
+    eng = cb_engine(run["cfg"], run["params"], run["store"],
+                    run["continuous"], **run["kw"])
+    rng = np.random.default_rng(5)
+    eng.submit([Request(uid=100 + i, prompt=rng.integers(
+        0, run["cfg"].vocab_size, 8), profile_id=i % 3, max_new_tokens=100)
+        for i in range(4)])
+    eng.admit_many(eng.scheduler.next_batch(4))
+    for _ in range(2):
+        eng.step()
+    eng.sync()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    eng.sync()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / 4 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in rows) / 1e3 / 2
+    n_kernels = sum(e.count for e in rows) / 2
+    assert dev > 0 and n_kernels > 0, "the profiler traced no kernel"
+    out = dict(step_wall_ms=wall, step_device_ms=dev,
+               step_kernels=n_kernels, busy_share=dev / wall)
+    if run["continuous"]:
+        data, table = eng.cache["data"], eng.cache["table"]
+        dense = PG.dense_view(data, table, CB_PAGE)
+        lengths, active = eng.slots.lengths, eng.slots.active
+        out["gather_ms"] = device_ms(
+            torch, lambda: PG.dense_view(data, table, CB_PAGE), calls=16)
+        # rewrites each live slot's next position with what its page holds
+        out["writeback_ms"] = device_ms(
+            torch, lambda: PG.writeback(data, dense, table, lengths, active,
+                                        CB_PAGE), calls=16)
+        out["gather_bytes"] = 2 * sum(v.numel() * v.element_size()
+                                      for v in dense.values())
+        out["kv_pool_bytes"] = eng.kv_pool_bytes()
+    log(f"  {label} step (B=4): host wall {wall:.3f} ms without the "
+        f"profiler; device {dev:.4f} ms in {n_kernels:.0f} kernels -> busy "
+        f"share {dev / wall:.4f}"
+        + (f"; paged gather {out['gather_ms']:.5f} ms ("
+           f"{out['gather_bytes'] / 1e6:.2f} MB read and written), "
+           f"writeback {out['writeback_ms']:.5f} ms per call; K/V pool "
+           f"{out['kv_pool_bytes'] / 1e6:.2f} MB" if run["continuous"]
+           else ""))
+    return out
+
+
+def phase_continuous(torch, cfg=None):
+    """Phase 9: qwen1.5-0.5b at full width (bf16, bank N=256, b=64, k=50,
+    random weights from seed 0), 4 slots, max_seq 128, page_size 16,
+    sync_every 8, on ``benchmarks/cb_smoke.py``'s skewed workload (12
+    requests). Each continuous run is held to its reference run token for
+    token (first flips explained, see ``cb_explain``) and its launches
+    counted per drain: (a) bf16 composed, continuous vs windowed; (b) the
+    same continuous with long_new 100 and 10 pages (preemptions and
+    resumes > 0) vs the unstarved pool; (c) decode_fused; (d) int8; (e)
+    the hetero bank (phase 6's bank_spec, P=8), each continuous vs
+    windowed; (f) spec gamma=3 vs (a)'s continuous run, and under (b)'s
+    starved pool vs (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import xpeft as XP
+    from repro_torch.core.profiles import ProfileStore
+    from repro_torch.models import init_lm
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_config("qwen1.5-0.5b")
+    xp, L = cfg.xpeft, cfg.num_layers
+    counters = kernel_counters()
+    params = init_lm(cfg, seed=0, device="cuda")
+    table = XP.init_profile_table(cfg.with_xpeft(max_profiles=4), seed=0)
+
+    def store_for(c, **kw):
+        s = ProfileStore(c.num_layers, xp.num_adapters, xp.bottleneck,
+                         xp.mask_type, xp.k, **kw)
+        for pid in range(4):
+            s.add_profile(pid, {k: v[pid] for k, v in table.items()})
+        return s
+
+    store = store_for(cfg)
+    q_cfg = cfg.with_xpeft(bank_quant="int8")
+    q_store = store_for(q_cfg, quant="int8", quant_group=xp.quant_group)
+    h_cfg = cfg.with_xpeft(bank_spec=HETERO_SPEC, prefix_tokens=HETERO_P)
+    h_params, h_store, _ = hetero_setup(torch, h_cfg)
+    s_cfg = cfg.with_(spec_enable=True, spec_gamma=CB_GAMMA)
+    c_cfg = cfg.with_(decode_fused=True)
+
+    def run(cfg_, params_, store_, continuous, long_new=40, **kw):
+        return dict(cfg=cfg_, params=params_, store=store_,
+                    continuous=continuous, long_new=long_new, kw=kw)
+
+    runs = {
+        "a_windowed": run(cfg, params, store, False),
+        "a": run(cfg, params, store, True),
+        "b_unstarved": run(cfg, params, store, True, long_new=100),
+        "b": run(cfg, params, store, True, **CB_STARVED),
+        "c_windowed": run(c_cfg, params, store, False),
+        "c": run(c_cfg, params, store, True),
+        "d_windowed": run(q_cfg, params, q_store, False),
+        "d": run(q_cfg, params, q_store, True),
+        "e_windowed": run(h_cfg, h_params, h_store, False),
+        "e": run(h_cfg, h_params, h_store, True),
+        "f": run(s_cfg, params, store, True),
+        "f_starved": run(s_cfg, params, store, True, **CB_STARVED),
+    }
+    # (run, its reference)
+    pairs = (("a", "a_windowed"), ("b", "b_unstarved"), ("c", "c_windowed"),
+             ("d", "d_windowed"), ("e", "e_windowed"), ("f", "a"),
+             ("f_starved", "b"))
+
+    def expect(name, n, by_t, st, waves):
+        """What each run must launch per drain (``by_t``: #2's launches by
+        T)."""
+        steps, batches = st["device_steps"], st["prefill_batches"]
+        sparse = sum(w["path"] == "sparse" for w in waves)
+        zero = set(n)
+        if name[0] == "c":
+            assert n["decode_block_fused"] == L * steps > 0, n
+            assert n["fused_adapter_batched"] == L * batches, n
+            assert n["mask_aggregate_batched"] == 2 * sparse > 0, n
+            zero -= {"decode_block_fused", "fused_adapter_batched",
+                     "mask_aggregate_batched"}
+        elif name[0] == "d":
+            quant = sum(w["path"] == "quant_sparse" for w in waves)
+            assert n["mask_aggregate_quant_batched"] == 2 * quant > 0, n
+            assert n["fused_adapter_quant_batched"] == \
+                L * (steps + batches), n
+            zero -= {"mask_aggregate_quant_batched",
+                     "fused_adapter_quant_batched"}
+        elif name[0] == "e":
+            assert n["mask_aggregate_batched"] == 10 * sparse > 0, n
+            assert n["hetero_adapter_batched"] == L * (steps + batches), n
+            zero -= {"mask_aggregate_batched", "hetero_adapter_batched"}
+        else:
+            # spec rounds: gamma zero-record drafts and the verify, each
+            # through #2 in every layer
+            per_step = CB_GAMMA + 1 if name[0] == "f" else 1
+            assert n["fused_adapter_batched"] == \
+                L * (per_step * steps + batches) > 0, n
+            # the verifies are #2's only T=gamma+1 launches (prefill
+            # batches pad to 8 tokens or more)
+            assert by_t.get(CB_GAMMA + 1, 0) == \
+                (L * steps if name[0] == "f" else 0), by_t
+            assert n["mask_aggregate_batched"] == 2 * sparse > 0, n
+            zero -= {"fused_adapter_batched", "mask_aggregate_batched"}
+        assert not any(n[k] for k in zero), n
+
+    done, warm, results = {}, set(), {}
+    for name, ref_name in pairs:
+        for key in (ref_name, name):
+            if key in done:
+                continue
+            r = runs[key]
+            if (id(r["cfg"]), r["continuous"]) not in warm:
+                # warm-up: a short drain of the same engine shape
+                warm.add((id(r["cfg"]), r["continuous"]))
+                cb_drain(torch, dict(r, n=4, long_new=4, kw={}), counters)
+            done[key] = cb_drain(torch, r, counters)
+        out, ref = done[name], done[ref_name]
+        eng, st, rst = out["eng"], out["eng"].serve_stats(), \
+            ref["eng"].serve_stats()
+        expect(name, out["launches"], out["launches_by_t"], st,
+               out["waves"])
+        expect(ref_name, ref["launches"], ref["launches_by_t"], rst,
+               ref["waves"])
+        toks = sum(len(q.generated) for q in out["reqs"])
+        label = f"({name}) vs ({ref_name})"
+        agreement = cb_explain(torch, out, ref)
+        log(f"phase 9 {label}: tokens agree {agreement['agree']}/"
+            f"{agreement['total']} ({len(agreement['flips'])} requests "
+            f"part); {len(out['reqs'])} requests / {toks} tokens in "
+            f"{out['dt']:.3f}s = {toks / out['dt']:.1f} tok/s (reference "
+            f"{toks / ref['dt']:.1f})")
+        spec = st.get("spec", {})
+        log(f"  stats: mode {st['mode']}, device steps {st['device_steps']} "
+            f"(reference {rst['device_steps']}), stranded slot steps "
+            f"{st['stranded_slot_steps']} (reference "
+            f"{rst['stranded_slot_steps']}), slot occupancy "
+            f"{st['slot_occupancy']}, committed per device step "
+            f"{st['committed_per_device_step']}, spec acceptance "
+            f"{spec.get('acceptance_rate', 'n/a')}, preemptions "
+            f"{st.get('preemptions', 0)}, resumes {st.get('resumes', 0)}; "
+            f"launches per drain {out['launches']}")
+        if name in ("a", "c", "d", "e"):
+            assert st["stranded_slot_steps"] < rst["stranded_slot_steps"]
+            assert st["device_steps"] < rst["device_steps"]
+        if name in ("b", "f_starved"):
+            assert st["preemptions"] > 0 and st["resumes"] > 0, st
+        if name[0] == "f":
+            assert st["committed_per_device_step"] > 1.0, st
+            assert st["device_steps"] < rst["device_steps"], (st, rst)
+        eng.page_alloc.check()
+        eng.mask_alloc.check()
+        results[name] = dict(
+            reference=ref_name, tok_s=toks / out["dt"],
+            reference_tok_s=toks / ref["dt"], launches=out["launches"],
+            verify_launches=out["launches_by_t"].get(CB_GAMMA + 1, 0),
+            reference_launches=ref["launches"], **agreement,
+            **{k: st[k] for k in (
+                "device_steps", "stranded_slot_steps", "slot_occupancy",
+                "committed_per_device_step", "preemptions", "resumes",
+                "pages")},
+            reference_device_steps=rst["device_steps"],
+            reference_stranded_slot_steps=rst["stranded_slot_steps"],
+            spec=spec or None)
+    t_profile = time.perf_counter()
+    for name in ("a", "c", "d", "e", "f"):
+        results[name].update(cb_profile(torch, runs[name], f"({name})"))
+    # the starved runs are not profiled (their steps have (a)'s and (f)'s
+    # shapes): their host ms per step is the drain's wall over its steps,
+    # admission and swaps included; their device fields stay null
+    for name in ("b", "f_starved"):
+        r = results[name]
+        r.update({k: None for k in (
+            "step_wall_ms", "step_device_ms", "step_kernels", "busy_share",
+            "gather_ms", "writeback_ms", "gather_bytes")},
+            drain_ms_per_step=done[name]["dt"] * 1e3 / r["device_steps"],
+            kv_pool_bytes=done[name]["eng"].kv_pool_bytes())
+        log(f"  ({name}) drain {r['drain_ms_per_step']:.3f} ms of host "
+            f"time per device step (admission and swaps included); not "
+            f"profiled; K/V pool {r['kv_pool_bytes'] / 1e6:.2f} MB")
+    results["a"]["windowed_kv_bytes"] = done["a_windowed"]["eng"] \
+        .kv_pool_bytes()
+    end = time.perf_counter()
+    results["seconds"] = end - t_phase
+    results["profile_seconds"] = end - t_profile
+    results["drain_seconds"] = sum(d["dt"] for d in done.values())
+    log(f"phase 9: {results['seconds']:.1f}s ({results['drain_seconds']:.1f}"
+        f"s in the 12 timed drains, {results['profile_seconds']:.1f}s "
+        "profiling)")
+    return results
+
+
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
                    eng_kw=None):
     """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
     the host clock without the profiler, then 8 steps under torch.profiler
-    for the device time by kernel."""
+    tracing the card only (host op events would cost seconds a step) for
+    the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
@@ -2826,8 +3307,7 @@ def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
     eng.sync()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / 4 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(8):
             eng.step()
         eng.sync()
@@ -2869,7 +3349,14 @@ def main():
     from repro_torch.kernels import ref
     from repro_torch.quant import schemes as QS
 
-    # 1. device
+    # 1. device; each numbered step's wall seconds go to phase_seconds
+    phase_seconds, lap_start = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_seconds[name] = now - lap_start[0]
+        lap_start[0] = now
+
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2882,6 +3369,7 @@ def main():
     so = _build.build(verbose=True)
     _build.load_library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.2f}s")
+    lap("1-2 device and build")
 
     # 3. kernels
     agg = phase_mask_aggregate(torch, KA, ref, F)
@@ -2891,12 +3379,14 @@ def main():
     one = phase_unbatched(torch, KA, KF1, ref, F)
     aggq = phase_mask_aggregate_quant(torch, KAQ, ref, QS)
     faq = phase_fused_adapter_quant(torch, KFQ, ref, QS)
+    lap("3 kernels")
 
     # 4. serve: the composed decode path, the entry points of #3 and #4,
     # then the decode megakernel path
     launches, serve, ctx = phase_serve(torch, KA, KF)
     entry_launches = phase_entry_points(torch, KA, KF1, ctx)
     fused_launches, serve_fused = phase_serve_fused(torch, KA, KF, KD, ctx)
+    lap("4 serve")
     # 5. serve from a quantized bank, each path with the counters set to 0
     # just before it
     quant = {}
@@ -2904,6 +3394,7 @@ def main():
         for fused in (False, True):
             quant[(scheme, fused)] = phase_serve_quant(
                 torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused)
+    lap("5 serve quantized")
     # 6. heterogeneous bank: #7, the hetero-adapter launch, #2's LoRA route
     # and #1's typed shapes on their own, then the serving path
     ia3 = phase_ia3(torch, KI, ref)
@@ -2911,6 +3402,7 @@ def main():
     lora, agg_typed = phase_hetero_kernels(torch, KA, KF, ref)
     hetero_launches, serve_hetero, ia3_launches = phase_serve_hetero(
         torch, KA, KF, KI, KH, KAQ, KFQ, KD, ctx)
+    lap("6 hetero")
     # 7. training: one step on the card against the CPU, ten full-depth
     # steps through the launcher's loop, the trained profiles packed,
     # saved and reloaded, then served per step and from soft masks
@@ -2921,11 +3413,18 @@ def main():
     stores = phase_pack_reload(torch, trained)
     serve_per_step, serve_per_step_fused, serve_soft = phase_serve_trained(
         torch, KA, KF, KD, trained, stores)
+    lap("7 train")
     # 8. the paper's encoder: train at the paper's shape, pack, reload,
     # evaluate from the store, then admit the store through #1 and #2
     del trained, stores
     torch.cuda.empty_cache()
     encoder = phase_encoder(torch)
+    lap("8 encoder")
+    # 9. continuous batching and self-speculation, each run with the
+    # counters set to 0 just before its drain
+    torch.cuda.empty_cache()
+    continuous = phase_continuous(torch)
+    lap("9 continuous")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3015,6 +3514,17 @@ def main():
     for row in kernels[1]["other_shapes"]:
         if row["shape"].startswith("encoder B=64 T=128"):
             row["launches_encoder_path"] = enc_launches[kernels[1]["name"]]
+    # phase 9: every kernel's launches per drain of each continuous run;
+    # #2's verify row: the spec runs' T=gamma+1 launches, as counted
+    for row in kernels:
+        row["launches_continuous"] = {
+            run: continuous[run]["launches"][row["name"]]
+            for run in ("a", "b", "c", "d", "e", "f", "f_starved")}
+    for row in kernels[1]["other_shapes"]:
+        if row["shape"].startswith("verify"):
+            row["launches_continuous"] = {
+                run: continuous[run]["verify_launches"]
+                for run in ("f", "f_starved")}
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3023,6 +3533,8 @@ def main():
         row["launches"] = n
         serve_quant[f"{scheme}_{'decode_fused' if fused else 'composed'}"] \
             = row
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_seconds.items()))
     log(json.dumps({"train": dict(train, step_vs_cpu=train_step)}))
     log(json.dumps({"encoder": encoder}))
     log(json.dumps({"kernels": kernels, "serve": serve,
@@ -3031,7 +3543,9 @@ def main():
                     "serve_hetero": serve_hetero,
                     "serve_per_step": serve_per_step,
                     "serve_per_step_decode_fused": serve_per_step_fused,
-                    "serve_soft": serve_soft}))
+                    "serve_soft": serve_soft,
+                    "serve_continuous": continuous,
+                    "phase_seconds": phase_seconds}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

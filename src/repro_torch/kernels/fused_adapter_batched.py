@@ -18,7 +18,8 @@ Pallas body rounds differently and why.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises (a shape no cluster fits raises too).
-``fused_adapter_batched.launches`` counts kernel launches.
+``fused_adapter_batched.launches`` counts kernel launches,
+``fused_adapter_batched.launches_by_t`` the same launches by x's T.
 """
 from __future__ import annotations
 
@@ -131,6 +132,8 @@ def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
     out = launch(x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
                  use_ln=use_ln)
     fused_adapter_batched.launches += 1
+    by_t = fused_adapter_batched.launches_by_t
+    by_t[x.shape[1]] = by_t.get(x.shape[1], 0) + 1
     return out
 
 
@@ -182,3 +185,4 @@ def launch(x, a_hat, b_hat, ln_scale, ln_bias, *, activation, use_ln):
 
 
 fused_adapter_batched.launches = 0
+fused_adapter_batched.launches_by_t = {}

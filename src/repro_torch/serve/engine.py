@@ -1,7 +1,7 @@
 """Serving engine orchestrator: scheduler + slot state + profile cache.
 
-The port of ``repro.serve.engine.ServeEngine`` in windowed mode
-(``continuous=False``). With admission-time aggregation
+The port of ``repro.serve.engine.ServeEngine``, windowed
+(``continuous=False``) and continuous. With admission-time aggregation
 (``precompute=True``) it serves hard- or soft-mask profiles from a
 type-pure bank (soft masks aggregate densely, one einsum per wave),
 unquantized or quantized
@@ -36,9 +36,24 @@ route; ``last_admission["path"] == "per_step"``). With X-PEFT disabled the
 engine serves the bare PLM.
 
 Decode then advances every slot one token per ``step()``; the host syncs
-every ``sync_every`` steps, bounded by the tokens any live request can
-still emit. Constructor options outside this slice raise
-``NotImplementedError`` naming their ROADMAP item.
+every ``sync_every`` steps. Windowed, the window is bounded by the MOST
+tokens any live request can still emit, and the slots decode in lockstep
+waves. Continuous (``continuous=True``), the KV cache lives in a pool of
+``page_size``-row pages addressed through a per-slot page table
+(``serve/pages.py``), and the mask records in a pool of entries addressed
+through a per-slot entry table; the window is bounded by the FEWEST
+tokens any live request can still emit, so the sync lands when the first
+slot frees, and every sync retires finished requests, frees their pages
+and entries and admits or resumes into the freed slots. When the page
+pool runs dry the youngest live request is swapped out to the host
+(pages, mask record and slot scalars copied out byte for byte) and
+resumed in order once pages free. Each decode step gathers a dense view
+of the pages, runs the forward on it, and writes the one new position
+back. With ``cfg.spec_enable`` each step is a self-speculation round:
+``spec_gamma`` bare-PLM drafts under a zero-adapter view, one adapted
+verify at T = gamma+1, and a commit of the accepted prefix plus one token
+(greedy output equal to plain decoding). Constructor options outside
+this slice raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.models import model as MDL
 from repro_torch.quant import schemes as QS
+from repro_torch.serve import pages as PG
 from repro_torch.serve.profile_cache import ProfileCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slots import SlotState
@@ -62,6 +78,27 @@ def _rate(num, den, nd: int = 4) -> float:
     """Rate field for serve_stats(): 0.0 when the denominator never
     ticked."""
     return round(num / den, nd) if den else 0.0
+
+
+def _check_spec(cfg, *, continuous) -> None:
+    """The JAX engine's refusals of speculation (ValueError). The
+    megakernel's exclusivity is checked first: spec with decode_fused
+    is refused whatever the mode."""
+    if not cfg.spec_enable:
+        return
+    if cfg.decode_fused:
+        raise ValueError(
+            "spec_enable and decode_fused are exclusive per engine: "
+            "verification runs a T=gamma+1 composed forward, which the T=1 "
+            "megakernel cannot serve")
+    if not continuous:
+        raise ValueError("spec_enable requires continuous=True (drafting "
+                         "rides the paged decode path)")
+    if cfg.block_pattern != "attn":
+        raise ValueError("spec_enable requires pure-attention blocks "
+                         "(recurrent state cannot rewind rejected drafts)")
+    if cfg.spec_gamma < 1:
+        raise ValueError("spec_gamma must be >= 1")
 
 
 def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
@@ -79,6 +116,11 @@ def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
         raise ValueError("heterogeneous precompute serving requires "
                          "hard-mask profiles (per-type k-sparse "
                          "aggregation)")
+    if xp.has_prefix and cfg.spec_enable:
+        raise ValueError(
+            "spec_enable cannot serve a prefix-bearing bank_spec: bare-PLM "
+            "drafts would attend the adapted prefix KV rows resident in the "
+            "shared cache")
     if xp.has_prefix and not precompute:
         raise ValueError(
             "per-step mask serving cannot hydrate prefix KV rows; a "
@@ -110,20 +152,10 @@ def _check_quant(cfg, store, *, precompute) -> None:
 
 def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
                  fault_plan, obs) -> None:
+    _check_spec(cfg, continuous=continuous)
     _check_hetero(cfg, store, precompute=precompute, max_seq=max_seq)
     _check_quant(cfg, store, precompute=precompute)
     MDL.check_supported(cfg)
-    if continuous:
-        raise NotImplementedError("continuous batching is not ported "
-                                  "(ROADMAP queue 1, item 5)")
-    if cfg.spec_enable and cfg.decode_fused:
-        raise ValueError(
-            "spec_enable and decode_fused are exclusive per engine: "
-            "verification runs a T=gamma+1 composed forward, which the T=1 "
-            "megakernel cannot serve")
-    if cfg.spec_enable:
-        raise NotImplementedError("speculative decoding is not ported "
-                                  "(ROADMAP queue 1, item 5)")
     if mesh is not None:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(ROADMAP queue 1, item 11)")
@@ -137,8 +169,9 @@ class ServeEngine:
                  max_slots: int = 4, max_seq: int = 256,
                  precompute: bool = True, sync_every: int = 8,
                  cache_bytes: Optional[int] = 64 << 20,
-                 continuous: bool = False, mesh=None, fault_plan=None,
-                 obs=None):
+                 continuous: bool = False, page_size: int = 16,
+                 max_pages: Optional[int] = None, mesh=None,
+                 fault_plan=None, obs=None):
         _check_slice(cfg, store, precompute=precompute, max_seq=max_seq,
                      continuous=continuous, mesh=mesh,
                      fault_plan=fault_plan, obs=obs)
@@ -174,83 +207,77 @@ class ServeEngine:
         self.S = max_seq
         self.n_slots = max_slots
         self.sync_every = sync_every
-        self.cache = MDL.init_cache(cfg, max_slots, max_seq,
-                                    device=self.device)
+        self.continuous = continuous
+        self.page_size = page_size
+        # self-speculation: the zero-adapter view (bitwise the bare PLM)
+        # drafts spec_gamma tokens per slot per round, the adapted model
+        # verifies them in one T=gamma+1 forward
+        self.spec = bool(cfg.spec_enable)
+        self.spec_gamma = int(cfg.spec_gamma)
+        dev = self.device
+        if continuous:
+            # the KV cache as a page pool + per-slot page table; the host
+            # mirror of the table is the allocator's view of it
+            template = MDL.init_cache(cfg, max_slots, max_seq, device="meta")
+            if max_seq % page_size:
+                raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                                 f"page_size {page_size}")
+            per_req = PG.pages_needed(PG.paged_seq_len(template), page_size)
+            self.n_pages = (max_pages if max_pages is not None
+                            else max_slots * per_req)
+            if self.n_pages < per_req:
+                raise ValueError(
+                    f"max_pages={self.n_pages} cannot hold one max-length "
+                    f"request ({per_req} pages) — the engine could deadlock "
+                    "instead of preempting")
+            self.page_alloc = PG.PageAllocator(self.n_pages)
+            self.cache = PG.make_paged_cache(template, self.n_pages,
+                                             page_size, max_slots, device=dev)
+            self._mp = int(self.cache["table"].shape[1])
+            self._sentinel = self.n_pages
+            self._page_table_h = np.full((max_slots, self._mp),
+                                         self._sentinel, np.int32)
+        else:
+            self.page_alloc = None
+            self.n_pages = 0
+            self.cache = MDL.init_cache(cfg, max_slots, max_seq, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
-        self.scheduler = Scheduler(cfg.block_pattern, policy="fifo")
+        # continuous mode admits in small increments (1-2 freed slots), so
+        # largest-bucket-first keeps prefill launches full; promotion after
+        # 4 waits stops that from starving rare lengths. The windowed
+        # engine keeps strict head-first FIFO.
+        self.scheduler = Scheduler(
+            cfg.block_pattern, policy="efficiency" if continuous else "fifo",
+            max_wait_waves=4 if continuous else None)
         self.profile_cache = ProfileCache(cache_bytes)
         # re-graduation hook: a re-added profile never serves a stale
         # cached aggregate (the store holds this bound method weakly)
         store.subscribe(self.invalidate_profile)
-        L, b, d = cfg.num_layers, xp.bottleneck, cfg.d_model
-        dt = MDL.torch_dtype(cfg.dtype)
-        dev = self.device
-        if not xp.enabled:
-            self._entry_keys = ()
-            self.masks = None
-        elif not self.precompute:
-            # per-step: each slot's float mask weights and LN affines, which
-            # every prefill and decode step aggregates against the bank
-            self._entry_keys = ("w_a", "w_b", "ln_scale", "ln_bias")
-            N = xp.num_adapters
-            self.masks = {
-                "w_a": torch.zeros((max_slots, L, N), device=dev),
-                "w_b": torch.zeros((max_slots, L, N), device=dev),
-                "ln_scale": torch.ones((max_slots, L, b), device=dev),
-                "ln_bias": torch.zeros((max_slots, L, b), device=dev)}
-        elif self.quant != "none":
-            # per-slot QUANTIZED Â/B̂ records + fp16 scales, read by the
-            # decode step and widened in registers
-            aq_s, aq_dt, as_s = QS.quant_spec((max_slots, L, d, b),
-                                              self.quant,
-                                              group=xp.quant_group)
-            bq_s, bq_dt, bs_s = QS.quant_spec((max_slots, L, b, d),
-                                              self.quant,
-                                              group=xp.quant_group)
-            adapter = {
-                "a_q": torch.zeros(aq_s, dtype=aq_dt, device=dev),
-                "a_scale": torch.zeros(as_s, dtype=torch.float16,
-                                       device=dev),
-                "b_q": torch.zeros(bq_s, dtype=bq_dt, device=dev),
-                "b_scale": torch.zeros(bs_s, dtype=torch.float16,
-                                       device=dev),
-            }
-            self.masks = dict(
-                adapter,
-                ln_scale=torch.ones((max_slots, L, b), dtype=torch.float32,
-                                    device=dev),
-                ln_bias=torch.zeros((max_slots, L, b), dtype=torch.float32,
-                                    device=dev))
-            self._entry_keys = tuple(self.masks)
-        else:
-            # what one hydrated entry carries; the slot buffers hold the
-            # same leaves minus the prefix ROWS (they go into the KV cache
-            # at prefill; only the per-layer skip gate rides with decode)
-            self._entry_keys = ("a_hat", "b_hat", "ln_scale", "ln_bias")
-            if self.hetero:
-                self._entry_keys = XP.hetero_entry_keys(xp) + (
-                    ("prefix_skip",) if self.prefix_len else ())
-            shapes = {
-                "a_hat": ((L, d, b), dt), "b_hat": ((L, b, d), dt),
-                "ln_scale": ((L, b), torch.float32),
-                "ln_bias": ((L, b), torch.float32),
-                "lora_a": ((L, d, b), dt), "lora_b": ((L, b, d), dt),
-                "ia3_s": ((L, d), dt), "prefix_skip": ((L,), torch.int32),
-            }
-            self.masks = {
-                key: (torch.ones if key == "ln_scale" else torch.zeros)(
-                    (max_slots,) + shapes[key][0], dtype=shapes[key][1],
-                    device=dev)
-                for key in self._entry_keys if key in shapes}
-
-        def decode_fn(params, cache, last_tok, lengths, masks, active):
-            hidden, cache, _ = MDL.forward(params, last_tok[:, None], cfg,
-                                           profile_masks=masks, cache=cache,
-                                           cache_pos=lengths)
-            return greedy_next(MDL.lm_logits(params, hidden, cfg)), cache
-
-        self.slots = SlotState(max_slots, max_seq, sync_every, decode_fn,
-                               device=dev)
+        # continuous mode: the mask records live in an ENTRY POOL (one
+        # entry = one request's record, one entry per slot) addressed
+        # through a per-slot table
+        self.n_mask_entries = max_slots
+        self._entry_keys = self._entry_key_set()
+        self.masks = self._mask_buffers(max_slots)
+        self.mask_alloc = None
+        self._masks_view = self._zero_view = None
+        if continuous and self.masks is not None:
+            self.mask_alloc = PG.PageAllocator(self.n_mask_entries)
+            self._mask_table_h = np.full((max_slots,), self.n_mask_entries,
+                                         np.int32)
+            self.masks = {"pool": self.masks,
+                          "table": torch.from_numpy(self._mask_table_h).to(
+                              dev)}
+            # the step reads a slot-indexed VIEW of the pool, gathered
+            # again only when an entry table moves (at host syncs)
+            self._masks_view = self._mask_buffers(max_slots)
+            if self.spec:
+                # the drafts' constant zero-adapter view (identity LN): the
+                # draft model IS the bare PLM
+                self._zero_view = self._mask_buffers(max_slots)
+        self.slots = SlotState(
+            max_slots, max_seq, sync_every, self._decode_fn(), device=dev,
+            spec_width=self.spec_gamma + 1 if self.spec else 1)
         # what the last admission did (path, cache hits, bank bytes,
         # prefill occupancy), as the JAX engine reports it
         self.last_admission: Optional[dict] = None
@@ -258,7 +285,154 @@ class ServeEngine:
         self.prefill_batches = 0
         self.prefill_rows = 0
         self.prefill_real = 0
+        # speculation accounting: drafts offered vs accepted, totals and
+        # per request (uid-keyed, so it survives preempt/resume)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._spec_by_uid: dict = {}
         self._window = sync_every
+        # continuous-batching state: admission-order stamps (preempt the
+        # youngest), the preempted-request resume queue (oldest first),
+        # and the capacity accounting serve_stats reports
+        self._slot_seq = [0] * max_slots
+        self._admit_seq = 0
+        self._resume_q: List[dict] = []
+        self._backlog = False
+        self._tables_dirty = True
+        self._view_dirty = True
+        self.preemptions = 0
+        self.resumes = 0
+        self.useful_slot_steps = 0
+        self.stranded_slot_steps = 0
+
+    def _entry_key_set(self) -> tuple:
+        """The leaves one hydrated entry carries. The mask buffers hold
+        the same leaves minus a prefix bank's ROWS (they go into the KV
+        cache at prefill; only the per-layer skip gate rides with
+        decode)."""
+        xp = self.cfg.xpeft
+        if not xp.enabled:
+            return ()
+        if not self.precompute:
+            return ("w_a", "w_b", "ln_scale", "ln_bias")
+        if self.quant != "none":
+            return ("a_q", "a_scale", "b_q", "b_scale", "ln_scale",
+                    "ln_bias")
+        if self.hetero:
+            return XP.hetero_entry_keys(xp) + (
+                ("prefix_skip",) if self.prefix_len else ())
+        return ("a_hat", "b_hat", "ln_scale", "ln_bias")
+
+    def _mask_buffers(self, lead: int):
+        """Zeroed mask buffers with ``lead`` rows (identity LN): the
+        windowed engine's per-slot buffers, or the continuous engine's
+        entry pool and its slot views. None with X-PEFT disabled. A
+        zeroed row is the bare PLM's record: the adapter adds exactly 0."""
+        cfg, xp, dev = self.cfg, self.cfg.xpeft, self.device
+        L, b, d = cfg.num_layers, xp.bottleneck, cfg.d_model
+        dt = MDL.torch_dtype(cfg.dtype)
+        if not xp.enabled:
+            return None
+        if not self.precompute:
+            # per-step: each slot's float mask weights and LN affines, which
+            # every prefill and decode step aggregates against the bank
+            N = xp.num_adapters
+            return {"w_a": torch.zeros((lead, L, N), device=dev),
+                    "w_b": torch.zeros((lead, L, N), device=dev),
+                    "ln_scale": torch.ones((lead, L, b), device=dev),
+                    "ln_bias": torch.zeros((lead, L, b), device=dev)}
+        if self.quant != "none":
+            # QUANTIZED Â/B̂ records + fp16 scales, read by the decode
+            # step and widened in registers
+            aq_s, aq_dt, as_s = QS.quant_spec((lead, L, d, b), self.quant,
+                                              group=xp.quant_group)
+            bq_s, bq_dt, bs_s = QS.quant_spec((lead, L, b, d), self.quant,
+                                              group=xp.quant_group)
+            f16, f32 = torch.float16, torch.float32
+            return {
+                "a_q": torch.zeros(aq_s, dtype=aq_dt, device=dev),
+                "a_scale": torch.zeros(as_s, dtype=f16, device=dev),
+                "b_q": torch.zeros(bq_s, dtype=bq_dt, device=dev),
+                "b_scale": torch.zeros(bs_s, dtype=f16, device=dev),
+                "ln_scale": torch.ones((lead, L, b), dtype=f32, device=dev),
+                "ln_bias": torch.zeros((lead, L, b), dtype=f32, device=dev)}
+        shapes = {
+            "a_hat": ((L, d, b), dt), "b_hat": ((L, b, d), dt),
+            "ln_scale": ((L, b), torch.float32),
+            "ln_bias": ((L, b), torch.float32),
+            "lora_a": ((L, d, b), dt), "lora_b": ((L, b, d), dt),
+            "ia3_s": ((L, d), dt), "prefix_skip": ((L,), torch.int32),
+        }
+        return {key: (torch.ones if key == "ln_scale" else torch.zeros)(
+                    (lead,) + shapes[key][0], dtype=shapes[key][1],
+                    device=dev)
+                for key in self._entry_keys if key in shapes}
+
+    def _decode_fn(self):
+        """The model half of the slot step, for this engine's mode (see
+        ``SlotState``)."""
+        cfg, ps = self.cfg, self.page_size
+        if not self.continuous:
+            def decode_fn(params, cache, last_tok, lengths, masks, active):
+                hidden, cache, _ = MDL.forward(
+                    params, last_tok[:, None], cfg, profile_masks=masks,
+                    cache=cache, cache_pos=lengths)
+                return greedy_next(MDL.lm_logits(params, hidden, cfg)), cache
+            return decode_fn
+        if not self.spec:
+            # paged decode: gather the pages back to the dense layout the
+            # forward takes (junk pages cover only masked positions), run
+            # the step on it, scatter the one written position back. Masks
+            # arrive as the slot-indexed view of the entry pool.
+            def decode_fn(params, cache, last_tok, lengths, masks, active):
+                dense = PG.dense_view(cache["data"], cache["table"], ps)
+                hidden, dense, _ = MDL.forward(
+                    params, last_tok[:, None], cfg, profile_masks=masks,
+                    cache=dense, cache_pos=lengths)
+                PG.writeback(cache["data"], dense, cache["table"], lengths,
+                             active, ps)
+                return greedy_next(MDL.lm_logits(params, hidden, cfg)), cache
+            return decode_fn
+        gamma, W = self.spec_gamma, self.spec_gamma + 1
+
+        # a speculation round: gamma bare-PLM draft steps over the paged
+        # T=1 decode, then ONE adapted T=gamma+1 verify at each slot's own
+        # offset. The verify rewrites the drafts' bare KV with adapted KV
+        # before attending (write-then-read inside forward), and
+        # writeback_span commits the whole span to pages: positions past
+        # the accepted prefix hold stale KV that the causal mask hides and
+        # the next round overwrites.
+        def decode_fn(params, cache, last_tok, lengths, masks, active):
+            adapted = None if masks is None else masks["adapted"]
+            zero = None if masks is None else masks["zero"]
+            data, table = cache["data"], cache["table"]
+            tok, pos, drafts = last_tok, lengths, []
+            for _ in range(gamma):
+                dense = PG.dense_view(data, table, ps)
+                hidden, dense, _ = MDL.forward(
+                    params, tok[:, None], cfg, profile_masks=zero,
+                    cache=dense, cache_pos=pos)
+                # near capacity a draft can point past S-1: its KV write is
+                # dropped (such positions are never committed)
+                PG.writeback(data, dense, table, pos, active & (pos < self.S),
+                             ps)
+                tok = greedy_next(MDL.lm_logits(params, hidden, cfg))
+                drafts.append(tok)
+                pos = pos + 1
+            drafts = torch.stack(drafts, dim=1)               # [n, gamma]
+            seq = torch.cat([last_tok[:, None], drafts], dim=1)
+            dense = PG.dense_view(data, table, ps)
+            hidden, dense, _ = MDL.forward(
+                params, seq, cfg, profile_masks=adapted, cache=dense,
+                cache_pos=lengths)
+            PG.writeback_span(data, dense, table, lengths, W, active, ps)
+            logits = MDL.lm_logits(params, hidden, cfg)
+            # the same argmax as greedy_next, one per position
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)
+            match = (drafts == toks[:, :gamma]).to(torch.int32)
+            n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+            return toks, n_acc, cache
+        return decode_fn
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -515,6 +689,183 @@ class ServeEngine:
                               scheme=self.quant)
         return self._stack(entries, pids)
 
+    # ------------------------------------------------------- paged memory
+    def _push_tables(self) -> None:
+        """Copy the host page/entry table mirrors to the device, only when
+        a mutator marked them dirty (a sync that retired nothing costs no
+        transfer)."""
+        if not self._tables_dirty:
+            return
+        self._tables_dirty = False
+        self.cache["table"] = torch.from_numpy(self._page_table_h).to(
+            self.device)
+        if self.mask_alloc is not None:
+            self.masks["table"] = torch.from_numpy(self._mask_table_h).to(
+                self.device)
+
+    def _reserve_resources(self, reqs: List[Request]) -> List[Request]:
+        """Claim a mask entry + prompt-covering pages for each admission
+        candidate; requests the pools can't hold yet go back to the FRONT
+        of the scheduler queue (admission never preempts running requests
+        — only page growth for already-running slots does)."""
+        kept: List[Request] = []
+        for k, r in enumerate(reqs):
+            try:
+                if self.mask_alloc is not None:
+                    self.mask_alloc.alloc(1, r.uid)
+                # pages cover the hydrated prefix rows too, resolved from
+                # the store before hydration
+                need = PG.pages_needed(self._req_prefix_len(r)
+                                       + len(r.prompt), self.page_size)
+                try:
+                    self.page_alloc.alloc(need, r.uid)
+                except PG.PageOOM:
+                    if self.mask_alloc is not None:
+                        self.mask_alloc.free_owner(r.uid)
+                    raise
+            except PG.PageOOM:
+                self.scheduler.requeue_front(reqs[k:])
+                break
+            kept.append(r)
+        return kept
+
+    def _assign_tables(self, slot: int, r: Request) -> None:
+        """Point a slot's page-table row and entry-table entry at what its
+        request holds (host mirrors; pushed by ``_push_tables``)."""
+        pages = self.page_alloc.pages_of(r.uid)
+        self._page_table_h[slot] = self._sentinel
+        self._page_table_h[slot, :len(pages)] = pages
+        if self.mask_alloc is not None:
+            self._mask_table_h[slot] = self.mask_alloc.pages_of(r.uid)[0]
+            self._view_dirty = True
+        self._tables_dirty = True
+
+    def _release_request(self, slot: int, req: Request) -> None:
+        """Free a retired request's pages + mask entry and sentinel its
+        table rows (the slot is already inactive on the device, so its
+        writes go to the scratch page either way; its stale view row is
+        never read)."""
+        self.page_alloc.free_owner(req.uid)
+        self._page_table_h[slot] = self._sentinel
+        if self.mask_alloc is not None:
+            self.mask_alloc.free_owner(req.uid)
+            self._mask_table_h[slot] = self.n_mask_entries
+        self._tables_dirty = True
+
+    @torch.no_grad()
+    def _preempt_slot(self, slot: int) -> None:
+        """Swap a running request out to the host (its pages, its mask
+        record and the host-reconstructible slot scalars), free its device
+        resources, and queue it for resume. Swap, not recompute: the saved
+        bytes come back unchanged, so a resumed request decodes as if it
+        had never left."""
+        r = self.slot_req[slot]
+        row = torch.from_numpy(self._page_table_h[slot]).to(self.device)
+        # own host copies (on the CPU, .cpu() would hand back views of
+        # pool rows the next owner overwrites)
+        rows = {k: v.to("cpu", copy=True) for k, v in PG.extract_slot(
+            self.cache["data"], row, slot).items()}
+        mask_row = None
+        if self.mask_alloc is not None:
+            entry = self.mask_alloc.pages_of(r.uid)[0]
+            mask_row = {k: v[entry].to("cpu", copy=True)
+                        for k, v in self.masks["pool"].items()}
+        self._resume_q.append({
+            "req": r, "rows": rows, "mask": mask_row,
+            "len": self._rlen(r) + len(r.generated) - 1,
+            "seq": self._slot_seq[slot]})
+        self._release_request(slot, r)
+        hot = np.zeros((self.n_slots,), bool)
+        hot[slot] = True
+        self.slots.deactivate(hot)
+        self.slot_req[slot] = None
+        r.preemptions += 1
+        self.preemptions += 1
+
+    def _youngest_live(self, but: int) -> Optional[int]:
+        """Preemption victim: the most recently admitted live slot other
+        than `but` (LIFO preemption keeps the oldest work finishing)."""
+        live = [(self._slot_seq[i], i)
+                for i, r in enumerate(self.slot_req)
+                if r is not None and i != but]
+        return max(live)[1] if live else None
+
+    @torch.no_grad()
+    def _try_resume(self) -> int:
+        """Restore preempted requests (oldest first) into free slots while
+        pages + entries allow. A blocked head blocks the queue — resumes
+        never leapfrog, so preemption stays starvation-free."""
+        n = 0
+        while self._resume_q and self.free_slots():
+            snap = self._resume_q[0]
+            r = snap["req"]
+            slot = self.free_slots()[0]
+            try:
+                if self.mask_alloc is not None:
+                    self.mask_alloc.alloc(1, r.uid)
+                try:
+                    self.page_alloc.alloc(
+                        PG.pages_needed(snap["len"], self.page_size), r.uid)
+                except PG.PageOOM:
+                    if self.mask_alloc is not None:
+                        self.mask_alloc.free_owner(r.uid)
+                    raise
+            except PG.PageOOM:
+                break
+            self._resume_q.pop(0)
+            self._assign_tables(slot, r)
+            self._push_tables()
+            row = torch.from_numpy(self._page_table_h[slot]).to(self.device)
+            PG.restore_slot(self.cache["data"], snap["rows"], row, slot)
+            if snap["mask"] is not None:
+                entry = int(self._mask_table_h[slot])
+                for k, v in self.masks["pool"].items():
+                    v[entry] = snap["mask"][k].to(self.device)
+            self.slots.restore([slot], [r.generated[-1]], [snap["len"]],
+                               [len(r.generated)], [r.max_new_tokens])
+            self.slot_req[slot] = r
+            self._slot_seq[slot] = snap["seq"]
+            self.resumes += 1
+            n += 1
+        return n
+
+    def _ensure_window_pages(self, window: int) -> None:
+        """Grow every live slot's allocation to cover the next `window`
+        decode writes, oldest slot first; on pool exhaustion the YOUNGEST
+        live slot is preempted and its pages reused. The pool holds one
+        max-length request (checked at construction), so the oldest slot
+        always makes progress — no deadlock, no starvation."""
+        for _, i in sorted((self._slot_seq[i], i)
+                           for i, r in enumerate(self.slot_req)
+                           if r is not None):
+            r = self.slot_req[i]
+            if r is None:
+                continue  # preempted by an earlier iteration
+            cur = self._rlen(r) + len(r.generated) - 1
+            need = PG.pages_needed(min(cur + window, self.S - 1),
+                                   self.page_size)
+            while need > len(self.page_alloc.pages_of(r.uid)):
+                have = len(self.page_alloc.pages_of(r.uid))
+                try:
+                    new = self.page_alloc.alloc(need - have, r.uid)
+                    self._page_table_h[i, have:need] = new
+                    self._tables_dirty = True
+                except PG.PageOOM:
+                    victim = self._youngest_live(but=i)
+                    if victim is None:
+                        raise  # can't happen: pool >= one full request
+                    self._preempt_slot(victim)
+
+    def _req_prefix_len(self, r) -> int:
+        """Host-side prefix length of a request before hydration: P when
+        its profile's hard masks select any prefix-segment slot, else 0."""
+        if not self.prefix_len:
+            return 0
+        off, cnt = self._prefix_seg
+        ia, _, ib, _ = self.store.sparse_indices(int(r.profile_id))
+        return self.prefix_len if any(
+            ((i >= off) & (i < off + cnt)).any() for i in (ia, ib)) else 0
+
     # ---------------------------------------------------------------- public
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -527,28 +878,52 @@ class ServeEngine:
     def admit_many(self, reqs: List[Request]) -> int:
         """Admit up to len(free_slots()) requests: one cache-aware batched
         hydration, one mask scatter, one prefill per length bucket, one
-        slot-state scatter. Returns #admitted."""
+        slot-state scatter. Continuous, preempted work is resumed first,
+        and a request the pools can't hold yet goes back to the queue's
+        head. Returns #admitted."""
         if self.slots.buf_fill:
             self.sync()  # flush the window before touching slot state
+        resumed = 0
+        if self._resume_q:
+            resumed = self._try_resume()  # preempted work outranks fresh
         free = self.free_slots()
         if len(reqs) > len(free):
+            # the wave was sized to the free count before the sync/resume
+            # above; the overflow goes back to the head, never dropped
             self.scheduler.requeue_front(reqs[len(free):])
             reqs = reqs[:len(free)]
+        if self.continuous and reqs:
+            reqs = self._reserve_resources(reqs)
         if not reqs:
+            if resumed:
+                self._refresh_window()  # resumed slots need window + view
             return 0
         assigned = free[:len(reqs)]
+        if self.continuous:
+            # commit page/entry tables BEFORE the prefill insert and mask
+            # scatter: both address device memory through them
+            for r, s in zip(reqs, assigned):
+                self._assign_tables(s, r)
+                self._slot_seq[s] = self._admit_seq
+                self._admit_seq += 1
+            self._push_tables()
         stacked = self._hydrate_stacked(reqs)
         prefix_rows = None
         if self.prefix_len:
             # prefix KV rows go into the cache at prefill, not into the
-            # slot buffers
+            # mask buffers
             prefix_rows = (stacked.pop("prefix_k"), stacked.pop("prefix_v"))
         if stacked is not None:
-            # ONE scatter into the per-slot buffers for the whole wave
-            slot_t = torch.tensor(assigned, dtype=torch.long,
-                                  device=self.device)
-            for key, buf in self.masks.items():
-                buf[slot_t] = stacked[key].to(buf.dtype)
+            # ONE scatter into the per-slot buffers (windowed) or the
+            # requests' pool entries (continuous) for the whole wave
+            if self.continuous:
+                bufs = self.masks["pool"]
+                dest = [self.mask_alloc.pages_of(r.uid)[0] for r in reqs]
+            else:
+                bufs, dest = self.masks, assigned
+            dest = torch.tensor(dest, dtype=torch.long, device=self.device)
+            for key, buf in bufs.items():
+                buf[dest] = stacked[key].to(buf.dtype)
 
         slot_of = {id(r): s for r, s in zip(reqs, assigned)}
         idx_of = {id(r): i for i, r in enumerate(reqs)}
@@ -577,8 +952,13 @@ class ServeEngine:
             logits, mini = self.prefill_logits(
                 torch.from_numpy(toks).to(self.device), rows,
                 torch.from_numpy(lens).to(self.device), cpos, prows)
-            self._insert(mini, torch.tensor(
-                [slot_of[id(r)] for r in group], device=self.device))
+            gslots = torch.tensor([slot_of[id(r)] for r in group],
+                                  device=self.device)
+            if self.continuous:
+                PG.insert_group(self.cache["data"], mini, gslots,
+                                self.cache["table"], self.page_size)
+            else:
+                self._insert(mini, gslots)
             nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
             for j, r in enumerate(group):
                 next_toks[id(r)] = int(nxt_h[j])
@@ -601,6 +981,8 @@ class ServeEngine:
             r.generated.append(next_toks[id(r)])
             if r.max_new_tokens <= 1 or self._rlen(r) >= self.S - 1:
                 r.done = True  # budget spent by the prefill token
+                if self.continuous:
+                    self._release_request(slot, r)
             else:
                 self.slot_req[slot] = r
         self._refresh_window()
@@ -612,22 +994,40 @@ class ServeEngine:
         return getattr(r, "prefix_len", 0) + len(r.prompt)
 
     def step(self) -> int:
-        """One device decode step for all slots. Host state refreshes only
-        at the window's sync; returns the host-visible active count as of
-        the last sync (an upper bound on live slots)."""
+        """One device decode step (a speculation round with spec) for all
+        slots. Host state refreshes only at the window's sync; returns the
+        host-visible active count as of the last sync (an upper bound on
+        live slots)."""
         active = self.active_count()
         if not active:
             return 0
-        self.cache = self.slots.step(self.params, self.cache, self.masks)
+        masks = self._masks_view if self.continuous else self.masks
+        if self.spec and masks is not None:
+            masks = {"adapted": masks, "zero": self._zero_view}
+        self.cache = self.slots.step(self.params, self.cache, masks)
         if self.slots.buf_fill >= self._window:
             self.sync()
         return active
 
     def sync(self) -> int:
         """Device→host sync: hand the window's tokens to their requests,
-        mark finished requests done and free their slots. Returns the
-        number of still-active slots."""
+        mark finished requests done and free their slots (continuous: and
+        their pages and entries, then resume preempted work into the freed
+        capacity). Returns the number of still-active slots."""
         s = self.slots.sync()
+        if s.fill:
+            # capacity accounting: an occupied slot that emitted fewer
+            # tokens than the window stepped idled the difference (spec
+            # rounds commit up to W tokens a step, so only wholly idle
+            # rounds count); an EMPTY slot strands the whole window
+            # whenever work was waiting for it
+            for i, req in enumerate(self.slot_req):
+                c = int(s.counts[i])
+                self.useful_slot_steps += c
+                if req is not None:
+                    self.stranded_slot_steps += max(s.fill - c, 0)
+                elif self._backlog:
+                    self.stranded_slot_steps += s.fill
         for i, req in enumerate(self.slot_req):
             if req is None:
                 continue
@@ -638,23 +1038,52 @@ class ServeEngine:
                     raise RuntimeError("non-contiguous slot activity")
                 req.generated.extend(int(t) for t in toks)
                 self.decode_tokens += c
+            if s.drafted is not None and int(s.drafted[i]):
+                d, a = int(s.drafted[i]), int(s.accepted[i])
+                self.spec_drafted += d
+                self.spec_accepted += a
+                rec = self._spec_by_uid.setdefault(req.uid, [0, 0])
+                rec[0] += d
+                rec[1] += a
             if not s.active[i]:
                 req.done = True
                 self.slot_req[i] = None
+                if self.continuous:
+                    self._release_request(i, req)
+        if self._resume_q:
+            self._try_resume()
         self._refresh_window()
         return self.active_count()
 
     def _refresh_window(self) -> None:
         # device capacity stop is lengths >= S-1 post-increment with
         # lengths = prefix + prompt + generated - 1, so a slot can still
-        # emit S - prefix - prompt - generated tokens; the window is
-        # bounded by the MAX remaining, so slots never dead-step after
-        # everyone finished
+        # emit S - prefix - prompt - generated tokens. Windowed, the window
+        # is bounded by the MAX remaining (slots never dead-step after
+        # everyone finished); continuous by the MIN remaining: greedy
+        # decode retires deterministically, so the sync lands when the
+        # first slot frees and its capacity turns over at once
         remaining = [min(r.max_new_tokens - len(r.generated),
                          self.S - self._rlen(r) - len(r.generated))
                      for r in self.slot_req if r is not None]
-        bound = max(remaining) if remaining else self.sync_every
-        self._window = max(1, min(self.sync_every, bound))
+        pick = min if self.continuous else max
+        bound = pick(remaining) if remaining else self.sync_every
+        # spec windows count ROUNDS of up to W tokens: the first
+        # retirement can land after ceil(bound / W) rounds
+        W = self.spec_gamma + 1 if self.spec else 1
+        self._window = max(1, min(self.sync_every, -(-bound // W)))
+        if self.continuous:
+            # page growth covers every position the window can WRITE:
+            # rounds x W (draft and verify spans)
+            self._ensure_window_pages(self._window * W)
+            self._push_tables()
+            if self.masks is not None and self._view_dirty:
+                self._view_dirty = False
+                idx = self.masks["table"].long().clamp(
+                    0, self.n_mask_entries - 1)
+                for k, v in self.masks["pool"].items():
+                    self._masks_view[k] = v[idx]
+        self._backlog = bool(self.scheduler.pending() or self._resume_q)
 
     def submit(self, reqs) -> None:
         """Queue requests with the scheduler (admitted as slots free up)."""
@@ -665,34 +1094,78 @@ class ServeEngine:
         profile's record is added or replaced)."""
         return self.profile_cache.invalidate(pid)
 
+    def abort_all(self) -> None:
+        """Abort every in-flight request (tokens already decoded are kept,
+        preempted ones too); slots become free, caches and pools are left
+        to be overwritten."""
+        if self.slots.buf_fill:
+            self.sync()
+        self.slots.deactivate_all()
+        for i, req in enumerate(self.slot_req):
+            if req is not None:
+                req.done = True
+                self.slot_req[i] = None
+                if self.continuous:
+                    self._release_request(i, req)
+        for snap in self._resume_q:
+            snap["req"].done = True
+        self._resume_q.clear()
+        self._refresh_window()
+
     def run_until_drained(self, queue: Optional[List[Request]] = None,
                           max_steps: int = 10_000) -> int:
-        """Serve until the queue and all slots are empty. Admission happens
-        whenever the host view shows free slots (i.e. after syncs)."""
+        """Serve until the queue, the resume queue and all slots are empty.
+        Admission (and resumption) happens whenever the host view shows
+        free slots, i.e. after syncs."""
         if queue:
             self.scheduler.submit(list(queue))
         steps = 0
         while steps < max_steps:
+            if self._resume_q and self.free_slots() \
+                    and self.slots.buf_fill == 0:
+                # window boundary only: slot restore needs a synced window
+                if self._try_resume():
+                    self._refresh_window()
             free = self.free_slots()
             if free and self.scheduler.pending():
                 self.admit_many(self.scheduler.next_batch(len(free)))
             if not self.active_count():
-                if not self.scheduler.pending():
+                if not self.scheduler.pending() and not self._resume_q:
                     break
-                continue
+                continue  # admission freed nothing; the next wave will
             self.step()
             steps += 1
         if self.slots.buf_fill:
             self.sync()
         return steps
 
+    def kv_pool_bytes(self) -> int:
+        """Bytes of the K/V cache: the page pools (scratch page included)
+        continuous, the dense slot block windowed."""
+        data = self.cache["data"] if self.continuous else self.cache
+        return sum(v.numel() * v.element_size() for v in data.values())
+
     def serve_stats(self) -> dict:
-        """Counters the launcher prints (a subset of the JAX engine's)."""
-        return {
+        """Counters the launcher prints (the JAX engine's, but its trace,
+        residency, resilience and mesh fields)."""
+        out = {
+            "mode": "continuous" if self.continuous else "windowed",
             "bank_quant": self.quant,
+            # slot_occupancy: share of slot-steps that emitted a token;
+            # stranded_slot_steps: slot-steps idled between a finish and
+            # the refill (what continuous batching drives to ~0)
+            "useful_slot_steps": self.useful_slot_steps,
+            "stranded_slot_steps": self.stranded_slot_steps,
+            "slot_occupancy": _rate(self.useful_slot_steps,
+                                    self.n_slots * self.slots.device_steps),
             "host_syncs": self.slots.host_syncs,
             "device_steps": self.slots.device_steps,
             "decode_tokens": self.decode_tokens,
+            # committed tokens vs device steps: equal for plain decode,
+            # larger with speculation
+            "committed_tokens": self.decode_tokens,
+            "committed_per_device_step": _rate(self.decode_tokens,
+                                               self.slots.device_steps),
             "syncs_per_token": _rate(self.slots.host_syncs,
                                      self.decode_tokens),
             "sync_every": self.sync_every,
@@ -700,4 +1173,28 @@ class ServeEngine:
             "prefill_occupancy": _rate(self.prefill_real,
                                        self.prefill_rows),
             "profile_cache": self.profile_cache.stats(),
+            "scheduler": self.scheduler.stats(),
         }
+        if self.spec:
+            out["spec"] = {
+                "gamma": self.spec_gamma,
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": _rate(self.spec_accepted,
+                                         self.spec_drafted),
+                "committed_per_device_step": _rate(
+                    self.decode_tokens, self.slots.device_steps),
+                # per request (uid-keyed; survives preemption)
+                "per_request_acceptance": {
+                    uid: _rate(a, d)
+                    for uid, (d, a) in sorted(self._spec_by_uid.items())},
+            }
+        if self.continuous:
+            out["preemptions"] = self.preemptions
+            out["resumes"] = self.resumes
+            out["resume_pending"] = len(self._resume_q)
+            out["page_size"] = self.page_size
+            out["pages"] = self.page_alloc.stats()
+            if self.mask_alloc is not None:
+                out["mask_entries"] = self.mask_alloc.stats()
+        return out

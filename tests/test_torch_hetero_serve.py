@@ -209,9 +209,8 @@ def test_decode_fused_keeps_hetero_entries_composed(served):
 @pytest.mark.parametrize("case", ["bank_quant", "spec", "no_precompute",
                                   "prefix_overflow"])
 def test_constructor_refusals_match_jax(served, case):
-    """JAX's ValueErrors for a hetero engine, raised by the port too; a
-    prefix-bearing spec with speculation, which JAX refuses, meets the
-    port's refusal of speculation (not ported)."""
+    """JAX's ValueErrors for a hetero engine, raised by the port too
+    (speculation over a prefix-bearing spec: on a continuous engine)."""
     cfg, tcfg = served["cfg"], served["tcfg"]
     kw = dict(max_slots=2, max_seq=64)
     if case == "bank_quant":
@@ -219,17 +218,12 @@ def test_constructor_refusals_match_jax(served, case):
     elif case == "spec":
         cfg, tcfg = (c.with_(spec_enable=True, spec_gamma=2)
                      for c in (cfg, tcfg))
-        with pytest.raises(ValueError, match="spec"):
-            JEngine(cfg, served["params"], served["jstore"], continuous=True,
-                    **kw)
-        with pytest.raises(NotImplementedError, match="speculative"):
-            TEngine(tcfg, served["tparams"], served["tstore"], **kw)
-        return
+        kw["continuous"] = True
     elif case == "no_precompute":
         kw["precompute"] = False
     else:
         cfg, tcfg = (c.with_xpeft(prefix_tokens=64) for c in (cfg, tcfg))
-    match = {"bank_quant": "quant", "spec": "spec",
+    match = {"bank_quant": "quant", "spec": "prefix-bearing",
              "no_precompute": "precompute", "prefix_overflow": "prefix"}[case]
     with pytest.raises(ValueError, match=match):
         JEngine(cfg, served["params"], served["jstore"], **kw)

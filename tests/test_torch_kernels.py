@@ -163,6 +163,7 @@ def test_fused_adapter_layer_slices_and_dispatch():
     ls = _t((1 + 0.1 * rng.normal(size=(B, L, b))).astype(np.float32))
     lb = _t((0.1 * rng.normal(size=(B, L, b))).astype(np.float32))
     before = fused_adapter_batched.launches
+    by_t = dict(fused_adapter_batched.launches_by_t)
     for layer in range(L):
         args = (x, a[:, layer], bb[:, layer], ls[:, layer], lb[:, layer])
         auto = ops.fused_adapter(*args, impl="auto")
@@ -171,6 +172,7 @@ def test_fused_adapter_layer_slices_and_dispatch():
             *[t.contiguous() for t in args])
         assert torch.equal(auto, plain) and torch.equal(plain, dense)
     assert fused_adapter_batched.launches == before
+    assert fused_adapter_batched.launches_by_t == by_t
     # the unbatched [T, d] form is the batched one at B=1
     one = ops.fused_adapter(x[0], a[0, 0], bb[0, 0], ls[0, 0], lb[0, 0])
     assert torch.equal(one, ops.fused_adapter(

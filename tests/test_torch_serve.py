@@ -158,11 +158,20 @@ def test_tokens_invariant_to_sync_every(served):
 
 
 def test_engine_options_outside_the_slice_raise(served):
-    # precompute=False is ported (tests/test_torch_serve_perstep.py)
-    for kw in (dict(continuous=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+    # precompute=False and continuous=True are ported
+    # (tests/test_torch_serve_perstep.py, tests/test_torch_serve_continuous.py)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TEngine(served["tcfg"], served["tparams"], served["tstore"],
+                mesh=object())
+    # continuous mode's own refusals are JAX's
+    for kw, match in ((dict(max_seq=60), "multiple of page_size"),
+                      (dict(max_seq=64, max_pages=3), "max-length")):
+        with pytest.raises(ValueError, match=match):
+            JEngine(served["cfg"], served["params"], served["jstore"],
+                    continuous=True, **kw)
+        with pytest.raises(ValueError, match=match):
             TEngine(served["tcfg"], served["tparams"], served["tstore"],
-                    **kw)
+                    continuous=True, **kw)
 
 
 def test_launcher_runs_on_cpu():

@@ -204,19 +204,36 @@ def test_per_step_masks_hydrate_from_the_store(base):
                                   "fault_plan", "obs", "quant_per_step",
                                   "quant_soft", "hetero_soft"])
 def test_remaining_refusals_raise(base, case):
+    """The options the port still refuses, each naming its ROADMAP item,
+    and JAX's own refusals. Continuous batching is ported: its case holds
+    per-step serving on a continuous engine to the windowed one, token for
+    token; speculation without it meets JAX's ValueError."""
     tcfg, tparams = base["tcfg"], base["tparams"]
     store = base["stores"]["hard"][1]
     kw = dict(max_slots=2, max_seq=64)
     err, match = NotImplementedError, None
+    if case == "continuous":
+        out = []
+        for cont in (False, True):
+            eng = TEngine(tcfg, tparams, store, precompute=False,
+                          continuous=cont, **kw)
+            reqs = _requests(TRequest, base["prompts"])
+            eng.run_until_drained(list(reqs))
+            assert all(r.done for r in reqs)
+            out.append([r.generated for r in reqs])
+        assert out[0] == out[1]
+        eng.page_alloc.check()
+        eng.mask_alloc.check()
+        return
     if case == "hetero":
         tcfg = tcfg.with_xpeft(bank_spec=(("bottleneck", 4), ("lora", 4)))
         kw["precompute"], match = False, "item 7"
-    elif case in ("continuous", "mesh", "fault_plan", "obs"):
-        kw[case] = {"continuous": True}.get(case, object())
-        match = {"continuous": "item 5", "mesh": "item 11"}.get(case,
-                                                                "item 9")
+    elif case in ("mesh", "fault_plan", "obs"):
+        kw[case] = object()
+        match = "item 11" if case == "mesh" else "item 9"
     elif case == "spec":
-        tcfg, match = tcfg.with_(spec_enable=True), "item 5"
+        tcfg = tcfg.with_(spec_enable=True)
+        err, match = ValueError, "continuous=True"
     elif case == "quant_per_step":
         tcfg = tcfg.with_xpeft(bank_quant="int8")
         kw["precompute"], err, match = False, ValueError, "precompute"
