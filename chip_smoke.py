@@ -170,6 +170,30 @@ Phases, in order; any failed check exits non-zero:
              writeback on its pool as CUDA-graph replays ((b)'s steps
              have (a)'s shapes, the starved spec run's (f)'s). Phase 3b checks and times
              #2 at the verify's shape (B=4, T=4, layer slices).
+10. resilience — ``tools/resilience_phase.py``: (a) training over the typed
+             bank bottleneck 102 / LoRA 102 / IA3 26 / prefix 26, P=8: one
+             step on the card against the CPU (2 layers, float32, one
+             example's masks selecting no prefix slot) under phase 7's
+             bounds, ten full-depth bf16 steps timed and profiled, the
+             trained profiles packed, reloaded byte-equal and served
+             precomputed (#1 10 times per aggregating wave, the hetero-
+             adapter launch 24 times per step and prefill batch), held to
+             their kernel_impl="ref" run; (b) per-step serving over the
+             prefix-free spec 115 / 115 / 26, hard and soft profiles,
+             windowed and continuous at one admission wave: tokens equal,
+             no hand-written kernel launched, a step profiled; (c) a fault
+             plan (a persistent, a transient and a corrupt profile of 6)
+             on bf16 composed, decode_fused, int8 composed, hetero
+             composed and continuous composed on 10 pages: the degraded
+             set the plan's, retries, one quarantined profile, the peers
+             bitwise the no-fault run, the degraded requests bitwise the
+             X-PEFT-disabled engine, a degraded request preempted and
+             resumed; (d) obs on against off on composed continuous and
+             decode_fused (tokens bitwise, host syncs equal), the metrics
+             JSON and Chrome trace exported and validated, TTFT p50/p95,
+             kernels and device ms per step with the slot accumulator
+             taken out, obs off and obs on. Its numbers are the kernels
+             line's ``resilience`` key.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -2181,24 +2205,29 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_train_step_vs_cpu(torch):
+def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
+                            label="train (a)"):
     """(a) One xpeft train step's forward and gradient on the card against
     the same step on the CPU: qwen1.5-0.5b at full width (the 151936-wide
     LM head included) cut to 2 layers, float32 with TF32 off, the same
     weights, batch and Gumbel draws. The k-hot selection must be bitwise
     equal, the loss within TRAIN_LOSS_RTOL and each trainable gradient
-    leaf within TRAIN_GRAD_REL_L2 (relative L2)."""
+    leaf within TRAIN_GRAD_REL_L2 (relative L2). ``cfg``: that config
+    (another bank, e.g.); ``prepare(state, batch)`` edits the state before
+    the step; ``check_w(w)`` checks the card's mask weights."""
     from repro_torch.configs import get_config
     from repro_torch.core import masks as M
     from repro_torch.core import xpeft as XP
     from repro_torch.data import MarkovLM
     from repro_torch.train import steps as ST
 
-    cfg = get_config("qwen1.5-0.5b").with_(num_layers=2, dtype="float32") \
-        .with_xpeft(max_profiles=8)
+    cfg = cfg or get_config("qwen1.5-0.5b").with_(
+        num_layers=2, dtype="float32").with_xpeft(max_profiles=8)
     xp = cfg.xpeft
     state = ST.init_train_state(cfg, "xpeft", seed=0, device="cuda")
     batch = MarkovLM(cfg.vocab_size, 8, seed=0).sample(0, 8, 64)
+    if prepare is not None:
+        prepare(state, batch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     shape = (8, cfg.num_layers, xp.num_adapters)
     noise = tuple(M.gumbel(shape, generator=gen, device="cuda")
@@ -2221,6 +2250,8 @@ def phase_train_step_vs_cpu(torch):
                          loss=float(metrics["loss"]),
                          s=time.perf_counter() - t)
     gpu, cpu = runs["cuda"], runs["cpu"]
+    if check_w is not None:
+        check_w(gpu["w"])
     khot_equal = all(torch.equal(a > 0.5 / xp.k, b > 0.5 / xp.k)
                      for a, b in zip(gpu["w"], cpu["w"]))
     st_err = max((a - b).abs().max().item()
@@ -2231,7 +2262,7 @@ def phase_train_step_vs_cpu(torch):
         a, b = gpu["grads"]["table"][k], cpu["grads"]["table"][k]
         rel[k] = ((a - b).norm() / b.norm()).item() if b.norm() > 0 \
             else (a - b).norm().item()
-    log(f"train (a): one xpeft step, {cfg.name} L=2 d={cfg.d_model} "
+    log(f"{label}: one xpeft step, {cfg.name} L=2 d={cfg.d_model} "
         f"V={cfg.vocab_size} float32, B=8 T=64: card {gpu['s']:.3f}s, CPU "
         f"{cpu['s']:.3f}s; k-hot selection bitwise equal {khot_equal}, "
         f"straight-through weights max|d| {st_err:.3e}; loss card "
@@ -3286,43 +3317,46 @@ def phase_continuous(torch, cfg=None):
 
 
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
-                   eng_kw=None):
-    """Where a decode step's time goes (B=4 slots, T=1): 4 steps timed on
-    the host clock without the profiler, then 8 steps under torch.profiler
-    tracing the card only (host op events would cost seconds a step) for
-    the device time by kernel."""
+                   eng_kw=None, steps=(3, 4, 8)):
+    """Where a decode step's time goes (B=4 slots, T=1): after
+    ``steps[0]`` warm-up steps, ``steps[1]`` steps timed on the host clock
+    without the profiler, then ``steps[2]`` steps (one window's sync
+    included) under torch.profiler tracing the card only (host op events
+    would cost seconds a step) for the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    warm, timed, traced = steps
     eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
                       sync_every=8, **(eng_kw or {}))
     eng.submit(make_requests(Request, cfg.vocab_size, n=4))
     eng.admit_many(eng.scheduler.next_batch(4))
-    for _ in range(3):
+    for _ in range(warm):
         eng.step()
     eng.sync()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(4):
+    for _ in range(timed):
         eng.step()
     eng.sync()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) / 4 * 1e3
+    wall = (time.perf_counter() - t) / timed * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
+        for _ in range(traced):
             eng.step()
         eng.sync()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in rows) / 1e3 / 8
-    n_kernels = sum(e.count for e in rows) / 8
+    dev = sum(e.self_device_time_total for e in rows) / 1e3 / traced
+    n_kernels = sum(e.count for e in rows) / traced
+    assert dev > 0 and n_kernels > 0, "the profiler traced no kernel"
     log(f"decode step {label} (B=4, T=1): host wall {wall:.3f} ms/step "
         f"without the profiler; device {dev:.4f} ms/step in "
         f"{n_kernels:.0f} kernels -> "
         f"device busy share {dev / wall:.4f}; top kernels by device time:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"  {e.self_device_time_total / 1e3 / 8:.4f} ms/step "
-            f"{e.count / 8:5.0f} launches/step  {e.key[:72]}")
+        log(f"  {e.self_device_time_total / 1e3 / traced:.4f} ms/step "
+            f"{e.count / traced:5.0f} launches/step  {e.key[:72]}")
     return dict(decode_wall_ms=wall, decode_device_ms=dev,
                 decode_kernels=n_kernels)
 
@@ -3406,6 +3440,8 @@ def main():
     # 7. training: one step on the card against the CPU, ten full-depth
     # steps through the launcher's loop, the trained profiles packed,
     # saved and reloaded, then served per step and from soft masks
+    # (phase 4's weights are kept for phase 10)
+    base = dict(params=ctx["params"])
     del ctx
     torch.cuda.empty_cache()
     train_step = phase_train_step_vs_cpu(torch)
@@ -3425,6 +3461,15 @@ def main():
     torch.cuda.empty_cache()
     continuous = phase_continuous(torch)
     lap("9 continuous")
+    # 10. heterogeneous training forms, per-step heterogeneous serving,
+    # fault plans with degraded admission, observability (each run with
+    # the counters set to 0 just before it)
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import resilience_phase
+    resilience = resilience_phase.phase_resilience(torch, base=base)
+    del base
+    lap("10 resilience")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3525,6 +3570,16 @@ def main():
             row["launches_continuous"] = {
                 run: continuous[run]["verify_launches"]
                 for run in ("f", "f_starved")}
+    # phase 10: each kernel's launches on each of its runs
+    p10 = {"hetero_trained": resilience["hetero_train"]["served"][
+        "launches"]}
+    p10.update({f"faults_{k}": v["launches"]
+                for k, v in resilience["faults"].items()})
+    p10.update({f"obs_{k}": v["launches"]
+                for k, v in resilience["obs"].items()})
+    for row in kernels:
+        row["launches_phase10"] = {run: n.get(row["name"], 0)
+                                   for run, n in p10.items()}
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3545,7 +3600,8 @@ def main():
                     "serve_per_step_decode_fused": serve_per_step_fused,
                     "serve_soft": serve_soft,
                     "serve_continuous": continuous,
-                    "phase_seconds": phase_seconds}))
+                    "resilience": resilience,
+                    "phase_seconds": phase_seconds}, default=str))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

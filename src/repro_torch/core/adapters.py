@@ -5,10 +5,11 @@ The bank is ONE tensor per submodule, in ``repro.core.adapters``' layout:
 A heterogeneous ``bank_spec`` gets one leaf pair or vector per adapter
 family instead (``init_hetero_bank``). Aggregation is a mask-bank
 contraction (``aggregate_dense``, or ``aggregate_sparse`` over the k
-selected rows); application is two products (``apply_adapter``). All
-three are plain differentiable torch ops, as their JAX twins are jnp
-einsums outside any Pallas kernel: training and per-step serving run
-them.
+selected rows); application is two products (``apply_adapter``; LoRA's
+``apply_lora`` without the LN and activation) or IA3's elementwise scale
+(``apply_ia3``). All are plain differentiable torch ops, as their JAX
+twins are jnp einsums outside any Pallas kernel: training and per-step
+serving run them.
 """
 from __future__ import annotations
 
@@ -121,3 +122,19 @@ def apply_adapter(x, a_hat, b_hat, ln_scale, ln_bias,
         h = F.gelu(h, approximate="tanh")
     y = torch.matmul(h, b_hat)
     return x + y.to(x.dtype)
+
+
+def apply_lora(x, a_hat, b_hat):
+    """LoRA delta: x + B̂(Â x), no LN and no inner activation. Â/B̂ have
+    the bottleneck aggregate's shapes ([d, b]/[b, d], or batched)."""
+    y = torch.matmul(torch.matmul(x, a_hat), b_hat)
+    return x + y.to(x.dtype)
+
+
+def apply_ia3(x, s):
+    """IA3 scaling: x * (1 + s) in fp32, with s the mask-weighted sum of
+    scale DELTAS ([d] or batched [..., d], broadcast over T); s == 0 (an
+    empty selection, degraded serving) multiplies by exactly 1.0."""
+    if s.ndim > 1:
+        s = s[..., None, :]          # [..., 1, d] broadcast over T
+    return (x.float() * (1.0 + s.float())).to(x.dtype)

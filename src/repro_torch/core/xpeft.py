@@ -17,8 +17,14 @@ one typed aggregate per adapter family with
 ``precompute_effective_adapters_sparse_hetero`` over a heterogeneous
 bank), through the kernel dispatch layer; soft masks aggregate densely
 (``precompute_effective_adapters_dense_batched``). ``apply_precomputed_layer``
-applies one layer of such a record to a [T, d] sequence. The hetero dense
-forms wait for ROADMAP queue 1, item 7.
+applies one layer of such a record to a [T, d] sequence.
+
+A heterogeneous bank's dense forms (training, soft and per-step masks)
+aggregate each typed segment from the unified-space weights
+(``hetero_aggregate_dense_layer``), apply bottleneck -> LoRA -> IA3
+(``apply_xpeft_layer_hetero``) and hand the prefix segment's KV rows to
+attention (``prefix_rows_dense_layer``); ``precompute_effective_adapters_hetero``
+is the one-profile dense admission.
 """
 from __future__ import annotations
 
@@ -50,10 +56,95 @@ def hetero_entry_keys(xp):
     return tuple(out)
 
 
+def _segment_slice(w, off, cnt):
+    """Static slice of the unified-N weight axis for one segment."""
+    return w[..., off:off + cnt]
+
+
 def _safe_inv(wsum):
-    """0/0-safe renorm factor: 1/wsum where wsum > 0, else 0."""
+    """0/0-safe renorm factor: 1/wsum where wsum > 0, else 0.
+
+    Double where, not ``1/clamp(wsum, eps)``: that form's derivative at
+    wsum = 0 is -1/eps^2, which overflows float32 to inf, and the zero
+    gradient the unselected branch receives turns 0·inf into NaN, which
+    poisons the whole mask-logit gradient row of a training example whose
+    masks select no prefix slot at some layer."""
     safe = torch.where(wsum > 0, wsum, torch.ones_like(wsum))
     return torch.where(wsum > 0, 1.0 / safe, torch.zeros_like(wsum))
+
+
+def hetero_aggregate_dense_layer(bank_l: dict, w_a_l, w_b_l, xp) -> dict:
+    """One layer's per-type aggregates from DENSE unified-space weights.
+
+    bank_l holds the layer's slices of the typed bank leaves; w_*_l are
+    [..., N] over the unified index space. Per family:
+
+    - bottleneck/lora: Â from the A-mask, B̂ from the B-mask;
+    - ia3: both masks contribute, s = Σ (w_a + w_b)[i] · v[i];
+    - prefix: a renormalized convex mixture, rows = Σ (w_a+w_b)[i]·rows[i]
+      / Σ (w_a+w_b)[i], 0/0 -> zero rows.
+
+    Returns {type: aggregate(s)} for the segments present."""
+    out = {}
+    for t, off, cnt in xp.segments():
+        wa = _segment_slice(w_a_l, off, cnt).float()
+        wb = _segment_slice(w_b_l, off, cnt).float()
+        if t in ("bottleneck", "lora"):
+            names = ("bank_a", "bank_b") if t == "bottleneck" else \
+                ("lora_a", "lora_b")
+            out[t] = A.aggregate_dense(
+                {"bank_a": bank_l[names[0]], "bank_b": bank_l[names[1]]},
+                wa, wb)
+        elif t == "ia3":
+            out["ia3"] = torch.einsum("...n,nd->...d", wa + wb,
+                                      bank_l["ia3_v"].float())
+        elif t == "prefix":
+            wab = wa + wb
+            num_k = torch.einsum("...n,npq->...pq", wab,
+                                 bank_l["prefix_k"].float())
+            num_v = torch.einsum("...n,npq->...pq", wab,
+                                 bank_l["prefix_v"].float())
+            inv = _safe_inv(wab.sum(-1))[..., None, None]
+            out["prefix"] = (num_k * inv, num_v * inv)
+    return out
+
+
+def precompute_effective_adapters_hetero(bank: dict, profile_params: dict,
+                                         xp) -> dict:
+    """Dense admission-time aggregation of ONE profile over a heterogeneous
+    bank: the typed twin of ``precompute_effective_adapters``. Returns the
+    ``hetero_entry_keys(xp)`` dict with [L, ...] leaves in the bank
+    leaves' dtypes (sums in fp32)."""
+    w_a, w_b = profile_mask_weights(profile_params, xp, training=False)
+    out = {}
+    for t, off, cnt in xp.segments():
+        wa = _segment_slice(w_a, off, cnt).float()
+        wb = _segment_slice(w_b, off, cnt).float()
+        if t in ("bottleneck", "lora"):
+            names = ("bank_a", "bank_b") if t == "bottleneck" else \
+                ("lora_a", "lora_b")
+            keys = ("a_hat", "b_hat") if t == "bottleneck" else names
+            a, b = bank[names[0]], bank[names[1]]
+            out[keys[0]] = torch.einsum("ln,lndb->ldb", wa,
+                                        a.float()).to(a.dtype)
+            out[keys[1]] = torch.einsum("ln,lnbd->lbd", wb,
+                                        b.float()).to(b.dtype)
+            if t == "bottleneck":
+                out["ln_scale"] = profile_params["ln_scale"]
+                out["ln_bias"] = profile_params["ln_bias"]
+        elif t == "ia3":
+            v = bank["ia3_v"]
+            out["ia3_s"] = torch.einsum("ln,lnd->ld", wa + wb,
+                                        v.float()).to(v.dtype)
+        elif t == "prefix":
+            wab = wa + wb
+            pk, pv = bank["prefix_k"], bank["prefix_v"]
+            num_k = torch.einsum("ln,lnpq->lpq", wab, pk.float())
+            num_v = torch.einsum("ln,lnpq->lpq", wab, pv.float())
+            inv = _safe_inv(wab.sum(-1))[:, None, None]
+            out["prefix_k"] = (num_k * inv).to(pk.dtype)
+            out["prefix_v"] = (num_v * inv).to(pv.dtype)
+    return out
 
 
 def init_profile_table(cfg, *, seed: int = 0, device="cpu") -> dict:
@@ -106,6 +197,50 @@ def apply_xpeft_layer_sparse(x, bank_l: dict, idx_a_l, w_a_l, idx_b_l, w_b_l,
     a_hat, b_hat = A.aggregate_sparse(bank_l, idx_a_l, w_a_l, idx_b_l, w_b_l)
     return A.apply_adapter(x, a_hat, b_hat, ln_scale_l, ln_bias_l,
                            activation=xp.adapter_activation)
+
+
+def apply_xpeft_layer_hetero(x, bank_l: dict, w_a_l, w_b_l, ln_scale_l,
+                             ln_bias_l, xp):
+    """Dense heterogeneous layer application (training, soft and per-step
+    masks): aggregate each typed segment from the unified-space weights
+    and apply in the fixed order bottleneck -> LoRA -> IA3. Prefix rows
+    are not applied here: they are KV rows, which the model hands to
+    attention (``prefix_rows_dense_layer``)."""
+    agg = hetero_aggregate_dense_layer(bank_l, w_a_l, w_b_l, xp)
+    if "bottleneck" in agg:
+        a_hat, b_hat = agg["bottleneck"]
+        x = A.apply_adapter(x, a_hat, b_hat, ln_scale_l, ln_bias_l,
+                            activation=xp.adapter_activation)
+    if "lora" in agg:
+        la, lb = agg["lora"]
+        x = A.apply_lora(x, la.to(x.dtype), lb.to(x.dtype))
+    if "ia3" in agg:
+        x = A.apply_ia3(x, agg["ia3"])
+    return x
+
+
+def prefix_rows_dense_layer(bank_l: dict, w_a_l, w_b_l, xp, kv_heads: int,
+                            head_dim: int):
+    """One layer's per-example prefix KV rows from dense unified-space
+    weights: ``(pk [B, P, KV, hd], pv, pvalid [B])`` for attention's
+    ``extra_kv``, or None when the spec has no prefix segment. pvalid is
+    False where the example's masks select no prefix slot at this layer:
+    attention then masks the rows out, so a no-prefix selection attends
+    exactly the bare sequence."""
+    seg = next(((off, cnt) for t, off, cnt in xp.segments()
+                if t == "prefix"), None)
+    if seg is None:
+        return None
+    off, cnt = seg
+    wab = _segment_slice(w_a_l, off, cnt).float() \
+        + _segment_slice(w_b_l, off, cnt).float()          # [B, cnt]
+    num_k = torch.einsum("...n,npq->...pq", wab, bank_l["prefix_k"].float())
+    num_v = torch.einsum("...n,npq->...pq", wab, bank_l["prefix_v"].float())
+    wsum = wab.sum(-1)                                      # [B]
+    inv = _safe_inv(wsum)[..., None, None]
+    shape = tuple(num_k.shape[:-1]) + (kv_heads, head_dim)
+    return ((num_k * inv).reshape(shape), (num_v * inv).reshape(shape),
+            wsum > 0)
 
 
 def precompute_effective_adapters(bank: dict, profile_params: dict, xp):

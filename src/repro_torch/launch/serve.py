@@ -5,10 +5,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --no-precompute       # per-step mask serving (the paper's path)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --metrics-json /tmp/m.json --trace /tmp/t.json   # observability
 
 Builds the model with random weights from seed 0, adds hard-mask
 profiles to a ``ProfileStore`` and drains the requests through the
 ``ServeEngine``. Runs on the card unless ``--device cpu`` is passed.
+``--metrics-json`` / ``--trace`` attach an observability bundle and write
+its counters and p50/p95/p99 histograms, and a Chrome trace (Perfetto),
+at exit.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ def main(argv=None):
                     help="per-step mask serving: aggregate the masks "
                     "against the bank in every layer of every step instead "
                     "of once at admission (greedy tokens equal)")
+    from repro_torch import obs as OBS
+    OBS.add_cli_args(ap)  # --metrics-json PATH, --trace PATH
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, reduce_for_smoke
@@ -63,10 +70,11 @@ def main(argv=None):
     print(f"profiles: {args.profiles} x {store.bytes_per_profile()} B each "
           f"(masks, byte-level)")
 
+    obs = OBS.from_cli_args(args)
     eng = ServeEngine(cfg, params, store, max_slots=args.slots,
                       max_seq=args.max_seq, sync_every=args.sync_every,
                       cache_bytes=args.cache_mb << 20,
-                      precompute=not args.no_precompute)
+                      precompute=not args.no_precompute, obs=obs)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
@@ -95,6 +103,12 @@ def main(argv=None):
           f"(sync_every={st['sync_every']})")
     for r in reqs[:3]:
         print(f"  req {r.uid} (profile {r.profile_id}): {r.generated}")
+    if obs is not None:
+        obs.export(args.metrics_json or None, args.trace or None)
+        cats = obs.tracer.category_counts()
+        ttft = obs.metrics.snapshot()["histograms"].get("serve.ttft_us", {})
+        print(f"obs: {sum(cats.values())} trace events {cats}; TTFT p50 "
+              f"{ttft.get('p50', 0.0)} us, p95 {ttft.get('p95', 0.0)} us")
     return reqs, eng
 
 

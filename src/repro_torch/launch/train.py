@@ -26,8 +26,11 @@ _NOT_PORTED = {
     "ckpt_dir": "checkpoints and the Trainer (ROADMAP queue 1, item 8)",
     "resume": "checkpoints and the Trainer (ROADMAP queue 1, item 8)",
     "onboard": "the onboarding lifecycle (ROADMAP queue 1, item 8)",
-    "metrics_json": "observability exports (ROADMAP queue 1, item 9)",
-    "trace": "observability exports (ROADMAP queue 1, item 9)",
+    # JAX exports training metrics and traces only through its Trainer
+    "metrics_json": "observability exports through the Trainer (ROADMAP "
+                    "queue 1, item 8)",
+    "trace": "observability exports through the Trainer (ROADMAP queue 1, "
+             "item 8)",
 }
 
 

@@ -10,9 +10,9 @@ online softmax ``_sdpa_chunked``: query chunks, each over key chunks with
 a running max and an fp32 accumulator, so the ``[T, S]`` logits never
 exist at once. Both are plain torch ops, as JAX computes them outside any
 Pallas kernel. ``front_skip`` (serving over prefix KV rows hydrated into
-the cache) is ported; sliding windows (ROADMAP queue 1, item 10) and
-``extra_kv`` (the prefix rows of the dense training path, queue 1, item
-7) are not.
+the cache) and ``extra_kv`` (the prefix rows of the dense training path,
+un-rotated in front of the example's own keys) are ported; sliding
+windows (ROADMAP queue 1, item 10) are not.
 
 Unlike the functional JAX cache, the port writes the cache IN PLACE (one
 KV cache per engine instead of a fresh copy per layer-step) and returns
@@ -44,18 +44,22 @@ def init_attention(cfg, dtype, *, generator: torch.Generator, device) -> dict:
     return p
 
 
-def _mask(q_pos, k_pos, *, causal, kv_valid, front_skip=None):
-    """q_pos [B,Tq], k_pos [S], kv_valid [B] -> bool [B,Tq,S].
+def _mask(q_pos, k_pos, *, causal, kv_valid, front_skip=None, k_idx=None):
+    """q_pos [B,Tq], k_pos [S] or [B,S], kv_valid [B] -> bool [B,Tq,S].
 
     ``front_skip [B]`` masks the first ``front_skip[b]`` key buffer slots:
     the per-example gate of prefix KV rows at the front of the cache (an
     example whose profile selected no prefix slot at this layer attends
-    exactly the bare sequence, not P zero rows diluting the softmax)."""
+    exactly the bare sequence, not P zero rows diluting the softmax).
+    Where k_pos is per example [B,S] (the prefix path: positions differ
+    per example), ``k_idx [S]`` carries the buffer slot index that
+    kv_valid and front_skip gate on; the causal mask uses k_pos."""
     qp = q_pos[:, :, None]
-    kp = k_pos[None, None, :]
-    m = kp < kv_valid.reshape(-1, 1, 1)
+    kp = k_pos[None, None, :] if k_pos.ndim == 1 else k_pos[:, None, :]
+    ki = kp if k_idx is None else k_idx[None, None, :]
+    m = ki < kv_valid.reshape(-1, 1, 1)
     if front_skip is not None:
-        m = m & (kp >= front_skip.reshape(-1, 1, 1))
+        m = m & (ki >= front_skip.reshape(-1, 1, 1))
     if causal:
         m = m & (kp <= qp)
     return m
@@ -139,7 +143,7 @@ def write_cache(buf, new, cache_pos):
 
 
 def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
-              front_skip=None, q_chunk=512, k_chunk=1024):
+              front_skip=None, extra_kv=None, q_chunk=512, k_chunk=1024):
     """x [B,T,d] -> (y [B,T,d], cache).
 
     cache: {"k","v": [B, S, KV, hd]}, written in place at ``cache_pos``
@@ -149,6 +153,13 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
     front_skip: optional [B] int — key buffer slots ``< front_skip[b]`` are
     masked (a layer whose profile selected no prefix slot holds zero rows
     at [0, P) that must not be attended).
+    extra_kv: optional ``(pk [B,P,KV,hd], pv, pvalid [B])`` without a
+    cache, learned PREFIX KV rows (post-RoPE) concatenated un-rotated in
+    front of the keys at positions [0, P); the caller passes
+    ``positions`` already offset by P where the example selected a prefix
+    slot. ``pvalid`` False masks the rows out (``front_skip`` P), so such
+    an example attends exactly the bare sequence. This path always takes
+    the dense softmax, as JAX's does.
     q_chunk / k_chunk: the chunk sizes of the online-softmax path, taken
     when T > q_chunk, T % q_chunk == 0, S % k_chunk == 0 and there is no
     ``front_skip`` (JAX's condition); the dense softmax otherwise."""
@@ -171,6 +182,7 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
+    k_idx = None
     if cache is not None:
         write_cache(cache["k"], k, cache_pos)
         write_cache(cache["v"], v, cache_pos)
@@ -181,11 +193,27 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
         else:
             kv_valid = torch.full((B,), int(cache_pos) + T,
                                   dtype=torch.int64, device=x.device)
+        k_pos = torch.arange(S, device=x.device)
+    elif extra_kv is not None:
+        pk, pv, pvalid = extra_kv
+        P = pk.shape[1]
+        keys = torch.cat([pk.to(k.dtype), k], dim=1)
+        vals = torch.cat([pv.to(v.dtype), v], dim=1)
+        S = P + T
+        kv_valid = torch.full((B,), S, dtype=torch.int64, device=x.device)
+        # per-example key positions: prefix rows at [0, P), the example's
+        # own keys at its (possibly shifted) query positions
+        k_pos = torch.cat([
+            torch.arange(P, dtype=positions.dtype,
+                         device=x.device)[None].expand(B, P),
+            positions], dim=1)
+        k_idx = torch.arange(S, device=x.device)
+        front_skip = torch.where(pvalid, 0, P).to(torch.int32)
     else:
         keys, vals = k, v
         S = T
         kv_valid = torch.full((B,), T, dtype=torch.int64, device=x.device)
-    k_pos = torch.arange(S, device=x.device)
+        k_pos = torch.arange(S, device=x.device)
 
     keys = keys.permute(0, 2, 1, 3)                    # [B, KV, S, hd]
     vals = vals.permute(0, 2, 1, 3)
@@ -200,8 +228,21 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
                             q_chunk=q_chunk, k_chunk=k_chunk)
     else:
         msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid,
-                    front_skip=front_skip)
+                    front_skip=front_skip, k_idx=k_idx)
         out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
+    if extra_kv is not None:
+        # an example whose rows are masked out takes the softmax over its
+        # own T keys alone: the same value in exact arithmetic, and bitwise
+        # the bare forward's (a reduction over P + T columns, P of them
+        # masked, need not round as one over T does)
+        own = _sdpa_dense(qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                          _mask(positions, positions, causal=cfg.causal,
+                                kv_valid=torch.full((B,), T,
+                                                    dtype=torch.int64,
+                                                    device=x.device),
+                                k_idx=torch.arange(T, device=x.device)),
+                          scale, cfg.logit_softcap)
+        out = torch.where(extra_kv[2][:, None, None, None, None], out, own)
 
     out = out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
     y = torch.einsum("bthk,hkd->btd", out, params["wo"])

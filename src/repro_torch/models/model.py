@@ -17,9 +17,12 @@ cache. The on-the-fly mask routes (``w_a``/``w_b`` weights, dense or with
 ``idx_a``/``idx_b`` over the k selected rows) aggregate against the
 layer's bank slice in plain torch ops: the uncached forward is
 differentiable in ``profile_masks`` (training), and per-step serving
-takes the same route. Every other block pattern, MoE, sliding windows,
-frontends, embedding scaling and dense weights over a heterogeneous bank
-raise ``NotImplementedError`` naming their ROADMAP item.
+takes the same route; over a heterogeneous bank it aggregates each typed
+segment (bottleneck -> LoRA -> IA3), and without a cache each layer's
+prefix KV rows ride into attention as ``extra_kv``, the prompt's
+positions shifted by P for the examples that select a prefix slot.
+Every other block pattern, MoE, sliding windows, frontends and embedding
+scaling raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -62,10 +65,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             "frontends and embedding scaling are not ported (ROADMAP queue "
             "1, item 10)")
-    if cfg.xpeft.enabled and cfg.xpeft.is_hetero \
-            and cfg.xpeft.bank_quant != "none":
-        raise NotImplementedError("quantized heterogeneous banks are not "
-                                  "ported (ROADMAP queue 1, item 7)")
 
 
 # ----------------------------------------------------------------------------
@@ -161,16 +160,18 @@ def _xpeft_apply(x, bank_l, masks_l, cfg):
     if "w_a" in masks_l:
         # on-the-fly mask weights (training, per-step serving): aggregate
         # against the layer's bank slice and apply, in plain torch ops
-        if cfg.xpeft.is_hetero:
-            raise NotImplementedError(
-                "on-the-fly mask weights over a heterogeneous bank are not "
-                "ported (ROADMAP queue 1, item 7)")
         ln_s = masks_l["ln_scale"][..., None, :]
         ln_b = masks_l["ln_bias"][..., None, :]
         if "idx_a" in masks_l:
             return XP.apply_xpeft_layer_sparse(
                 x, bank_l, masks_l["idx_a"], masks_l["w_a"],
                 masks_l["idx_b"], masks_l["w_b"], ln_s, ln_b, cfg.xpeft)
+        if cfg.xpeft.is_hetero:
+            # dense weights over a typed bank: per-segment aggregation,
+            # bottleneck -> LoRA -> IA3 (the prefix rows went to attention)
+            return XP.apply_xpeft_layer_hetero(
+                x, bank_l, masks_l["w_a"], masks_l["w_b"], ln_s, ln_b,
+                cfg.xpeft)
         return XP.apply_xpeft_layer(x, bank_l, masks_l["w_a"],
                                     masks_l["w_b"], ln_s, ln_b, cfg.xpeft)
     # admission-time aggregated adapters; a heterogeneous entry composes in
@@ -238,11 +239,11 @@ def _decode_fused_apply(block, x, masks_l, cfg, *, positions, cache_l,
 
 
 def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
-                      front_skip=None):
+                      front_skip=None, extra_kv=None):
     h = norm_apply(x, block["n1"], cfg.norm)
     h, _ = ATT.attention(block["attn"], h, positions=positions, cfg=cfg,
                          cache=cache_l, cache_pos=cache_pos,
-                         front_skip=front_skip)
+                         front_skip=front_skip, extra_kv=extra_kv)
     x = x + h
     h = norm_apply(x, block["n2"], cfg.norm)
     return x + MLP.mlp_apply(block["mlp"], h, cfg)
@@ -276,6 +277,25 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
         else:
             positions = (int(cache_pos) + torch.arange(
                 T, dtype=torch.int32, device=x.device))[None].expand(B, T)
+        if cache is None and profile_masks is not None \
+                and cfg.xpeft.enabled and cfg.xpeft.has_prefix \
+                and "w_a" in profile_masks:
+            # the dense prefix path: prefix KV rows sit at positions [0, P),
+            # so the prompt's RoPE phase starts at P, as serving writes the
+            # prompt at cache_pos P behind the hydrated rows. Per example:
+            # a profile whose masks never touch the prefix segment keeps
+            # bare positions (RoPE is only relatively shift-invariant, so a
+            # blanket offset would break zero mask == bare bitwise).
+            wsum = torch.zeros((B,), dtype=torch.float32, device=x.device)
+            for typ, off, cnt in cfg.xpeft.segments():
+                if typ == "prefix":
+                    wsum = wsum \
+                        + profile_masks["w_a"][:, :, off:off + cnt].sum(
+                            (1, 2)) \
+                        + profile_masks["w_b"][:, :, off:off + cnt].sum(
+                            (1, 2))
+            offs = torch.where(wsum > 0, cfg.xpeft.prefix_tokens, 0)
+            positions = positions + offs.to(positions.dtype)[:, None]
     if cfg.pos == "learned":
         pe = params["pos_embed"]
         if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:
@@ -304,13 +324,21 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
                                     positions=positions, cache_l=cache_l,
                                     cache_pos=cache_pos, route=fused_route)
             continue
-        front_skip = None
+        front_skip = extra_kv = None
         if cache is not None and masks_l is not None \
                 and "prefix_skip" in masks_l:
             front_skip = masks_l["prefix_skip"]
+        if cache is None and bank_l is not None and cfg.xpeft.enabled \
+                and cfg.xpeft.is_hetero:
+            # the dense prefix path: this layer's per-example prefix rows
+            # (None when the spec has no prefix segment); serving instead
+            # hydrates them into the KV cache at admission
+            extra_kv = XP.prefix_rows_dense_layer(
+                bank_l, masks_l["w_a"], masks_l["w_b"], cfg.xpeft,
+                cfg.num_kv_heads, cfg.head_dim)
         x = _attn_block_apply(block, x, cfg, positions=positions,
                               cache_l=cache_l, cache_pos=cache_pos,
-                              front_skip=front_skip)
+                              front_skip=front_skip, extra_kv=extra_kv)
         x = _xpeft_apply(x, bank_l, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
     return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -161,3 +161,24 @@ def quantize_bank(bank: dict, scheme: str, *, group: int = 32) -> dict:
         out[f"{side}_q"] = q
         out[f"{side}_scale"] = s
     return out
+
+
+def quantize_bank_hetero(bank: dict, scheme: str, *, group: int = 32) -> dict:
+    """Heterogeneous-bank quantization, for storage: the matmul families
+    (bottleneck ``bank_a``/``bank_b``, LoRA ``lora_a``/``lora_b``) go to
+    int8/int4 as ``{name}_q``/``{name}_scale``, since their error averages
+    out inside a d-wide contraction. IA3 scale deltas and prefix KV rows
+    are stored fp16: both are consumed elementwise, with nothing to average
+    quantization noise over. No engine serves the result (the engine
+    refuses a quantized heterogeneous bank)."""
+    check_scheme(scheme)
+    out = {}
+    for name in ("bank_a", "bank_b", "lora_a", "lora_b"):
+        if name in bank:
+            q = quantize(bank[name], scheme, group=group)
+            out[f"{name}_q"] = q["q"]
+            out[f"{name}_scale"] = q["scale"]
+    for name in ("ia3_v", "prefix_k", "prefix_v"):
+        if name in bank:
+            out[name] = bank[name].to(torch.float16)
+    return out

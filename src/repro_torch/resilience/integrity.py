@@ -1,9 +1,9 @@
-"""Profile-record integrity: crc32 checksums + the error type.
+"""Record / checkpoint integrity: crc32 checksums + the error types.
 
 Checksums cover dtype, shape, AND payload bytes, so a bit flip, a
-truncation, and a silent dtype change are all detected. Same function as
+truncation, and a silent dtype change are all detected. Same functions as
 ``repro.resilience.integrity`` (byte-equal checksums on byte-equal
-records); the checkpoint half waits for the training slice.
+records and files).
 """
 from __future__ import annotations
 
@@ -22,6 +22,10 @@ class RecordIntegrityError(Exception):
         super().__init__(f"profile {pid}: {reason} ({', '.join(self.keys)})")
 
 
+class CheckpointCorruptError(Exception):
+    """A checkpoint payload failed its manifest checksum / size check."""
+
+
 def array_crc(arr: np.ndarray) -> int:
     """crc32 of one array's dtype + shape + contiguous payload bytes."""
     a = np.ascontiguousarray(arr)
@@ -32,3 +36,16 @@ def array_crc(arr: np.ndarray) -> int:
 def record_crc(rec: Dict[str, np.ndarray]) -> Dict[str, int]:
     """Per-field checksums for one profile record."""
     return {k: array_crc(np.asarray(v)) for k, v in rec.items()}
+
+
+def file_crc(path: str, chunk: int = 1 << 20):
+    """(crc32, nbytes) of a file, streamed — checkpoint payloads."""
+    crc, n = 0, 0
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(chunk)
+            if not buf:
+                break
+            crc = zlib.crc32(buf, crc)
+            n += len(buf)
+    return crc & 0xFFFFFFFF, n

@@ -52,26 +52,42 @@ of the pages, runs the forward on it, and writes the one new position
 back. With ``cfg.spec_enable`` each step is a self-speculation round:
 ``spec_gamma`` bare-PLM drafts under a zero-adapter view, one adapted
 verify at T = gamma+1, and a commit of the accepted prefix plus one token
-(greedy output equal to plain decoding). Constructor options outside
-this slice raise ``NotImplementedError`` naming their ROADMAP item.
+(greedy output equal to plain decoding).
+
+Resilience: each wave's profiles are probed first (``fault_plan``'s
+injected hydration faults retried under ``retry_policy``, then the
+store's checksums); a request whose profile fails persistently, is
+quarantined or unknown is served by the bare PLM (a zero-adapter entry,
+``degraded``), never cached, while its peers decode as without the fault.
+Observability (``obs``): spans, instants, counters and histograms at the
+host boundaries the engine already has, fed at each sync by the slot
+state's device accumulator, which comes back in the sync's one transfer.
+A mesh raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs as OBS
 from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.models import model as MDL
+from repro_torch.obs import trace as TR
 from repro_torch.quant import schemes as QS
+from repro_torch.resilience import (InjectedHydrationError,
+                                    RecordIntegrityError, RetryPolicy,
+                                    retry_with_backoff)
 from repro_torch.serve import pages as PG
 from repro_torch.serve.profile_cache import ProfileCache
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slots import SlotState
 from repro_torch.serve.steps import greedy_next
 from repro_torch.utils import pow2_count
+from repro_torch.utils.tree import tree_leaves
 
 
 def _rate(num, den, nd: int = 4) -> float:
@@ -102,8 +118,7 @@ def _check_spec(cfg, *, continuous) -> None:
 
 
 def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
-    """The JAX engine's refusals for a heterogeneous bank (ValueError), and
-    its per-step path, which waits for ROADMAP queue 1, item 7."""
+    """The JAX engine's refusals for a heterogeneous bank (ValueError)."""
     xp = cfg.xpeft
     if not (xp.enabled and xp.is_hetero):
         return
@@ -128,10 +143,6 @@ def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
     if xp.has_prefix and xp.prefix_tokens >= max_seq - 1:
         raise ValueError("prefix_tokens must leave room for the prompt "
                          f"(max_seq={max_seq})")
-    if not precompute:
-        raise NotImplementedError(
-            "per-step mask serving over a heterogeneous bank is not ported "
-            "(ROADMAP queue 1, item 7)")
 
 
 def _check_quant(cfg, store, *, precompute) -> None:
@@ -150,8 +161,8 @@ def _check_quant(cfg, store, *, precompute) -> None:
                          "(k-sparse quantized aggregation)")
 
 
-def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
-                 fault_plan, obs) -> None:
+def _check_slice(cfg, store, *, precompute, max_seq, continuous,
+                 mesh) -> None:
     _check_spec(cfg, continuous=continuous)
     _check_hetero(cfg, store, precompute=precompute, max_seq=max_seq)
     _check_quant(cfg, store, precompute=precompute)
@@ -159,9 +170,6 @@ def _check_slice(cfg, store, *, precompute, max_seq, continuous, mesh,
     if mesh is not None:
         raise NotImplementedError("multi-device serving is not ported "
                                   "(ROADMAP queue 1, item 11)")
-    if fault_plan is not None or obs is not None:
-        raise NotImplementedError("fault plans and observability are not "
-                                  "ported (ROADMAP queue 1, item 9)")
 
 
 class ServeEngine:
@@ -171,12 +179,20 @@ class ServeEngine:
                  cache_bytes: Optional[int] = 64 << 20,
                  continuous: bool = False, page_size: int = 16,
                  max_pages: Optional[int] = None, mesh=None,
-                 fault_plan=None, obs=None):
+                 fault_plan=None,
+                 retry_policy: Optional[RetryPolicy] = None,
+                 obs: Optional[OBS.Observability] = None):
         _check_slice(cfg, store, precompute=precompute, max_seq=max_seq,
-                     continuous=continuous, mesh=mesh,
-                     fault_plan=fault_plan, obs=obs)
+                     continuous=continuous, mesh=mesh)
         self.cfg = cfg
         self.store = store
+        # observability: the slot state's device accumulator exists either
+        # way (the steps launch the same kernels); a bundle only turns on
+        # the host-side spans, counters and histograms at the boundaries
+        # the engine already has. The port compiles no decode step yet, so
+        # no retrace watch is registered (JAX watches its jitted step,
+        # admit scatter and prefill).
+        self.obs = OBS.get(obs)
         self.device = params["embed"].device
         xp = cfg.xpeft
         self.precompute = precompute and xp.enabled
@@ -242,6 +258,14 @@ class ServeEngine:
             self.n_pages = 0
             self.cache = MDL.init_cache(cfg, max_slots, max_seq, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
+        # resilience: admission probes each profile (with retry) before
+        # hydration; a request whose profile can't be served degrades to
+        # the bare PLM (a zero-adapter entry) instead of failing its wave
+        self.fault_plan = fault_plan
+        self.retry_policy = retry_policy or RetryPolicy()
+        self.degraded_requests = 0
+        self.hydration_retries = 0
+        self.slot_degraded: List[bool] = [False] * max_slots
         # continuous mode admits in small increments (1-2 freed slots), so
         # largest-bucket-first keeps prefill launches full; promotion after
         # 4 waits stops that from starving rare lengths. The windowed
@@ -304,6 +328,7 @@ class ServeEngine:
         self.resumes = 0
         self.useful_slot_steps = 0
         self.stranded_slot_steps = 0
+        self._win_t0 = time.perf_counter()  # host time the window opened
 
     def _entry_key_set(self) -> tuple:
         """The leaves one hydrated entry carries. The mask buffers hold
@@ -470,14 +495,84 @@ class ServeEngine:
         for key, big in self.cache.items():
             big[:, slots] = mini[key][:, :B].to(big.dtype)
 
+    # ------------------------------------------------------------ resilience
+    def _zero_entry(self) -> dict:
+        """One request's bare-PLM entry: the free-slot buffer template (all
+        zero, identity LN). A zero adapter adds exactly 0 to the residual,
+        so a degraded request decodes as with X-PEFT disabled. A prefix
+        bank's zero ROWS complete the layout; a degraded request admits with
+        prefix_len 0 (prompt at slot 0), so they are never attended."""
+        pool = self.masks["pool"] if self.continuous else self.masks
+        zero = {k: torch.zeros_like(v[0]) for k, v in pool.items()}
+        if "ln_scale" in zero:
+            zero["ln_scale"] = torch.ones_like(zero["ln_scale"])
+        if self.prefix_len:
+            shape = (self.cfg.num_layers, self.prefix_len, self.cfg.kv_dim)
+            dt = MDL.torch_dtype(self.cfg.dtype)
+            zero["prefix_k"] = torch.zeros(shape, dtype=dt,
+                                           device=self.device)
+            zero["prefix_v"] = torch.zeros(shape, dtype=dt,
+                                           device=self.device)
+        return zero
+
+    def _probe_profile(self, pid: int) -> bool:
+        """Health probe of one profile before hydration, with retry: an
+        injected transient hydration failure is retried under the
+        engine's deadline-bounded backoff; a persistent failure, a
+        quarantined or corrupt record or an unknown pid returns False (the
+        caller degrades those requests). ``check_record`` may shed a
+        corrupt quantized agg payload and still pass (the masks re-hydrate
+        the profile from the bank)."""
+        attempt = [0]
+
+        def probe():
+            i, attempt[0] = attempt[0], attempt[0] + 1
+            if self.fault_plan is not None:
+                self.fault_plan.on_hydration(pid, i)
+            self.store.check_record(pid)
+
+        def on_retry(exc, a, delay):
+            self.hydration_retries += 1
+            self.obs.metrics.inc("serve.hydration_retries")
+            self.obs.metrics.observe("serve.hydration_retry_delay_us",
+                                     delay * 1e6, "us")
+            self.obs.tracer.instant(TR.CAT_RESILIENCE, "hydration_retry",
+                                    profile=pid, attempt=a)
+
+        try:
+            retry_with_backoff(probe, policy=self.retry_policy,
+                               retry_on=(InjectedHydrationError,),
+                               seed=pid, on_retry=on_retry)
+            return True
+        except (InjectedHydrationError, RecordIntegrityError, KeyError):
+            return False
+
+    def _probe_wave(self, reqs: List[Request]) -> None:
+        """Mark the requests whose profile cannot be served as degraded
+        (each unique pid probed once a wave)."""
+        verdict = {}
+        for r in reqs:
+            pid = int(r.profile_id)
+            if pid not in verdict:
+                verdict[pid] = self._probe_profile(pid)
+            if not verdict[pid] and not r.degraded:
+                r.degraded = True
+                self.degraded_requests += 1
+                self.obs.metrics.inc("serve.degraded_requests")
+                self.obs.tracer.instant(TR.CAT_RESILIENCE, "degraded",
+                                        profile=pid, uid=r.uid)
+
     # ------------------------------------------------------------- hydration
-    def _lookup(self, pids: List[int]):
+    def _lookup(self, reqs: List[Request]):
         """Profile-cache hits of a wave, and its unique uncached pids in
-        admission order."""
+        admission order; degraded requests are never looked up."""
         entries = {}
         hits = misses = 0
         missing: List[int] = []
-        for pid in pids:
+        for r in reqs:
+            if r.degraded:
+                continue  # bare-PLM entry; never cached, never aggregated
+            pid = int(r.profile_id)
             entry = self.profile_cache.get(pid)
             if entry is not None:
                 hits += 1
@@ -515,13 +610,15 @@ class ServeEngine:
         skip = torch.where(valid | ~on[:, None], 0, self.prefix_len)
         return on, skip.to(torch.int32)
 
-    def _admission_stats(self, path, pids, hits, misses, aggregated,
+    def _admission_stats(self, path, reqs, hits, misses, aggregated,
                          bank_bytes, **extra) -> None:
-        R = len(pids)
+        R = len(reqs)
         self.last_admission = dict(
             path=path, requests=R, cache_hits=hits, cache_misses=misses,
-            unique_profiles=len(set(pids)), aggregated_profiles=aggregated,
-            **extra, degraded=0, bank_bytes_per_request=bank_bytes // R)
+            unique_profiles=len({int(r.profile_id) for r in reqs}),
+            aggregated_profiles=aggregated, **extra,
+            degraded=sum(r.degraded for r in reqs),
+            bank_bytes_per_request=bank_bytes // R)
 
     @torch.no_grad()
     def _hydrate_stacked(self, reqs: List[Request]) -> dict:
@@ -532,21 +629,30 @@ class ServeEngine:
         missing profile aggregates against the bank in ONE call padded to
         a pow2 count, k-sparse for hard masks (one call per typed leaf of
         a heterogeneous bank), dense for soft ones. A prefix-bearing bank
-        also sets each request's ``prefix_len`` (P or 0)."""
+        also sets each request's ``prefix_len`` (P or 0). A degraded
+        request takes the zero entry (``_zero_entry``)."""
         if self.masks is None:
             return None
         pids = [int(r.profile_id) for r in reqs]
         if not self.precompute:
-            w_a, w_b, ln_s, ln_b = self.store.batch_mask_weights(pids)
+            ok = [i for i, r in enumerate(reqs) if not r.degraded]
             self.last_admission = dict(
                 path="per_step", requests=len(pids), cache_hits=0,
-                cache_misses=len(pids), degraded=0,
+                cache_misses=len(ok), degraded=len(pids) - len(ok),
                 bank_bytes_per_request=0)
-            return {key: t.to(self.device) for key, t in zip(
-                self._entry_keys, (w_a, w_b, ln_s, ln_b))}
+            got = dict(zip(self._entry_keys, (
+                t.to(self.device) for t in self.store.batch_mask_weights(
+                    [pids[i] for i in ok])))) if ok else {}
+            if len(ok) == len(reqs):
+                return got
+            zero, row = self._zero_entry(), {i: j for j, i in enumerate(ok)}
+            return {key: torch.stack([got[key][row[i]] if i in row
+                                      else zero[key]
+                                      for i in range(len(reqs))])
+                    for key in self._entry_keys}
         if self.quant != "none":
-            return self._hydrate_stacked_quant(pids)
-        entries, hits, misses, missing = self._lookup(pids)
+            return self._hydrate_stacked_quant(reqs)
+        entries, hits, misses, missing = self._lookup(reqs)
         bank = self.params["xpeft_bank"]
         xp = self.cfg.xpeft
         L = self.cfg.num_layers
@@ -612,15 +718,19 @@ class ServeEngine:
                 entries[pid] = entry
         if self.prefix_len:
             for pid, r in zip(pids, reqs):
-                r.prefix_len = self.prefix_len * int(
+                r.prefix_len = 0 if r.degraded else self.prefix_len * int(
                     entries[pid]["prefix_on"])
-        self._admission_stats(path, pids, hits, misses, aggregated,
+        self._admission_stats(path, reqs, hits, misses, aggregated,
                               bank_bytes)
-        return self._stack(entries, pids)
+        return self._stack(entries, reqs)
 
-    def _stack(self, entries, pids) -> dict:
-        """The wave's entries stacked [R, ...], one leaf per entry key."""
-        return {key: torch.stack([entries[pid][key] for pid in pids])
+    def _stack(self, entries, reqs) -> dict:
+        """The wave's entries stacked [R, ...], one leaf per entry key, a
+        degraded request's the zero entry."""
+        zero = self._zero_entry() if any(r.degraded for r in reqs) else None
+        return {key: torch.stack([zero[key] if r.degraded
+                                  else entries[int(r.profile_id)][key]
+                                  for r in reqs])
                 for key in self._entry_keys}
 
     def _aggregate_sparse_quant(self, idx, w):
@@ -638,14 +748,14 @@ class ServeEngine:
                 "b_q": qb["q"], "b_scale": qb["scale"]}
 
     @torch.no_grad()
-    def _hydrate_stacked_quant(self, pids: List[int]) -> dict:
+    def _hydrate_stacked_quant(self, reqs: List[Request]) -> dict:
         """Quantized-bank hydration: cache hits first; missing profiles
         take the store's quantized aggregated records where it holds them
         (ZERO bank reads), the rest aggregate k-sparse against the
         quantized bank and re-quantize. Entries and slot buffers hold the
         quantized record layout (a_q, a_scale, b_q, b_scale and the LN
         affines)."""
-        entries, hits, misses, missing = self._lookup(pids)
+        entries, hits, misses, missing = self._lookup(reqs)
         L = self.cfg.num_layers
         aggregated = bank_bytes = store_hydrated = 0
         path = "cached"
@@ -683,11 +793,11 @@ class ServeEngine:
                 entries[pid] = entry
             path = ("quant_mixed" if agg_pids and rec_pids
                     else "quant_sparse" if agg_pids else "quant_store")
-        self._admission_stats(path, pids, hits, misses, aggregated,
+        self._admission_stats(path, reqs, hits, misses, aggregated,
                               bank_bytes,
                               store_hydrated_profiles=store_hydrated,
                               scheme=self.quant)
-        return self._stack(entries, pids)
+        return self._stack(entries, reqs)
 
     # ------------------------------------------------------- paged memory
     def _push_tables(self) -> None:
@@ -773,14 +883,19 @@ class ServeEngine:
         self._resume_q.append({
             "req": r, "rows": rows, "mask": mask_row,
             "len": self._rlen(r) + len(r.generated) - 1,
-            "seq": self._slot_seq[slot]})
+            "seq": self._slot_seq[slot],
+            "degraded": self.slot_degraded[slot]})
         self._release_request(slot, r)
         hot = np.zeros((self.n_slots,), bool)
         hot[slot] = True
         self.slots.deactivate(hot)
         self.slot_req[slot] = None
+        self.slot_degraded[slot] = False
         r.preemptions += 1
         self.preemptions += 1
+        self.obs.tracer.instant(TR.CAT_PREEMPT, "preempt", slot=slot,
+                                uid=r.uid)
+        self.obs.metrics.inc("serve.preemptions")
 
     def _youngest_live(self, but: int) -> Optional[int]:
         """Preemption victim: the most recently admitted live slot other
@@ -824,8 +939,12 @@ class ServeEngine:
             self.slots.restore([slot], [r.generated[-1]], [snap["len"]],
                                [len(r.generated)], [r.max_new_tokens])
             self.slot_req[slot] = r
+            self.slot_degraded[slot] = snap["degraded"]
             self._slot_seq[slot] = snap["seq"]
             self.resumes += 1
+            self.obs.tracer.instant(TR.CAT_PREEMPT, "resume", slot=slot,
+                                    uid=r.uid)
+            self.obs.metrics.inc("serve.resumes")
             n += 1
         return n
 
@@ -858,11 +977,15 @@ class ServeEngine:
 
     def _req_prefix_len(self, r) -> int:
         """Host-side prefix length of a request before hydration: P when
-        its profile's hard masks select any prefix-segment slot, else 0."""
-        if not self.prefix_len:
+        its profile's hard masks select any prefix-segment slot, else 0
+        (and 0 for a missing or corrupt record: the probe degrades it)."""
+        if not self.prefix_len or r.degraded:
             return 0
         off, cnt = self._prefix_seg
-        ia, _, ib, _ = self.store.sparse_indices(int(r.profile_id))
+        try:
+            ia, _, ib, _ = self.store.sparse_indices(int(r.profile_id))
+        except (KeyError, RecordIntegrityError):
+            return 0
         return self.prefix_len if any(
             ((i >= off) & (i < off + cnt)).any() for i in (ia, ib)) else 0
 
@@ -874,13 +997,21 @@ class ServeEngine:
         """Host-visible count of occupied slots (refreshed at syncs)."""
         return sum(r is not None for r in self.slot_req)
 
-    @torch.no_grad()
     def admit_many(self, reqs: List[Request]) -> int:
-        """Admit up to len(free_slots()) requests: one cache-aware batched
-        hydration, one mask scatter, one prefill per length bucket, one
-        slot-state scatter. Continuous, preempted work is resumed first,
-        and a request the pools can't hold yet goes back to the queue's
-        head. Returns #admitted."""
+        """Admit up to len(free_slots()) requests: one health probe per
+        profile, one cache-aware batched hydration, one mask scatter, one
+        prefill per length bucket, one slot-state scatter. Continuous,
+        preempted work is resumed first, and a request the pools can't
+        hold yet goes back to the queue's head. Returns #admitted."""
+        with self.obs.tracer.span(TR.CAT_ADMISSION, "admit_wave",
+                                  offered=len(reqs)) as sp:
+            n = self._admit_wave(reqs)
+            sp["admitted"] = n
+        return n
+
+    @torch.no_grad()
+    def _admit_wave(self, reqs: List[Request]) -> int:
+        t_wave = time.perf_counter()
         if self.slots.buf_fill:
             self.sync()  # flush the window before touching slot state
         resumed = 0
@@ -907,6 +1038,11 @@ class ServeEngine:
                 self._slot_seq[s] = self._admit_seq
                 self._admit_seq += 1
             self._push_tables()
+        if self.masks is not None:
+            # probe every profile first (with retry): requests whose
+            # profile can't be hydrated degrade to the bare PLM below,
+            # never failing the wave for their healthy peers
+            self._probe_wave(reqs)
         stacked = self._hydrate_stacked(reqs)
         prefix_rows = None
         if self.prefix_len:
@@ -949,17 +1085,19 @@ class ServeEngine:
                                     + [0] * (Bp - B), dtype=torch.int32,
                                     device=self.device)
                 prows = tuple(t[sel] for t in prefix_rows)
-            logits, mini = self.prefill_logits(
-                torch.from_numpy(toks).to(self.device), rows,
-                torch.from_numpy(lens).to(self.device), cpos, prows)
-            gslots = torch.tensor([slot_of[id(r)] for r in group],
-                                  device=self.device)
-            if self.continuous:
-                PG.insert_group(self.cache["data"], mini, gslots,
-                                self.cache["table"], self.page_size)
-            else:
-                self._insert(mini, gslots)
-            nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
+            with self.obs.tracer.span(TR.CAT_PREFILL, f"prefill[{pad}]",
+                                      bucket=pad, rows=Bp, real=B):
+                logits, mini = self.prefill_logits(
+                    torch.from_numpy(toks).to(self.device), rows,
+                    torch.from_numpy(lens).to(self.device), cpos, prows)
+                gslots = torch.tensor([slot_of[id(r)] for r in group],
+                                      device=self.device)
+                if self.continuous:
+                    PG.insert_group(self.cache["data"], mini, gslots,
+                                    self.cache["table"], self.page_size)
+                else:
+                    self._insert(mini, gslots)
+                nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
             for j, r in enumerate(group):
                 next_toks[id(r)] = int(nxt_h[j])
             self.prefill_batches += 1
@@ -970,6 +1108,18 @@ class ServeEngine:
             self.last_admission["prefill_occupancy"] = round(
                 len(reqs) / max(sum(pow2_count(len(g))
                                     for g in groups.values()), 1), 3)
+        if self.obs.enabled:
+            # the first token exists as of the prefill above (its argmax
+            # came to the host): TTFT and admission wait of every request
+            # that went through submit()
+            now = time.perf_counter()
+            for r in reqs:
+                if r.t_submit:
+                    self.obs.metrics.observe("serve.ttft_us",
+                                             (now - r.t_submit) * 1e6, "us")
+                    self.obs.metrics.observe(
+                        "serve.admission_wait_us",
+                        (t_wave - r.t_submit) * 1e6, "us")
 
         # slot lengths include the hydrated prefix rows: the length is the
         # KV write position and the decode RoPE position, so a prefix-on
@@ -985,6 +1135,7 @@ class ServeEngine:
                     self._release_request(slot, r)
             else:
                 self.slot_req[slot] = r
+                self.slot_degraded[slot] = r.degraded
         self._refresh_window()
         return len(reqs)
 
@@ -1048,12 +1199,53 @@ class ServeEngine:
             if not s.active[i]:
                 req.done = True
                 self.slot_req[i] = None
+                self.slot_degraded[i] = False
                 if self.continuous:
                     self._release_request(i, req)
+        self._flush_obs(s)
         if self._resume_q:
             self._try_resume()
         self._refresh_window()
         return self.active_count()
+
+    def _flush_obs(self, s) -> None:
+        """Observability at the sync: the only place decode metrics reach
+        the host, and only with what the sync's one transfer already
+        brought (``s.obs``, the device accumulator's window deltas). No
+        extra sync per token."""
+        now = time.perf_counter()
+        if s.fill and self.obs.enabled:
+            acc = s.obs
+            toks = int(acc[:, OBS.OBS_TOKENS].sum())
+            m = self.obs.metrics
+            m.inc("serve.decode_tokens", toks)
+            m.inc("serve.device_steps", s.fill)
+            m.inc("serve.active_slot_steps",
+                  int(acc[:, OBS.OBS_ACTIVE_STEPS].sum()))
+            m.inc("serve.stranded_slot_steps",
+                  int(acc[:, OBS.OBS_STRANDED_STEPS].sum()))
+            elapsed = now - self._win_t0
+            if toks:
+                # mean host-side per-token latency over the window (the
+                # finest granularity visible without a sync per token)
+                m.observe("serve.decode_token_us", elapsed / toks * 1e6,
+                          "us")
+            m.observe("serve.queue_depth", self.scheduler.pending(), "reqs")
+            m.set_gauge("serve.queue_depth_now", self.scheduler.pending())
+            self.obs.tracer.complete(TR.CAT_DECODE_WINDOW, "decode_window",
+                                     self._win_t0, now, steps=s.fill,
+                                     tokens=toks)
+            if s.drafted is not None:
+                d, a = int(s.drafted.sum()), int(s.accepted.sum())
+                if d:
+                    m.inc("serve.spec_drafted", d)
+                    m.inc("serve.spec_accepted", a)
+                    m.observe("serve.spec_accept_rate", a / d, "ratio")
+                    self.obs.tracer.instant(TR.CAT_SPEC, "spec_window",
+                                            drafted=d, accepted=a,
+                                            rounds=s.fill)
+        self.obs.sentinel.check()
+        self._win_t0 = now
 
     def _refresh_window(self) -> None:
         # device capacity stop is lengths >= S-1 post-increment with
@@ -1107,6 +1299,7 @@ class ServeEngine:
                 self.slot_req[i] = None
                 if self.continuous:
                     self._release_request(i, req)
+            self.slot_degraded[i] = False
         for snap in self._resume_q:
             snap["req"].done = True
         self._resume_q.clear()
@@ -1145,11 +1338,57 @@ class ServeEngine:
         data = self.cache["data"] if self.continuous else self.cache
         return sum(v.numel() * v.element_size() for v in data.values())
 
+    def resident_bytes_per_device(self) -> dict:
+        """Resident bytes of the engine's device state (params, KV cache,
+        quantized bank, mask buffers and their tables) and their total;
+        one device, so per device is the whole."""
+        trees = {"params": self.params, "cache": self.cache}
+        if self.qbank is not None:
+            trees["qbank"] = self.qbank
+        if self.masks is not None:
+            trees["masks"] = self.masks
+        out = {name: sum(t.numel() * t.element_size()
+                         for t in tree_leaves(tree))
+               for name, tree in trees.items()}
+        out["total"] = sum(out.values())
+        return out
+
+    def reset_stats(self) -> None:
+        """Zero every accounting counter (decode, prefill, speculation,
+        preemption, resilience, the scheduler's, the profile cache's, the
+        allocators', host syncs and the obs registry) in one call, e.g. to
+        measure steady state after warm-up. In-flight requests, caches and
+        pools are left as they are."""
+        self.decode_tokens = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._spec_by_uid.clear()
+        self.prefill_batches = 0
+        self.prefill_rows = 0
+        self.prefill_real = 0
+        self.preemptions = 0
+        self.resumes = 0
+        self.useful_slot_steps = 0
+        self.stranded_slot_steps = 0
+        self.degraded_requests = 0
+        self.hydration_retries = 0
+        self.last_admission = None
+        self.slots.reset_counters()
+        self.scheduler.reset_stats()
+        self.profile_cache.reset_stats()
+        if self.page_alloc is not None:
+            self.page_alloc.reset_stats()
+        if self.mask_alloc is not None:
+            self.mask_alloc.reset_stats()
+        self.obs.metrics.reset()
+
     def serve_stats(self) -> dict:
-        """Counters the launcher prints (the JAX engine's, but its trace,
-        residency, resilience and mesh fields)."""
+        """Counters the launcher prints: the JAX engine's, but
+        ``step_traces`` (it counts compilations of the decode step; the
+        port compiles none until the step is a CUDA graph)."""
         out = {
             "mode": "continuous" if self.continuous else "windowed",
+            "devices": 1,
             "bank_quant": self.quant,
             # slot_occupancy: share of slot-steps that emitted a token;
             # stranded_slot_steps: slot-steps idled between a finish and
@@ -1158,6 +1397,7 @@ class ServeEngine:
             "stranded_slot_steps": self.stranded_slot_steps,
             "slot_occupancy": _rate(self.useful_slot_steps,
                                     self.n_slots * self.slots.device_steps),
+            "resident_bytes_per_device": self.resident_bytes_per_device(),
             "host_syncs": self.slots.host_syncs,
             "device_steps": self.slots.device_steps,
             "decode_tokens": self.decode_tokens,
@@ -1174,6 +1414,13 @@ class ServeEngine:
                                        self.prefill_rows),
             "profile_cache": self.profile_cache.stats(),
             "scheduler": self.scheduler.stats(),
+            # resilience: how often serving fell back to the bare PLM, how
+            # hard hydration retried, and what the store has quarantined
+            "degraded_requests": self.degraded_requests,
+            "degraded_slots": sum(self.slot_degraded),
+            "hydration_retries": self.hydration_retries,
+            "quarantined_profiles": len(self.store.quarantined_ids()),
+            "store_integrity": self.store.integrity_stats(),
         }
         if self.spec:
             out["spec"] = {

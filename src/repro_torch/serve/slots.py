@@ -17,8 +17,13 @@ Invariants the engine relies on (as in ``repro.serve.slots``):
 With ``spec_width`` W > 1 each step is a SPECULATION ROUND: the decode
 function drafts W-1 tokens and verifies them, and the step commits 1..W
 tokens per slot, packed densely into a buffer of ``sync_every * W``
-columns, counting drafted and accepted drafts per slot. The
-observability accumulator waits for ROADMAP queue 1, item 9.
+columns, counting drafted and accepted drafts per slot.
+
+Every step, plain or speculative, also adds to ONE [n_slots, OBS_COLS]
+int32 observability accumulator (``repro_torch.obs.metrics``: tokens
+committed, active and stranded steps per slot). It is unconditional, so
+the steps launch the same kernels whether the engine has an obs bundle
+or not, and it comes back in the sync's one transfer, reset per window.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.metrics import OBS_COLS, device_acc_init, \
+    device_acc_update
 
 
 class SlotSync(NamedTuple):
@@ -37,6 +45,7 @@ class SlotSync(NamedTuple):
     fill: int                # device steps this window took
     drafted: Optional[np.ndarray] = None   # [n_slots] spec drafts this window
     accepted: Optional[np.ndarray] = None  # [n_slots] accepted drafts
+    obs: Optional[np.ndarray] = None       # [n_slots, OBS_COLS] window deltas
 
 
 class SlotState:
@@ -80,6 +89,7 @@ class SlotState:
         self.buf_len = zeros(torch.int32) if spec else None
         self.drafted = zeros(torch.int32) if spec else None
         self.accepted = zeros(torch.int32) if spec else None
+        self.obs_acc = device_acc_init(n_slots, device=device)
         self.buf_fill = 0            # host: steps since last sync
         self._prev_n_gen = np.zeros((n_slots,), np.int32)  # host mirror
         self._prev_drafted = np.zeros((n_slots,), np.int32)
@@ -107,6 +117,8 @@ class SlotState:
             self.last_tok = torch.where(was_active, nxt, self.last_tok)
             self.tok_buf[:, self.buf_fill] = torch.where(
                 was_active, nxt, torch.full_like(nxt, -1))
+            # one token per active slot: ``inc`` is that count
+            device_acc_update(self.obs_acc, was_active, inc)
             self._finish(was_active)
         self.buf_fill += 1
         self.device_steps += 1
@@ -150,6 +162,7 @@ class SlotState:
         # commit is the correction/bonus token)
         self.drafted = self.drafted + (W - 1) * was_active.to(torch.int32)
         self.accepted = self.accepted + torch.clamp(c - 1, min=0)
+        device_acc_update(self.obs_acc, was_active, c)
         self._finish(was_active)
         return cache
 
@@ -206,6 +219,11 @@ class SlotState:
         self.active = torch.zeros_like(self.active)
 
     # ------------------------------------------------------------------- host
+    def reset_counters(self) -> None:
+        """Zero the host-side rate counters (``engine.reset_stats()``)."""
+        self.host_syncs = 0
+        self.device_steps = 0
+
     def sync(self) -> SlotSync:
         """ONE device→host transfer of the window's tokens + slot status;
         resets the window. With W > 1 the window holds up to fill*W packed
@@ -217,8 +235,10 @@ class SlotState:
                 self.n_gen[:, None], self.active[:, None].to(torch.int32)]
         if self.spec_width > 1:
             cols += [self.drafted[:, None], self.accepted[:, None]]
+        cols.append(self.obs_acc)
         packed = torch.cat(cols, dim=1).cpu().numpy()
         tok_buf = packed[:, :width]
+        obs = packed[:, -OBS_COLS:]
         lengths, n_gen = packed[:, width], packed[:, width + 1]
         active = packed[:, width + 2].astype(bool)
         counts = n_gen - self._prev_n_gen
@@ -234,7 +254,10 @@ class SlotState:
                 self.buf_len.zero_()
         if fill:
             self.tok_buf.fill_(-1)
+            # the accumulator restarts each window: what came back IS the
+            # window's deltas
+            self.obs_acc.zero_()
         self.buf_fill = 0
         self.host_syncs += 1
         return SlotSync(tok_buf, counts, lengths, active, fill, d_drafted,
-                        d_accepted)
+                        d_accepted, obs)

@@ -185,13 +185,25 @@ def test_cached_prefill_then_per_slot_decode(model):
 
 
 def test_outside_the_slice_raises(model):
-    _, tcfg, _, tparams = model
-    with pytest.raises(NotImplementedError):
+    """Other block patterns still raise, naming their ROADMAP item; dense
+    masks over a heterogeneous bank (once refused) now run and match
+    JAX's forward."""
+    cfg, tcfg, _, _ = model
+    with pytest.raises(NotImplementedError, match="item 10"):
         TMDL.init_lm(treduce(tget_config("rwkv6-7b")), device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    # dense masks are ported; over a heterogeneous bank they wait for
-    # ROADMAP queue 1, item 7
-    dense = {"w_a": torch.zeros((1, tcfg.num_layers, 8))}
-    hcfg = tcfg.with_xpeft(bank_spec=(("bottleneck", 4), ("lora", 4)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TMDL.forward(tparams, toks, hcfg, profile_masks=dense)
+    spec = (("bottleneck", 4), ("lora", 4))
+    hcfg, htcfg = (c.with_xpeft(bank_spec=spec) for c in (cfg, tcfg))
+    params = JINIT(jax.random.key(1), hcfg)
+    rng = np.random.default_rng(3)
+    L, N, b = hcfg.num_layers, 8, hcfg.xpeft.bottleneck
+    masks = {"w_a": rng.random((2, L, N)).astype(np.float32),
+             "w_b": rng.random((2, L, N)).astype(np.float32),
+             "ln_scale": rng.normal(size=(2, L, b)).astype(np.float32),
+             "ln_bias": rng.normal(size=(2, L, b)).astype(np.float32)}
+    toks = rng.integers(0, hcfg.vocab_size, (2, 5)).astype(np.int32)
+    jh, _, _ = JMDL.forward(params, jnp.asarray(toks), hcfg,
+                            profile_masks=masks)
+    th, _, _ = TMDL.forward(bridge.to_torch(_np(params)),
+                            torch.from_numpy(toks), htcfg,
+                            profile_masks=bridge.to_torch(masks))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)

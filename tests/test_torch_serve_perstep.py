@@ -200,14 +200,56 @@ def test_per_step_masks_hydrate_from_the_store(base):
     assert eng.last_admission["path"] == "per_step"
 
 
+def _hetero_per_step(base, mtype):
+    """Per-step serving over a heterogeneous bank (bottleneck 4 / LoRA 4
+    over the same N=8), the port's windowed and continuous engines against
+    JAX's windowed one, from a store of ``mtype`` masks: returns the three
+    runs' tokens."""
+    spec = (("bottleneck", 4), ("lora", 4))
+    cfg, tcfg = (c.with_xpeft(bank_spec=spec)
+                 for c in (base["cfg"], base["tcfg"]))
+    params = jax.jit(jinit_lm, static_argnums=1)(jax.random.key(1), cfg)
+    tparams = bridge.to_torch(jax.tree.map(np.asarray, params))
+    xp = cfg.xpeft
+    shape = (cfg.num_layers, xp.num_adapters, xp.bottleneck, mtype, xp.k)
+    js, ts = JStore(*shape, bank_spec=spec), TStore(*shape, bank_spec=spec)
+    table = jax.tree.map(np.asarray,
+                         JXP.init_profile_table(jax.random.key(0), cfg))
+    for pid in range(N_PROFILES):
+        row = {k: v[pid] for k, v in table.items()}
+        js.add_profile(pid, row)
+        ts.add_profile(pid, row)
+    jeng = JEngine(cfg, params, js, max_slots=3, max_seq=64,
+                   precompute=False)
+    jreqs = _requests(JRequest, base["prompts"])
+    jeng.run_until_drained(list(jreqs))
+    out = [[r.generated for r in jreqs]]
+    for cont in (False, True):
+        eng = TEngine(tcfg, tparams, ts, max_slots=3, max_seq=64,
+                      precompute=False, continuous=cont)
+        reqs = _requests(TRequest, base["prompts"])
+        eng.run_until_drained(list(reqs))
+        assert all(r.done for r in reqs)
+        assert eng.last_admission["path"] == "per_step"
+        out.append([r.generated for r in reqs])
+    if mtype == "soft":
+        # JAX's refusal stays: hetero precompute needs hard masks
+        with pytest.raises(ValueError, match="hard"):
+            TEngine(tcfg, tparams, ts, max_slots=3, max_seq=64)
+    return out
+
+
 @pytest.mark.parametrize("case", ["hetero", "continuous", "spec", "mesh",
                                   "fault_plan", "obs", "quant_per_step",
                                   "quant_soft", "hetero_soft"])
 def test_remaining_refusals_raise(base, case):
     """The options the port still refuses, each naming its ROADMAP item,
-    and JAX's own refusals. Continuous batching is ported: its case holds
-    per-step serving on a continuous engine to the windowed one, token for
-    token; speculation without it meets JAX's ValueError."""
+    and JAX's own refusals. The cases once refused now hold the ported
+    behaviour: continuous per-step serving equals windowed token for
+    token; per-step serving over a heterogeneous bank (hard and soft
+    masks) equals JAX's engine, windowed and continuous; a fault plan
+    degrades the same requests as JAX's engine with the same tokens; an
+    obs bundle changes neither tokens nor host syncs."""
     tcfg, tparams = base["tcfg"], base["tparams"]
     store = base["stores"]["hard"][1]
     kw = dict(max_slots=2, max_seq=64)
@@ -225,23 +267,55 @@ def test_remaining_refusals_raise(base, case):
         eng.page_alloc.check()
         eng.mask_alloc.check()
         return
-    if case == "hetero":
-        tcfg = tcfg.with_xpeft(bank_spec=(("bottleneck", 4), ("lora", 4)))
-        kw["precompute"], match = False, "item 7"
-    elif case in ("mesh", "fault_plan", "obs"):
+    if case in ("hetero", "hetero_soft"):
+        jax_tokens, windowed, continuous = _hetero_per_step(
+            base, "hard" if case == "hetero" else "soft")
+        assert windowed == jax_tokens
+        assert continuous == windowed
+        return
+    if case in ("fault_plan", "obs"):
+        from repro.resilience import FaultPlan as JPlan
+        from repro_torch.obs import Observability
+        from repro_torch.resilience import FaultPlan
+        runs = []
+        for port, extra in ((False, {}), (True, {}),
+                            (True, {"obs": Observability()})):
+            if case == "fault_plan" and extra:
+                continue
+            if case == "fault_plan":
+                extra = {"fault_plan": (FaultPlan if port else JPlan)(
+                    fail_pids=(1,))}
+            cls, eng_cls = (TRequest, TEngine) if port else \
+                (JRequest, JEngine)
+            eng = eng_cls(tcfg if port else base["cfg"],
+                          tparams if port else base["params"],
+                          base["stores"]["hard"][int(port)],
+                          precompute=False, **kw, **extra)
+            reqs = _requests(cls, base["prompts"])
+            eng.run_until_drained(list(reqs))
+            st = eng.serve_stats()
+            runs.append(([r.generated for r in reqs],
+                         [r.uid for r in reqs if r.degraded],
+                         st["host_syncs"], st["degraded_requests"]))
+        assert runs[1] == runs[0]
+        if case == "fault_plan":
+            assert runs[1][1] == [1, 5]
+        else:
+            assert not runs[1][1] and runs[2] == runs[1]
+            counters = extra["obs"].metrics.snapshot()["counters"]
+            assert counters["serve.decode_tokens"] == eng.decode_tokens
+        return
+    if case == "mesh":
         kw[case] = object()
-        match = "item 11" if case == "mesh" else "item 9"
+        match = "item 11"
     elif case == "spec":
         tcfg = tcfg.with_(spec_enable=True)
         err, match = ValueError, "continuous=True"
     elif case == "quant_per_step":
         tcfg = tcfg.with_xpeft(bank_quant="int8")
         kw["precompute"], err, match = False, ValueError, "precompute"
-    elif case == "quant_soft":
-        tcfg = tcfg.with_xpeft(bank_quant="int8")
-        store, err, match = base["stores"]["soft"][1], ValueError, "hard"
     else:
-        tcfg = tcfg.with_xpeft(bank_spec=(("bottleneck", 4), ("lora", 4)))
+        tcfg = tcfg.with_xpeft(bank_quant="int8")
         store, err, match = base["stores"]["soft"][1], ValueError, "hard"
     with pytest.raises(err, match=match):
         TEngine(tcfg, tparams, store, **kw)
