@@ -194,6 +194,24 @@ Phases, in order; any failed check exits non-zero:
              kernels and device ms per step with the slot accumulator
              taken out, obs off and obs on. Its numbers are the kernels
              line's ``resilience`` key.
+11. lifecycle — ``tools/lifecycle_phase.py``: the profile lifecycle on
+             qwen1.5-0.5b at full depth and width, bf16, MarkovLM over 8
+             profiles: (a) onboarding through 4 roster slots (4 examples
+             per slot, T=32, lr 1e-3, graduation at 10-20 steps, a fault
+             plan poisoning slot 3): the graduated, quarantined and
+             evicted sets those of the same run on the CPU at 2 layers,
+             no roster tensor reallocated across waves, host syncs per
+             step < 1, no scatter-add kernel in the gang step; ms per gang
+             step, device ms and kernels per step, peak memory, graduation
+             ms; (b) the run checkpointed every 10 steps, preempted at 15,
+             resumed, then resumed again past a truncated checkpoint: both
+             stores byte-equal to (a)'s, the rosters bitwise; save,
+             restore and bytes; (c) one gang step on the card against the
+             CPU (2 layers, float32) under phase 7's bounds, the parked
+             and poisoned rows bitwise unchanged; (d) the graduated store,
+             loaded from disk, served through #1 and #2 and held to its
+             kernel_impl="ref" run. A ``{"lifecycle": ...}`` JSON line
+             carries its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -1147,11 +1165,15 @@ def phase_unbatched(torch, KA, KF1, ref, F):
 # ----------------------------------------------------------------------------
 
 def make_requests(Request, vocab, n=8, max_new=16, profiles=4):
+    """n requests of 4-16 prompt tokens from seed 0; request i serves
+    profile i % profiles, or profiles[i % len(profiles)] for a list."""
     import numpy as np
     rng = np.random.default_rng(0)
+    pids = list(range(profiles)) if isinstance(profiles, int) else \
+        list(profiles)
     return [Request(uid=i, prompt=rng.integers(0, vocab,
                                                size=rng.integers(4, 17)),
-                    profile_id=i % profiles, max_new_tokens=max_new)
+                    profile_id=pids[i % len(pids)], max_new_tokens=max_new)
             for i in range(n)]
 
 
@@ -1338,7 +1360,7 @@ def serve_once(torch, cfg, params, store, reqs, eng_kw=None):
 
 def drive_path(torch, label, cfg, params, store, counters, check_launches,
                check_runs=None, report_share=False, eng_kw=None,
-               ref_kw=None, own_prefill=False):
+               ref_kw=None, own_prefill=False, profiles=4):
     """One serving path end to end: a warm-up drain, then the 8 requests
     with every counter in ``counters`` set to 0 just before
     (``check_launches(launches, serve_stats, waves)`` asserts what must
@@ -1349,16 +1371,17 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     step. ``eng_kw`` are the path's engine options, ``ref_kw`` the ref
     run's (default: the same); ``own_prefill`` holds the prefill logits
     the teacher-forced runs' own admission waves computed, in place of
-    one padded bucket of all 8 requests."""
+    one padded bucket of all 8 requests. ``profiles``: the requests'
+    profiles, as ``make_requests`` takes them."""
     ref_kw = eng_kw if ref_kw is None else ref_kw
     from repro_torch.models import model as MDL
     from repro_torch.serve import Request, ServeEngine
 
     serve_once(torch, cfg, params, store,
-               make_requests(Request, cfg.vocab_size, n=4, max_new=4),
-               eng_kw)
+               make_requests(Request, cfg.vocab_size, n=4, max_new=4,
+                             profiles=profiles), eng_kw)
     torch.cuda.reset_peak_memory_stats()
-    reqs = make_requests(Request, cfg.vocab_size)
+    reqs = make_requests(Request, cfg.vocab_size, profiles=profiles)
     for _, fn in counters:
         fn.launches = 0
     eng, steps, dt, waves = serve_once(torch, cfg, params, store, reqs,
@@ -1387,7 +1410,7 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     check_launches(launches, st, waves)
 
     ref_cfg = cfg.with_xpeft(kernel_impl="ref")
-    ref_reqs = make_requests(Request, cfg.vocab_size)
+    ref_reqs = make_requests(Request, cfg.vocab_size, profiles=profiles)
     for _, fn in counters:
         fn.launches = 0
     ref_eng, _, ref_dt, _ = serve_once(torch, ref_cfg, params, store,
@@ -1449,7 +1472,7 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
             f"(prefill keeps it): kernel vs ref max|d logit| "
             f"{extra['bare_decode_logit_err']:.4e}")
     step = profile_decode(torch, ServeEngine, Request, cfg, params, store,
-                          label, eng_kw)
+                          label, eng_kw, profiles=profiles)
     return eng, reqs, launches, dict(
         tok_s=toks / dt, ref_tok_s=ref_toks / ref_dt,
         greedy_agree_ref=agree / total, decode_logit_err=e2e["max_abs_err"],
@@ -3317,7 +3340,7 @@ def phase_continuous(torch, cfg=None):
 
 
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
-                   eng_kw=None, steps=(3, 4, 8)):
+                   eng_kw=None, steps=(3, 4, 8), profiles=4):
     """Where a decode step's time goes (B=4 slots, T=1): after
     ``steps[0]`` warm-up steps, ``steps[1]`` steps timed on the host clock
     without the profiler, then ``steps[2]`` steps (one window's sync
@@ -3328,7 +3351,8 @@ def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
     warm, timed, traced = steps
     eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
                       sync_every=8, **(eng_kw or {}))
-    eng.submit(make_requests(Request, cfg.vocab_size, n=4))
+    eng.submit(make_requests(Request, cfg.vocab_size, n=4,
+                             profiles=profiles))
     eng.admit_many(eng.scheduler.next_batch(4))
     for _ in range(warm):
         eng.step()
@@ -3468,8 +3492,14 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import resilience_phase
     resilience = resilience_phase.phase_resilience(torch, base=base)
-    del base
     lap("10 resilience")
+    # 11. the profile lifecycle: onboarding through the roster, checkpoint
+    # and resume, the gang step against the CPU, the graduated store served
+    torch.cuda.empty_cache()
+    import lifecycle_phase
+    lifecycle = lifecycle_phase.phase_lifecycle(torch, base=base)
+    del base
+    lap("11 lifecycle")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3580,6 +3610,9 @@ def main():
     for row in kernels:
         row["launches_phase10"] = {run: n.get(row["name"], 0)
                                    for run, n in p10.items()}
+        # phase 11: serving the graduated store
+        row["launches_phase11"] = lifecycle["served"]["launches"].get(
+            row["name"], 0)
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3592,6 +3625,7 @@ def main():
                                       for k, v in phase_seconds.items()))
     log(json.dumps({"train": dict(train, step_vs_cpu=train_step)}))
     log(json.dumps({"encoder": encoder}))
+    log(json.dumps({"lifecycle": lifecycle}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

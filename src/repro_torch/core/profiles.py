@@ -21,6 +21,7 @@ import json
 import os
 import tempfile
 import weakref
+import zipfile
 from typing import Dict, Iterable
 
 import numpy as np
@@ -290,22 +291,32 @@ class ProfileStore:
     def save(self, path: str) -> None:
         """Write every record not quarantined to ``path`` (``.npz``),
         atomically: a temporary file in the same directory, then a
-        rename."""
+        rename. The zip members carry a fixed timestamp, so the file's
+        bytes are a function of the records alone: equal stores write
+        byte-equal files."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         saved = [p for p in sorted(self._rec) if p not in self._quarantined]
-        payload = {f"{pid}:{k}": v for pid in saved
-                   for k, v in self._rec[pid].items()}
         meta = dict(L=self.L, N=self.N, b=self.b, mask_type=self.mask_type,
                     k=self.k, quant=self.quant,
                     quant_group=self.quant_group,
                     bank_spec=[list(s) for s in self.bank_spec], pids=saved,
                     crc={str(pid): self._crc.get(pid)
                          or record_crc(self._rec[pid]) for pid in saved})
-        # a .npz suffix: np.savez appends one to names that lack it
+        members = [("__meta__", np.asarray(json.dumps(meta)))]
+        members += [(f"{pid}:{k}", v) for pid in saved
+                    for k, v in self._rec[pid].items()]
         fd, tmp = tempfile.mkstemp(suffix=".npz",
                                    dir=os.path.dirname(path) or ".")
         os.close(fd)
-        np.savez(tmp, __meta__=json.dumps(meta), **payload)
+        # np.savez's layout (one .npy member per key, stored), with the
+        # member timestamp fixed where np.savez stamps the current time
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
+            for key, val in members:
+                info = zipfile.ZipInfo(key + ".npy",
+                                       date_time=(1980, 1, 1, 0, 0, 0))
+                with zf.open(info, "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(val),
+                                              allow_pickle=False)
         os.replace(tmp, path)
 
     @classmethod

@@ -1,17 +1,28 @@
-"""Training launcher: the plain (single-device) path of the paper's loop.
+"""Training launcher: the paper's loop, and the profile lifecycle.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-      --mode xpeft --steps 100 --batch 8 --seq 64          # on the card
+      --mode xpeft --steps 100 --batch 8 --seq 64 --ckpt-dir CK  # the card
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 3
 
-Builds the frozen model and the mode's trainables from ``--seed``, then
-runs ``make_train_step`` over ``MarkovLM.sample(step, batch, seq)``, the
-single-host batches of the JAX launcher's loader, with the Gumbel noise
-drawn from a ``torch.Generator`` seeded ``--seed + 1``, and prints the
-final loss. Runs on the card unless ``--device cpu`` is passed. The
-sharded mesh, checkpoints, resume, the onboarding flow and observability
-exports raise ``NotImplementedError`` naming their ROADMAP item.
+``--onboard`` switches to the lifecycle: stream ``--profiles`` P >> S
+profiles through an S-slot roster (``train/roster.py``), graduating
+converged profiles into a ProfileStore written to ``--store-out``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --onboard --smoke \\
+      --device cpu --profiles 6 --roster-slots 2 --store-out S.npz \\
+      --ckpt-dir CK
+
+Both flows run through ``Trainer``: metrics buffered on the device and
+fetched once per ``--log-every`` window, checkpoints every
+``--ckpt-every`` steps under ``--ckpt-dir`` (``--resume`` continues from
+the newest one that verifies), a preemption signal checkpoints and stops.
+``--metrics-json`` / ``--trace`` export the obs bundle's counters and a
+Chrome trace. The plain flow draws ``MarkovLM.sample(step, batch, seq)``
+through a ``ShardedLoader``, with the Gumbel noise from a
+``torch.Generator`` seeded ``--seed + 1``. Runs on the card unless
+``--device cpu`` is passed. ``--mesh`` (sharded training) raises
+``NotImplementedError``: ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -20,21 +31,10 @@ import contextlib
 
 import torch
 
-# flag -> what it needs, for the flags this launcher refuses
-_NOT_PORTED = {
-    "mesh": "sharded training (ROADMAP queue 1, item 11)",
-    "ckpt_dir": "checkpoints and the Trainer (ROADMAP queue 1, item 8)",
-    "resume": "checkpoints and the Trainer (ROADMAP queue 1, item 8)",
-    "onboard": "the onboarding lifecycle (ROADMAP queue 1, item 8)",
-    # JAX exports training metrics and traces only through its Trainer
-    "metrics_json": "observability exports through the Trainer (ROADMAP "
-                    "queue 1, item 8)",
-    "trace": "observability exports through the Trainer (ROADMAP queue 1, "
-             "item 8)",
-}
-
 
 def parse_args(argv=None):
+    from repro_torch import obs as OBS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--mode", default="xpeft",
@@ -50,30 +50,53 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default="")
     ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--onboard", action="store_true")
-    ap.add_argument("--metrics-json", default="")
-    ap.add_argument("--trace", default="")
+    # --onboard: the profile lifecycle (roster / onboarding / gang step)
+    ap.add_argument("--onboard", action="store_true",
+                    help="stream --profiles through a roster, graduating "
+                         "converged profiles into --store-out")
+    ap.add_argument("--roster-slots", type=int, default=4)
+    ap.add_argument("--per-slot-batch", type=int, default=4)
+    ap.add_argument("--num-labels", type=int, default=0,
+                    help="add a classification head (0 = LM objective)")
+    ap.add_argument("--graduate-min-steps", type=int, default=20)
+    ap.add_argument("--graduate-max-steps", type=int, default=80)
+    ap.add_argument("--target-loss", type=float, default=None)
+    ap.add_argument("--target-acc", type=float, default=None)
+    ap.add_argument("--ema-decay", type=float, default=0.9)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--store-out", default="")
+    OBS.add_cli_args(ap)  # --metrics-json PATH, --trace PATH
     args = ap.parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: {what} is not ported")
+    if args.mesh:
+        raise NotImplementedError("--mesh: sharded training (ROADMAP queue "
+                                  "1, item 11) is not ported")
     return args
 
 
-def build(args):
-    """(cfg, state, step, source, generator) of a run."""
+def _config(args):
     from repro_torch.configs import get_config, reduce_for_smoke
+
+    cfg = get_config(args.arch)
+    return reduce_for_smoke(cfg) if args.smoke else cfg
+
+
+def _report_obs(obs, args) -> None:
+    if obs is not None:
+        obs.export(args.metrics_json or None, args.trace or None)
+        print(f"obs: {sum(obs.tracer.category_counts().values())} trace "
+              f"events {obs.tracer.category_counts()}")
+
+
+def build(args):
+    """(cfg, state, step, source, generator) of a plain run."""
     from repro_torch.data import MarkovLM
     from repro_torch.train.steps import init_train_state, make_train_step
     from repro_torch.utils import resolve_device
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = reduce_for_smoke(cfg)
-    cfg = cfg.with_xpeft(max_profiles=max(args.profiles, 2))
+    cfg = _config(args).with_xpeft(max_profiles=max(args.profiles, 2))
     state = init_train_state(cfg, args.mode, seed=args.seed, device=device)
     step = make_train_step(cfg, args.mode, lr=args.lr)
     source = MarkovLM(cfg.vocab_size, args.profiles, seed=args.seed)
@@ -81,31 +104,114 @@ def build(args):
     return cfg, state, step, source, gen
 
 
-def run(args, observe=None):
-    """The training loop: ``args.steps`` steps. ``observe(i, state)``, if
-    given, returns a context manager entered around step i, given the
-    state before it (timers, profilers). Returns dict(cfg, state, step,
-    source, generator, history), the history one metrics dict per step."""
+def run(args, observe=None, preemption=None):
+    """The plain training loop through ``Trainer``: ``args.steps`` steps
+    over ``ShardedLoader(MarkovLM, batch, seq)`` (after a resume,
+    ``args.steps`` more). ``observe(i, state)``, if given, returns a
+    context manager entered around step i, given the state before it
+    (timers, profilers); ``preemption`` a ``PreemptionHandler`` (the
+    command line installs one). Returns dict(cfg, state, step, source,
+    generator, history, trainer), the history one record of host floats
+    per step."""
+    from repro_torch import obs as OBS
+    from repro_torch.data import ShardedLoader
+    from repro_torch.train.trainer import Trainer
+
     cfg, state, step, source, gen = build(args)
+    obs = OBS.from_cli_args(args)
     observe = observe or (lambda i, state: contextlib.nullcontext())
-    history = []
-    for i in range(args.steps):
-        batch = source.sample(i, args.batch, args.seq)
-        with observe(i, state):
-            state, metrics = step(state, batch, gen)
-        history.append(metrics)
-    return dict(cfg=cfg, state=state, step=step, source=source,
-                generator=gen, history=history)
+    holder = {}
+
+    def observed(state, batch, rng):
+        with observe(holder["trainer"].step, state):
+            return step(state, batch, rng)
+
+    trainer = Trainer(observed, state,
+                      ShardedLoader(source, args.batch, args.seq),
+                      ckpt_dir=args.ckpt_dir or None,
+                      ckpt_every=args.ckpt_every,
+                      preemption=preemption, rng=gen, obs=obs)
+    holder["trainer"] = trainer
+    if args.resume and trainer.try_resume():
+        print(f"resumed from step {trainer.step}")
+    hist = trainer.run(args.steps)
+    _report_obs(obs, args)
+    return dict(cfg=cfg, state=trainer.state, step=step, source=source,
+                generator=trainer.rng, history=hist, trainer=trainer)
+
+
+def run_onboarding(args):
+    """--onboard: stream P >> S profiles through an S-slot roster and
+    graduate converged profiles into a ProfileStore (the train -> serve
+    loop). Returns the trainer."""
+    from repro_torch import obs as OBS
+    from repro_torch.data import MarkovLM, ProfileClassification
+    from repro_torch.distributed.fault import PreemptionHandler
+    from repro_torch.train import GraduationPolicy
+    from repro_torch.train.onboarding import build_onboarding_run
+
+    obs = OBS.from_cli_args(args)
+    cfg = _config(args)
+    if args.num_labels:
+        cfg = cfg.with_(num_labels=args.num_labels)
+        source = ProfileClassification(cfg.vocab_size, cfg.num_labels,
+                                       num_profiles=args.profiles,
+                                       seed=args.seed)
+    else:
+        source = MarkovLM(cfg.vocab_size, args.profiles, seed=args.seed)
+    policy = GraduationPolicy(
+        min_steps=args.graduate_min_steps, max_steps=args.graduate_max_steps,
+        ema_decay=args.ema_decay,
+        target_loss=args.target_loss, target_acc=args.target_acc)
+    trainer, _ = build_onboarding_run(
+        cfg, source, range(args.profiles), slots=args.roster_slots,
+        per_slot=args.per_slot_batch, seq_len=args.seq, policy=policy,
+        lr=args.lr, seed=args.seed, device=args.device,
+        store_path=args.store_out or None,
+        ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
+        preemption=PreemptionHandler(), log_every=args.log_every, obs=obs)
+    scheduler, store = trainer.scheduler, trainer.scheduler.store
+    if args.resume and trainer.try_resume():
+        print(f"resumed onboarding from step {trainer.step}: "
+              f"{scheduler.stats()}")
+    trainer.run_until_drained(max_steps=args.steps)
+    st = scheduler.stats()
+    print(f"onboarding done at step {trainer.step}: "
+          f"{st['graduated']} graduated, {st['evicted']} evicted, "
+          f"{st['quarantined']} quarantined, {st['in_training']} in "
+          f"training, {st['pending']} pending, host syncs/step "
+          f"{trainer.host_syncs / max(trainer.step, 1):.3f}")
+    if args.store_out:
+        store.save(args.store_out)
+        print(f"wrote {args.store_out}: {len(store.profile_ids())} profiles, "
+              f"{store.bytes_per_profile()} B/profile (masks)")
+    _report_obs(obs, args)
+    if st["graduated"] == 0:
+        raise SystemExit("onboarding graduated zero profiles")
+    if not scheduler.finished():
+        # the --steps backstop cut the stream short: in-slot and queued
+        # profiles never reached the store, which must not look like
+        # success
+        raise SystemExit(
+            f"onboarding truncated by --steps {args.steps}: "
+            f"{st['in_training']} profiles still in slots, "
+            f"{st['pending']} pending; raise --steps (or --resume from "
+            "the checkpoint) to finish the stream")
+    return trainer
 
 
 def main(argv=None):
     args = parse_args(argv)
-    out = run(args)
+    if args.onboard:
+        return run_onboarding(args)
+    from repro_torch.distributed.fault import PreemptionHandler
+
+    out = run(args, preemption=PreemptionHandler())
     hist = out["history"]
     if hist:
-        print(f"final loss {float(hist[-1]['loss']):.4f} after "
-              f"{len(hist)} steps (grad norm "
-              f"{float(hist[-1]['grad_norm']):.4f})")
+        print(f"final loss {hist[-1]['loss']:.4f} after step "
+              f"{hist[-1]['step']} (grad norm {hist[-1]['grad_norm']:.4f}; "
+              f"stragglers {out['trainer'].watchdog.slow_steps})")
     return out
 
 

@@ -3,8 +3,8 @@ record/checkpoint integrity (the port of ``repro.resilience``).
 
 - `faults.py`     — `FaultPlan`: a seeded, declarative chaos plan injected
                     behind thin seams (ServeEngine admission hydration,
-                    ProfileStore corruption; the gang step and checkpoint
-                    writes come with the profile lifecycle).
+                    ProfileStore corruption, the gang step's gradient
+                    poisoning, checkpoint truncation).
                     `None` everywhere = production behavior, zero overhead.
 - `retry.py`      — `retry_with_backoff` + `RetryPolicy`: deadline-bounded
                     jittered exponential backoff (admission hydration).

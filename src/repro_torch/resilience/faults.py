@@ -153,15 +153,19 @@ class FaultPlan:
         across resumes."""
         import torch
 
-        sel = np.zeros((capacity,), bool)
+        # built on the device from scalars: a host -> device copy would
+        # synchronize the stream every step
+        ar = torch.arange(capacity, device=slot_step.device)
+        sel = torch.zeros((capacity,), dtype=torch.bool,
+                          device=slot_step.device)
         for s in self.poison_slots:
             if 0 <= int(s) < capacity:
-                sel[int(s)] = True
+                sel = sel | (ar == int(s))
         window = slot_step >= self.poison_from_step
         if self.poison_steps is not None:
             window = window & (slot_step
                                < self.poison_from_step + self.poison_steps)
-        return torch.from_numpy(sel).to(slot_step.device) & window
+        return sel & window
 
     # ------------------------------------------------------------ checkpoints
     def truncate_checkpoint(self, step: int) -> bool:

@@ -24,19 +24,23 @@ drops them in JAX. Gradients come from autograd through plain torch ops:
 no hand-written kernel has a backward, and ``kernels/ops.py`` refuses an
 input that requires grad.
 
-The slot-packed gang step for the profile lifecycle waits for ROADMAP
-queue 1, item 8.
+``make_gang_step`` is the slot-packed step of the profile lifecycle: one
+update trains every active roster slot on its own micro-batch
+(``train/roster.py``, ``train/onboarding.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import masks as M
 from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank
 from repro_torch.models import model as MDL
-from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.optim import (adamw_init, adamw_update, adamw_update_rows,
+                               clip_by_global_norm, clip_by_row_norm)
+from repro_torch.optim.adamw import _bcast_rows
 from repro_torch.utils import resolve_device
 from repro_torch.utils.tree import merge_trees, tree_leaves, tree_map
 
@@ -251,9 +255,145 @@ def loss_for_batch(frozen, trainable, batch, cfg, mode, rng, training=True):
 # Step factory
 # ----------------------------------------------------------------------------
 
-def make_gang_step(cfg, **kwargs):
-    raise NotImplementedError("the slot-packed gang step is not ported (the "
-                              "profile lifecycle, ROADMAP queue 1, item 8)")
+def _rows_per_example(t, m: int):
+    """[S, ...] -> [S * m, ...], each slot's row repeated for its m
+    examples: JAX's ``t[repeat(arange(S), m)]`` as a broadcast, whose
+    backward is a plain sum over m (an index gather's backward would
+    scatter-add, with float atomics on the card)."""
+    return t.unsqueeze(1).expand((t.shape[0], m) + tuple(t.shape[1:])) \
+        .reshape((t.shape[0] * m,) + tuple(t.shape[1:]))
+
+
+def gang_loss_and_grads(frozen, rstate, batch, cfg, rng):
+    """The gang step's forward and gradient: (grads of the roster's
+    trainables, slot_loss [S], slot_acc [S]) for a batch of [S, m, ...]
+    tensors. The loss is the SUM over active slots of each slot's mean
+    loss (never normalized by the active count), so a slot's gradient is
+    independent of which other slots are occupied. Per-example losses are
+    ``cross_entropy``'s, whose backward writes each row's target once (no
+    scatter-add)."""
+    S, m = batch["tokens"].shape[:2]
+    toks = batch["tokens"].reshape(S * m, -1)
+    active = rstate["active"]
+    trainable = tree_map(lambda p: p.detach().requires_grad_(True),
+                         rstate["trainable"])
+    prof = {k: _rows_per_example(v, m)
+            for k, v in trainable["table"].items()}
+    w_a, w_b = XP.profile_mask_weights(prof, cfg.xpeft, training=True,
+                                       **_noise_kw(rng))
+    pmasks = {"w_a": w_a, "w_b": w_b, "ln_scale": prof["ln_scale"],
+              "ln_bias": prof["ln_bias"]}
+    hidden, _, _ = MDL.forward(frozen, toks, cfg, profile_masks=pmasks)
+    if cfg.num_labels:
+        head = {k: _rows_per_example(v, m)
+                for k, v in trainable["heads"].items()}
+        logits = MDL.cls_logits(frozen, hidden, cfg, head)
+        labels = batch["labels"].reshape(S * m).long()
+        per_ex = F.cross_entropy(logits, labels, reduction="none")
+        slot_acc = (torch.argmax(logits, -1) == labels).float() \
+            .reshape(S, m).mean(dim=1)
+    else:
+        logits = MDL.lm_logits(frozen, hidden, cfg)
+        labels = batch["labels"].reshape(-1).long()
+        per_ex = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels, reduction="none") \
+            .reshape(S * m, -1).mean(dim=-1)
+        slot_acc = torch.zeros((S,), dtype=torch.float32,
+                               device=per_ex.device)
+    slot_loss = per_ex.reshape(S, m).mean(dim=1)
+    total = torch.sum(torch.where(active, slot_loss, 0.0))
+    total.backward()
+    grads = tree_map(lambda p: p.grad if p.grad is not None
+                     else torch.zeros_like(p), trainable)
+    return grads, slot_loss.detach(), slot_acc.detach()
+
+
+def make_gang_step(cfg, *, lr=1e-3, weight_decay=0.0, clip_norm: float = 1.0,
+                   ema_decay: float = 0.9, mesh=None, fault_plan=None):
+    """Slot-packed gang step for the onboarding roster.
+
+    One update trains every ACTIVE slot on its own micro-batch:
+    ``batch["tokens"]`` is [S, m, T] (row s belongs to slot s), labels
+    [S, m] for classification or [S, m, T] for the LM objective (tensors
+    or numpy arrays, moved to the roster's device). Slot isolation is
+    exact and bitwise: the loss sums per-slot means
+    (``gang_loss_and_grads``), grads are clipped per slot row
+    (``clip_by_row_norm``), and ``adamw_update_rows`` leaves inactive
+    rows' params AND moments untouched.
+
+    Finite guard (always on): a slot whose loss or grads come back
+    non-finite is masked out of the update exactly like an inactive one;
+    its EMAs and ``slot_step`` freeze and its ``nonfinite`` counter
+    increments (the onboarding strike counter). A ``fault_plan`` with
+    ``poison_slots`` overwrites the selected slots' loss and grads with
+    NaN AFTER the gradient, the seam that proves the guard.
+
+    Everything stays on the device: the EMAs update there, and the
+    metrics come back as device tensors (no host sync inside the step).
+    The step writes the new roster IN PLACE into the state's tensors,
+    whose storage never changes, and returns the same state dict.
+
+    ``rng``: a ``torch.Generator`` that draws the step's Gumbel noise of
+    shape [S * m, L, N] (A's then B's), a (noise_a, noise_b) pair of such
+    draws, or None (no noise). Returns ``step({"frozen", "roster"},
+    batch, rng) -> (state, metrics)``. A ``mesh`` (the slot axis sharded
+    over devices) is ROADMAP queue 1, item 11."""
+    if mesh is not None:
+        raise NotImplementedError("make_gang_step(mesh=): the sharded gang "
+                                  "step is not ported (ROADMAP queue 1, "
+                                  "item 11)")
+
+    def step(state, batch, rng):
+        frozen, rstate = state["frozen"], state["roster"]
+        dev = rstate["active"].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        S = batch["tokens"].shape[0]
+        active = rstate["active"]
+        grads, slot_loss, slot_acc = gang_loss_and_grads(
+            frozen, rstate, batch, cfg, rng)
+        with torch.no_grad():
+            if fault_plan is not None and fault_plan.poisons_gang():
+                # the seam, AFTER the gradient: healthy slots' gradient
+                # computation is unchanged by the injection
+                pmask = fault_plan.gang_poison_mask(rstate["slot_step"], S)
+                grads = tree_map(lambda g: torch.where(
+                    _bcast_rows(pmask, g), torch.nan, g), grads)
+                slot_loss = torch.where(pmask, torch.nan, slot_loss)
+            # the finite guard: a poisoned slot is treated as a parked one
+            finite = torch.isfinite(slot_loss)
+            for g in tree_leaves(grads):
+                finite = finite & torch.isfinite(g).reshape(S, -1).all(dim=1)
+            ok = active & finite
+            grads, gnorm = clip_by_row_norm(grads, clip_norm)
+            new_params, new_opt = adamw_update_rows(
+                grads, rstate["opt"], rstate["trainable"], ok, lr=lr,
+                weight_decay=weight_decay)
+            d = ema_decay
+
+            def ema(old, x):
+                return torch.where(ok, d * old + (1 - d) * x, old)
+            okf = ok.float()
+            bad = (active & ~finite)
+            new = {"trainable": new_params, "opt": new_opt,
+                   "slot_step": rstate["slot_step"] + ok.to(torch.int32),
+                   "ema_loss": ema(rstate["ema_loss"], slot_loss),
+                   "ema_acc": ema(rstate["ema_acc"], slot_acc),
+                   "ema_count": rstate["ema_count"] + ok.to(torch.int32),
+                   "nonfinite": rstate["nonfinite"] + bad.to(torch.int32)}
+            tree_map(lambda t, n: t.copy_(n),
+                     {k: rstate[k] for k in new}, new)
+            n_ok = torch.clamp(okf.sum(), min=1.0)
+            metrics = {
+                "loss": torch.where(ok, slot_loss, 0.0).sum() / n_ok,
+                "grad_norm": torch.where(ok, gnorm, 0.0).sum() / n_ok,
+                "active_slots": active.float().sum(),
+                "nonfinite_slots": bad.float().sum()}
+            if cfg.num_labels:
+                metrics["accuracy"] = \
+                    torch.where(ok, slot_acc, 0.0).sum() / n_ok
+        return state, metrics
+
+    return step
 
 
 def grads_for_batch(frozen, trainable, batch, cfg, mode, rng):

@@ -419,9 +419,9 @@ def test_degraded_engine_stats_obs_and_reset(setup, tmp_path):
 
 
 def test_launchers_obs_flags(tmp_path):
-    """The serving launcher writes the metrics JSON and a valid Chrome
-    trace; the training launcher refuses both flags, naming the Trainer's
-    item."""
+    """Both launchers write the metrics JSON and a valid Chrome trace (the
+    training launcher through its Trainer: one gang_window span per
+    flushed window, the train.steps counter)."""
     from repro_torch.launch import serve as LS
     from repro_torch.launch import train as LT
     m, t = tmp_path / "m.json", tmp_path / "t.json"
@@ -429,6 +429,17 @@ def test_launchers_obs_flags(tmp_path):
              "--max-new", "3", "--metrics-json", str(m), "--trace", str(t)])
     assert json.loads(m.read_text())["counters"]["serve.decode_tokens"] > 0
     assert OBS.validate_chrome_trace(json.loads(t.read_text())) is None
-    for flag in ("--metrics-json", "--trace"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            LT.parse_args(["--smoke", "--device", "cpu", flag, "x"])
+    m2, t2 = tmp_path / "m2.json", tmp_path / "t2.json"
+    import signal
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:  # main installs a PreemptionHandler: restore the handlers after
+        LT.main(["--smoke", "--device", "cpu", "--steps", "3", "--batch",
+                 "2", "--seq", "8", "--metrics-json", str(m2), "--trace",
+                 str(t2)])
+    finally:
+        for s, h in saved.items():
+            signal.signal(s, h)
+    assert json.loads(m2.read_text())["counters"]["train.steps"] == 3
+    doc = json.loads(t2.read_text())
+    assert OBS.validate_chrome_trace(doc) is None
+    assert any(e.get("name") == "gang_window" for e in doc["traceEvents"])

@@ -141,8 +141,9 @@ def test_generator_noise_and_refusals():
     assert np.isfinite(float(cm["loss"])) and 0 <= float(cm["accuracy"]) <= 1
     assert not torch.equal(cnew["trainable"]["heads"]["head_w"],
                            cstate["trainable"]["heads"]["head_w"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TST.make_gang_step(tcfg)
+    # the sharded gang step is the mesh's (ROADMAP queue 1, item 11)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TST.make_gang_step(tcfg, mesh=object())
 
 
 def test_launcher_smoke_on_cpu():
@@ -155,6 +156,58 @@ def test_launcher_smoke_on_cpu():
     assert "final loss" in out.stdout
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--steps", "1", "--ckpt-dir", "x"], env=env,
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "item 8" in out.stderr
+         "--device", "cpu", "--steps", "1", "--mesh", "2x1:data,model"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "item 11" in out.stderr
+
+
+@pytest.fixture
+def keep_signals():
+    """The launcher's main installs a PreemptionHandler for SIGTERM and
+    SIGINT; put the test process's handlers back afterwards."""
+    import signal
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    yield
+    for s, h in saved.items():
+        signal.signal(s, h)
+
+
+def test_launcher_checkpoint_and_resume(tmp_path, capsys, keep_signals):
+    """--ckpt-dir writes checkpoints; --resume continues from the last
+    one, and the resumed run ends bitwise the uninterrupted one."""
+    from repro_torch.launch import train as LT
+    base = ["--smoke", "--device", "cpu", "--batch", "4", "--seq", "8"]
+    whole = LT.main(base + ["--steps", "4"])
+    ck = str(tmp_path / "ck")
+    LT.main(base + ["--steps", "2", "--ckpt-dir", ck, "--ckpt-every", "2"])
+    out = LT.main(base + ["--steps", "2", "--ckpt-dir", ck, "--resume"])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert out["trainer"].step == 4
+    assert [r["step"] for r in out["history"]] == [3, 4]
+    for k, v in whole["state"]["trainable"]["table"].items():
+        assert torch.equal(out["state"]["trainable"]["table"][k], v)
+
+
+def test_launcher_onboard_writes_loadable_store(tmp_path, keep_signals):
+    """--onboard drains the stream into a store ProfileStore.load reads,
+    with the obs exports (--metrics-json, --trace) valid."""
+    from repro_torch import obs as OBS
+    from repro_torch.launch import train as LT
+    sp, m, t = (str(tmp_path / n) for n in ("s.npz", "m.json", "t.json"))
+    trainer = LT.main(["--onboard", "--smoke", "--device", "cpu",
+                       "--profiles", "3", "--roster-slots", "2",
+                       "--per-slot-batch", "2", "--seq", "8",
+                       "--graduate-min-steps", "2",
+                       "--graduate-max-steps", "4", "--log-every", "2",
+                       "--store-out", sp, "--ckpt-dir",
+                       str(tmp_path / "ck"), "--ckpt-every", "4",
+                       "--metrics-json", m, "--trace", t])
+    assert trainer.scheduler.finished()
+    loaded = TStore.load(sp)
+    assert loaded.profile_ids() == [0, 1, 2]
+    assert not loaded.quarantined_ids()
+    import json
+    counters = json.loads(open(m).read())["counters"]
+    assert counters["train.graduated"] == 3
+    assert counters["train.steps"] == trainer.step
+    assert OBS.validate_chrome_trace(json.loads(open(t).read())) is None
