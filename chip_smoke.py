@@ -143,9 +143,10 @@ Phases, in order; any failed check exits non-zero:
              the encoder's bank [1200, 768, 48] (both sides) and #2 at its
              B=64, T=128 shape and at b=48, bf16 T=1 and fp32 T=16.
 
-9. continuous — qwen1.5-0.5b at full width (bf16, random weights from
-             seed 0) on ``benchmarks/cb_smoke.py``'s skewed workload (12
-             requests, prompts of 3-12 tokens, 3 profiles, 1 in 3 long
+9. continuous — qwen1.5-0.5b at full width and 12 of its 24 layers
+             (CUT_LAYERS; bf16, random weights from seed 0) on
+             ``benchmarks/cb_smoke.py``'s skewed workload (12 requests,
+             prompts of 3-12 tokens, 3 profiles, 1 in 3 long
              with 40 new tokens, the rest 2), 4 slots, max_seq 128,
              page_size 16, sync_every 8: (a) bf16 composed, continuous
              against windowed; (b) continuous with long_new 100 on 10
@@ -170,7 +171,8 @@ Phases, in order; any failed check exits non-zero:
              writeback on its pool as CUDA-graph replays ((b)'s steps
              have (a)'s shapes, the starved spec run's (f)'s). Phase 3b checks and times
              #2 at the verify's shape (B=4, T=4, layer slices).
-10. resilience — ``tools/resilience_phase.py``: (a) training over the typed
+10. resilience — ``tools/resilience_phase.py``, at phase 9's depth (12
+             layers, full width): (a) training over the typed
              bank bottleneck 102 / LoRA 102 / IA3 26 / prefix 26, P=8: one
              step on the card against the CPU (2 layers, float32, one
              example's masks selecting no prefix slot) under phase 7's
@@ -213,9 +215,33 @@ Phases, in order; any failed check exits non-zero:
              kernel_impl="ref" run. A ``{"lifecycle": ...}`` JSON line
              carries its numbers.
 
+12. moe    — ``tools/moe_phase.py``: qwen3-moe-30b-a3b at full width and
+             depth (48 layers, d=2048, 128 experts, top-8, vocab 151,936;
+             bf16, random weights from seed 0, bank N=256, b=64, k=50):
+             (k) #1, #2, #5 and #6 checked and timed at its shapes; (e)
+             one xpeft step on the card against the CPU (2 layers, float32,
+             the aux loss too) under phase 7's bounds, ten full-depth steps
+             timed and profiled, the trained table packed, saved and
+             reloaded byte-equal; on phase 4's workload, (a) composed
+             windowed serving (#1 twice per aggregating wave, #2 48 times
+             per decode step and prefill batch) held to its
+             kernel_impl="ref" run with every layer's routing recorded:
+             each request's first routing flip on a reference router-
+             logit gap of at most twice its max |d router logit|, and,
+             teacher-forced with the ref run's routing replayed, every
+             logit under phase 4's bounds; a decode step profiled, the
+             expert GEMMs' share and the step's byte bound;
+             (b) decode_fused=True: #8 0 launches, tokens bitwise (a)'s;
+             (c) continuous against (a) by the routing rule, then spec
+             gamma 3 against continuous (reported); (d) the int8 bank
+             (#5, #6) held as (a); (f) the trained store served as (a). A
+             ``{"moe": ...}`` JSON line carries its numbers;
+             ``launches_moe`` in each kernel row.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
 """
+import gc
 import json
 import math
 import os
@@ -293,6 +319,11 @@ E2E_SHARE_REL = 0.5
 #   LM head, 2 layers and the straight-through softmax).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL_L2 = 1e-3
+# phases 9 and 10 drive their paths at this depth of qwen1.5-0.5b (24
+# layers) and full width, so that the whole script, phase 12's 48-layer
+# model included, stays well inside its time limit: their serving and
+# training steps are host-bound, so their time follows the layer count
+CUT_LAYERS = 12
 # - the encoder (phase 8): its card-vs-CPU step under phase 7's two bounds
 #   for every mode, with the accuracy equal (fp32 logits of 15 classes);
 #   its kernel route against the same route's kernel_impl="ref" run under
@@ -2271,6 +2302,7 @@ def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
         runs[dev] = dict(w=[x.detach().cpu() for x in w],
                          grads=_tree_to(grads, "cpu"),
                          loss=float(metrics["loss"]),
+                         aux=float(metrics["aux_loss"]),
                          s=time.perf_counter() - t)
     gpu, cpu = runs["cuda"], runs["cpu"]
     if check_w is not None:
@@ -2280,6 +2312,8 @@ def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
     st_err = max((a - b).abs().max().item()
                  for a, b in zip(gpu["w"], cpu["w"]))
     loss_err = abs(gpu["loss"] - cpu["loss"])
+    # the load-balance aux (0 for dense blocks) under the loss's bound
+    aux_err = abs(gpu["aux"] - cpu["aux"])
     rel = {}
     for k in gpu["grads"]["table"]:
         a, b = gpu["grads"]["table"][k], cpu["grads"]["table"][k]
@@ -2292,31 +2326,34 @@ def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
         f"{gpu['loss']:.6f} CPU {cpu['loss']:.6f} |d| {loss_err:.3e} (tol "
         f"{TRAIN_LOSS_RTOL * abs(cpu['loss']):.3e}); grad relative L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-        + f" (tol {TRAIN_GRAD_REL_L2})")
+        + f" (tol {TRAIN_GRAD_REL_L2}); aux card {gpu['aux']:.6f} CPU "
+        f"{cpu['aux']:.6f} |d| {aux_err:.3e}")
     assert khot_equal
     assert loss_err <= TRAIN_LOSS_RTOL * abs(cpu["loss"]), loss_err
+    assert aux_err <= TRAIN_LOSS_RTOL * abs(cpu["aux"]), aux_err
     assert all(v <= TRAIN_GRAD_REL_L2 for v in rel.values()), rel
     assert all(gpu["grads"]["table"][k].abs().max() > 0 for k in rel)
     return dict(khot_bitwise=khot_equal, st_weights_max_abs_err=st_err,
                 loss_card=gpu["loss"], loss_cpu=cpu["loss"],
-                loss_abs_err=loss_err, grad_rel_l2=rel)
+                loss_abs_err=loss_err, aux_card=gpu["aux"],
+                aux_cpu=cpu["aux"], aux_abs_err=aux_err, grad_rel_l2=rel)
 
 
-def phase_train_full(torch):
-    """(b) Ten xpeft steps of qwen1.5-0.5b at full width and depth in bf16
-    through ``launch/train.py``'s loop (its defaults: 8 profiles, B=8,
-    T=64, lr 1e-3): every loss and grad norm finite, the grad norm > 0,
-    the mask logits moved; ms per step (CUDA events, median of steps
-    3-10), tokens/s, peak memory; then 3 more steps of the same loop's
-    step function under torch.profiler for device ms and kernels per
-    step."""
+def phase_train_full(torch, argv=TRAIN_ARGV):
+    """(b) Ten xpeft steps of qwen1.5-0.5b (``argv``'s arch) at full width
+    and depth in bf16 through ``launch/train.py``'s loop (its defaults: 8
+    profiles, B=8, T=64, lr 1e-3): every loss and grad norm finite, the
+    grad norm > 0, the mask logits moved; ms per step (CUDA events, median
+    of steps 3-10), tokens/s, peak memory; then 3 more steps of the same
+    loop's step function under torch.profiler for device ms and kernels
+    per step."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as LT
 
-    args = LT.parse_args(TRAIN_ARGV)
+    args = LT.parse_args(argv)
     ev, walls, first = [], [], {}
 
     @contextlib.contextmanager
@@ -3464,7 +3501,7 @@ def main():
     # 7. training: one step on the card against the CPU, ten full-depth
     # steps through the launcher's loop, the trained profiles packed,
     # saved and reloaded, then served per step and from soft masks
-    # (phase 4's weights are kept for phase 10)
+    # (phase 4's weights are kept for phase 11)
     base = dict(params=ctx["params"])
     del ctx
     torch.cuda.empty_cache()
@@ -3481,9 +3518,11 @@ def main():
     encoder = phase_encoder(torch)
     lap("8 encoder")
     # 9. continuous batching and self-speculation, each run with the
-    # counters set to 0 just before its drain
+    # counters set to 0 just before its drain; phases 9 and 10 run
+    # qwen1.5-0.5b at full width and CUT_LAYERS of its 24 layers
     torch.cuda.empty_cache()
-    continuous = phase_continuous(torch)
+    cut = get_config("qwen1.5-0.5b").with_(num_layers=CUT_LAYERS)
+    continuous = phase_continuous(torch, cfg=cut)
     lap("9 continuous")
     # 10. heterogeneous training forms, per-step heterogeneous serving,
     # fault plans with degraded admission, observability (each run with
@@ -3491,7 +3530,7 @@ def main():
     torch.cuda.empty_cache()
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import resilience_phase
-    resilience = resilience_phase.phase_resilience(torch, base=base)
+    resilience = resilience_phase.phase_resilience(torch, cfg=cut)
     lap("10 resilience")
     # 11. the profile lifecycle: onboarding through the roster, checkpoint
     # and resume, the gang step against the CPU, the graduated store served
@@ -3500,6 +3539,13 @@ def main():
     lifecycle = lifecycle_phase.phase_lifecycle(torch, base=base)
     del base
     lap("11 lifecycle")
+    # 12. mixture-of-experts blocks: qwen3-moe-30b-a3b at full width and
+    # depth (~67.5 GB with its bank), so nothing else stays on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    import moe_phase
+    moe = moe_phase.phase_moe(torch)
+    lap("12 moe")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3613,6 +3659,15 @@ def main():
         # phase 11: serving the graduated store
         row["launches_phase11"] = lifecycle["served"]["launches"].get(
             row["name"], 0)
+    # phase 12: each kernel's launches on each MoE run; #1, #2, #5 and #6
+    # at the MoE shapes (d=2048, b=64), each row with its path's launches
+    for row in kernels:
+        row["launches_moe"] = {run: n.get(row["name"], 0)
+                               for run, n in moe["runs"].items()}
+    for i, key in ((0, "agg"), (1, "fa"), (5, "aggq"), (6, "faq")):
+        for row in moe["kernel_rows"][key]:
+            row["launches_moe"] = kernels[i]["launches_moe"]
+        kernels[i]["other_shapes"] += moe["kernel_rows"][key]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3626,6 +3681,8 @@ def main():
     log(json.dumps({"train": dict(train, step_vs_cpu=train_step)}))
     log(json.dumps({"encoder": encoder}))
     log(json.dumps({"lifecycle": lifecycle}, default=str))
+    log(json.dumps({"moe": {k: v for k, v in moe.items()
+                            if k != "kernel_rows"}}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

@@ -1,7 +1,9 @@
 """The LM: a loop over stacked transformer layers with X-PEFT adapter hooks.
 
-The port of ``repro.models.model`` for ``block_pattern="attn"``, non-MoE,
-full attention: causal decoders with RoPE, and the encoder
+The port of ``repro.models.model`` for ``block_pattern="attn"`` with full
+attention: causal decoders with RoPE, dense or mixture-of-experts
+(``models/moe.py`` in place of the MLP; the forward's aux is the mean of
+the layers' load-balance losses, as JAX's), and the encoder
 (``bert-base-xpeft``: learned positions, bidirectional attention,
 LayerNorm, the vanilla GELU MLP and the classification head,
 ``cls_logits``). Params are plain dicts of tensors in the JAX package's
@@ -21,7 +23,7 @@ takes the same route; over a heterogeneous bank it aggregates each typed
 segment (bottleneck -> LoRA -> IA3), and without a cache each layer's
 prefix KV rows ride into attention as ``extra_kv``, the prompt's
 positions shifted by P for the examples that select a prefix slot.
-Every other block pattern, MoE, sliding windows, frontends and embedding
+Every other block pattern, sliding windows, frontends and embedding
 scaling raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
 from repro_torch.models import mlp as MLP
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import dense_init, init_norm, norm_apply, \
     softcap
 from repro_torch.utils import resolve_device
@@ -54,9 +57,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"block_pattern {cfg.block_pattern!r} is not ported (ROADMAP "
             "queue 1, item 10)")
-    if cfg.moe:
-        raise NotImplementedError("MoE blocks are not ported (ROADMAP "
-                                  "queue 1, item 10)")
     if cfg.attn_type != "full":
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported (sliding windows, "
@@ -72,18 +72,34 @@ def check_supported(cfg) -> None:
 # ----------------------------------------------------------------------------
 
 def _init_block(cfg, dtype, gen, device) -> dict:
-    return {
+    block = {
         "attn": ATT.init_attention(cfg, dtype, generator=gen, device=device),
         "n1": init_norm(cfg.norm, cfg.d_model, device=device),
         "n2": init_norm(cfg.norm, cfg.d_model, device=device),
-        "mlp": MLP.init_mlp(cfg, dtype, generator=gen, device=device),
     }
+    if cfg.moe:
+        block["moe"] = MOE.init_moe(cfg, dtype, generator=gen, device=device)
+    else:
+        block["mlp"] = MLP.init_mlp(cfg, dtype, generator=gen, device=device)
+    return block
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_blocks(cfg, dtype, gen, device) -> dict:
+    """The L blocks, drawn in layer order and copied into stacked leaves
+    as they come: one layer's draw is held beside the stack, never all L
+    (qwen3-moe-30b-a3b's experts alone are 58 GB in bf16)."""
+    stacked = None
+    for l in range(cfg.num_layers):
+        block = _init_block(cfg, dtype, gen, device)
+        if stacked is None:
+            stacked = {name: {k: torch.empty((cfg.num_layers,) + v.shape,
+                                             dtype=v.dtype, device=v.device)
+                              for k, v in sub.items()}
+                       for name, sub in block.items()}
+        for name, sub in block.items():
+            for k, v in sub.items():
+                stacked[name][k][l] = v
+    return stacked
 
 
 def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
@@ -98,8 +114,7 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
     params = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), cfg.d_model,
                             dtype, **kw),
-        "blocks": _stack([_init_block(cfg, dtype, gen, device)
-                          for _ in range(cfg.num_layers)]),
+        "blocks": _init_blocks(cfg, dtype, gen, device),
         "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
     }
     if cfg.pos == "learned":
@@ -246,7 +261,10 @@ def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
                          front_skip=front_skip, extra_kv=extra_kv)
     x = x + h
     h = norm_apply(x, block["n2"], cfg.norm)
-    return x + MLP.mlp_apply(block["mlp"], h, cfg)
+    if cfg.moe:
+        h, aux = MOE.moe_apply(block["moe"], h, cfg)
+        return x + h, aux
+    return x + MLP.mlp_apply(block["mlp"], h, cfg), None
 
 
 def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
@@ -307,6 +325,7 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     bank = params.get("xpeft_bank")
     fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
                                       T)
+    auxs = []
     for l in range(cfg.num_layers):
         block = {name: {k: v[l] for k, v in sub.items()}
                  for name, sub in blocks.items()}
@@ -336,12 +355,17 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
             extra_kv = XP.prefix_rows_dense_layer(
                 bank_l, masks_l["w_a"], masks_l["w_b"], cfg.xpeft,
                 cfg.num_kv_heads, cfg.head_dim)
-        x = _attn_block_apply(block, x, cfg, positions=positions,
-                              cache_l=cache_l, cache_pos=cache_pos,
-                              front_skip=front_skip, extra_kv=extra_kv)
+        x, aux = _attn_block_apply(block, x, cfg, positions=positions,
+                                   cache_l=cache_l, cache_pos=cache_pos,
+                                   front_skip=front_skip, extra_kv=extra_kv)
+        if aux is not None:
+            auxs.append(aux)
         x = _xpeft_apply(x, bank_l, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    # JAX's jnp.mean over the layers' aux (0 for a dense block)
+    aux = torch.stack(auxs).mean() if auxs else \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
 
 
 # ----------------------------------------------------------------------------

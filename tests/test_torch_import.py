@@ -37,7 +37,8 @@ for name in ("repro_torch.quant", "repro_torch.quant.schemes",
              "repro_torch.data", "repro_torch.data.synthetic",
              "repro_torch.optim", "repro_torch.optim.adamw",
              "repro_torch.train", "repro_torch.train.steps",
-             "repro_torch.launch.train", "repro_torch.utils.tree"):
+             "repro_torch.launch.train", "repro_torch.utils.tree",
+             "repro_torch.models.moe"):
     assert name in names and name in sys.modules, name
 """
 
