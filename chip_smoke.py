@@ -222,10 +222,11 @@ Phases, in order; any failed check exits non-zero:
              one xpeft step on the card against the CPU (2 layers, float32,
              the aux loss too) under phase 7's bounds, ten full-depth steps
              timed and profiled, the trained table packed, saved and
-             reloaded byte-equal; on phase 4's workload, (a) composed
-             windowed serving (#1 twice per aggregating wave, #2 48 times
-             per decode step and prefill batch) held to its
-             kernel_impl="ref" run with every layer's routing recorded:
+             reloaded byte-equal; on phase 4's workload and the first 16
+             of the 48 layers (for the call's time; (f) serves all 48),
+             (a) composed windowed serving (#1 twice per aggregating
+             wave, #2 16 times per decode step and prefill batch) held to
+             its kernel_impl="ref" run with every layer's routing recorded:
              each request's first routing flip on a reference router-
              logit gap of at most twice its max |d router logit|, and,
              teacher-forced with the ref run's routing replayed, every
@@ -237,6 +238,29 @@ Phases, in order; any failed check exits non-zero:
              (#5, #6) held as (a); (f) the trained store served as (a). A
              ``{"moe": ...}`` JSON line carries its numbers;
              ``launches_moe`` in each kernel row.
+
+13. forms  — ``tools/forms_phase.py``: the attention forms and #8's
+             GLU-GELU and wide-row builds (bf16, random weights from seed
+             0, bank N=256, b=64, k=50): (d) #8 against its plain version
+             at one full-width layer of gemma-2b (4 and 8 slots),
+             musicgen-medium (8), deepseek-7b (8) and llava-next-34b (4),
+             S=128 and 2,048, every route, timed beside its byte bound;
+             (a) gemma-2b at full width and depth: a card-vs-CPU train
+             step (2 layers, float32), ten full-depth steps, then composed,
+             decode_fused (#8 18 times a step), int8 and int4 serving each
+             held to its kernel_impl="ref" run, continuous bitwise the
+             windowed run, spec gamma 3 against continuous; (b)
+             gemma3-27b at full width and 12 of its 62 layers, prompts of
+             1,000-1,100 tokens at max_seq 2,048 (chunked prefill, decode
+             past the 1,024 window): composed and int8 held to their ref
+             runs, continuous bitwise windowed, decode_fused launching #8 0
+             times with the composed tokens; #1 and #2 at its shapes; (c)
+             musicgen-medium at full width and depth through
+             make_prefill_step with 64 prefix rows and make_decode_step,
+             composed and decode_fused at 8 slots, each held to its ref
+             run, and a card-vs-CPU train step with prefix_embeds. A
+             ``{"forms": ...}`` JSON line carries its numbers;
+             ``launches_forms`` in each kernel row.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -1310,26 +1334,34 @@ def bf16_step(v):
     return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
-def e2e_check(label, got, want, bare, report_share=False):
+def e2e_check(label, got, want, bare, report_share=False, witness=None):
     """Kernel-run logits against the ref run's, within E2E_STEPS bf16
     steps and E2E_SHARE_REL of the adapters' share of the logits (with
     ``report_share``, a reading over the share bound is reported, not
-    asserted)."""
+    asserted). ``witness``, where given, sets the steps bound to twice
+    it: W, the ref run's own max |d logit| from the same run in float32
+    on the same inputs, for a model whose largest logit is small against
+    the bf16 noise its depth gathers. A kernel run no further from
+    float32 than the ref run is lies within 2W of the ref run (triangle
+    inequality)."""
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     share = (want - bare).abs().max().item()
-    tol = E2E_STEPS * bf16_step(scale)
+    tol = E2E_STEPS * bf16_step(scale) if witness is None else 2 * witness
     ratio = err / share if share else math.inf
     met = err <= E2E_SHARE_REL * share
     log(f"  {label}: kernel vs ref max|d logit| {err:.4e}; max|logit| "
-        f"{scale:.4f} (bf16 step {bf16_step(scale):.4e}, tol {tol:.4e}); "
-        f"adapters' share max|ref - no adapter| {share:.4e} (err/share "
-        f"{ratio:.4e}, tol {E2E_SHARE_REL})"
+        f"{scale:.4f} (bf16 step {bf16_step(scale):.4e}, tol {tol:.4e}"
+        + ("" if witness is None else f": twice the ref run's own "
+           f"max|d logit| from float32, {witness:.4e}")
+        + f"); adapters' share max|ref - no adapter| {share:.4e} "
+        f"(err/share {ratio:.4e}, tol {E2E_SHARE_REL})"
         + ("" if met else " -- EXCEEDS the E2E_SHARE_REL bound"))
     assert err <= tol, (label, err, tol)
     assert met or report_share, (label, err, share)
     return dict(max_abs_err=err, max_logit=scale, adapter_share=share,
-                share_ratio=ratio, share_bound_met=met)
+                share_ratio=ratio, share_bound_met=met, tol=tol,
+                witness=witness)
 
 
 def explain_divergence(torch, reqs, ref_reqs, pre, dec):
@@ -2961,12 +2993,12 @@ def skewed_requests(Request, vocab, n=12, *, seed=0, long_every=3,
 
 
 def cb_engine(cfg, params, store, continuous, **kw):
-    """An engine of phase 9's shape: 4 slots, max_seq 128, sync_every 8;
-    continuous ones on pages of 16 rows."""
+    """An engine of phase 9's shape: 4 slots, max_seq 128, sync_every 8
+    (``kw`` may override them); continuous ones on pages of 16 rows."""
     from repro_torch.serve import ServeEngine
     if continuous:
         kw = dict(kw, continuous=True, page_size=CB_PAGE)
-    return ServeEngine(cfg, params, store, **CB_ENGINE, **kw)
+    return ServeEngine(cfg, params, store, **dict(CB_ENGINE, **kw))
 
 
 def cb_recorder(eng, MDL):
@@ -3034,19 +3066,20 @@ def cb_recorder(eng, MDL):
     return dict(logits=logits, shapes=shapes, finish=finish)
 
 
-def cb_drain(torch, run, counters):
-    """Drain phase 9's workload through ``run``'s engine with the
-    recorder's hooks on (they add no host sync), every kernel counter set
-    to 0 just before and read just after: {eng, reqs, dt (seconds),
+def cb_drain(torch, run, counters, reqs=None):
+    """Drain phase 9's workload (or ``reqs``) through ``run``'s engine with
+    the recorder's hooks on (they add no host sync), every kernel counter
+    set to 0 just before and read just after: {eng, reqs, dt (seconds),
     launches, launches_by_t (#2's, by T), waves (each wave's
-    last_admission), rec}."""
+    last_admission), rec, stats (serve_stats()), peak_bytes, tok_s}."""
     from repro_torch.models import model as MDL
     from repro_torch.serve import Request
 
     eng = cb_engine(run["cfg"], run["params"], run["store"],
                     run["continuous"], **run["kw"])
-    reqs = skewed_requests(Request, run["cfg"].vocab_size,
-                           n=run.get("n", 12), long_new=run["long_new"])
+    if reqs is None:
+        reqs = skewed_requests(Request, run["cfg"].vocab_size,
+                               n=run.get("n", 12), long_new=run["long_new"])
     waves = []
     hydrate = eng._hydrate_stacked
 
@@ -3060,6 +3093,7 @@ def cb_drain(torch, run, counters):
         fn.launches = 0
     by_t = counters["fused_adapter_batched"].launches_by_t
     by_t.clear()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
@@ -3074,8 +3108,15 @@ def cb_drain(torch, run, counters):
     assert all(r.done and len(r.generated) == r.max_new_tokens
                for r in reqs)
     assert all(0 <= t < vocab for r in reqs for t in r.generated)
+    if run["continuous"]:
+        eng.page_alloc.check()
+        if eng.mask_alloc is not None:
+            eng.mask_alloc.check()
     return dict(eng=eng, reqs=reqs, dt=dt, launches=launches,
-                launches_by_t=launches_by_t, waves=waves, rec=rec)
+                launches_by_t=launches_by_t, waves=waves, rec=rec,
+                stats=eng.serve_stats(),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                tok_s=sum(len(r.generated) for r in reqs) / dt)
 
 
 def cb_explain(torch, out, ref):
@@ -3377,19 +3418,21 @@ def phase_continuous(torch, cfg=None):
 
 
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
-                   eng_kw=None, steps=(3, 4, 8), profiles=4):
+                   eng_kw=None, steps=(3, 4, 8), profiles=4, reqs=None):
     """Where a decode step's time goes (B=4 slots, T=1): after
     ``steps[0]`` warm-up steps, ``steps[1]`` steps timed on the host clock
     without the profiler, then ``steps[2]`` steps (one window's sync
     included) under torch.profiler tracing the card only (host op events
-    would cost seconds a step) for the device time by kernel."""
+    would cost seconds a step) for the device time by kernel. ``eng_kw``
+    may override the engine's shape (4 slots, max_seq 128, sync_every
+    8); ``reqs``: the 4 requests (default ``make_requests``')."""
     from torch.profiler import ProfilerActivity, profile
 
     warm, timed, traced = steps
-    eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
-                      sync_every=8, **(eng_kw or {}))
-    eng.submit(make_requests(Request, cfg.vocab_size, n=4,
-                             profiles=profiles))
+    eng = ServeEngine(cfg, params, store, **{
+        **dict(max_slots=4, max_seq=128, sync_every=8), **(eng_kw or {})})
+    eng.submit(reqs or make_requests(Request, cfg.vocab_size, n=4,
+                                     profiles=profiles))
     eng.admit_many(eng.scheduler.next_batch(4))
     for _ in range(warm):
         eng.step()
@@ -3546,6 +3589,14 @@ def main():
     import moe_phase
     moe = moe_phase.phase_moe(torch)
     lap("12 moe")
+    # 13. the attention forms (gemma-2b, gemma3-27b cut to 12 layers,
+    # musicgen-medium) and #8's GLU-GELU and wide-row builds, with
+    # nothing else held on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    import forms_phase
+    forms = forms_phase.phase_forms(torch)
+    lap("13 forms")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3668,6 +3719,15 @@ def main():
         for row in moe["kernel_rows"][key]:
             row["launches_moe"] = kernels[i]["launches_moe"]
         kernels[i]["other_shapes"] += moe["kernel_rows"][key]
+    # phase 13: each kernel's launches on each run; #8 at its new
+    # instantiations, #1 and #2 at gemma3-27b's shapes
+    for row in kernels:
+        row["launches_forms"] = {run: n.get(row["name"], 0)
+                                 for run, n in forms["runs"].items()}
+    for i, key in ((0, "agg"), (1, "fa"), (4, "dec")):
+        for row in forms["kernel_rows"][key]:
+            row["launches_forms"] = kernels[i]["launches_forms"]
+        kernels[i]["other_shapes"] += forms["kernel_rows"][key]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3683,6 +3743,9 @@ def main():
     log(json.dumps({"lifecycle": lifecycle}, default=str))
     log(json.dumps({"moe": {k: v for k, v in moe.items()
                             if k != "kernel_rows"}}, default=str))
+    log(json.dumps({"forms": {k: v for k, v in forms.items()
+                              if k not in ("kernel_rows", "decode_rows")}},
+                   default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

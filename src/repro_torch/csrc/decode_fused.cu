@@ -8,21 +8,22 @@
 //   h = RMSNorm1(x);  q, k, v = h.Wq (+bq), h.Wk (+bk), h.Wv (+bv)
 //   q, k = RoPE(q, k at pos);  the new K/V row substituted at s == pos
 //   o = softmax(mask(softcap(q.K^T * scale)), k_pos <= pos) . V
-//   x1 = x + o.Wo;  h = RMSNorm2(x1);  x2 = x1 + (silu(h.Wg) * h.Wu).Wd
+//   x1 = x + o.Wo;  h = RMSNorm2(x1);  x2 = x1 + (act(h.Wg) * h.Wu).Wd
+//   (act: silu, or gelu in its tanh form, jax.nn.gelu's default)
 //   adapter "bf16":  y = x2 + act(LN(x2.A_hat)).B_hat;  "none": y = x2
 //   adapter "int8"/"int4":  the same with A_hat/B_hat dequantized from
 //                           their quantized slot records (dequant.cuh)
 //
 // and returns y and the new K/V rows (the caller scatters them into the
 // cache after the launch, so the cache read here is the old one). The
-// variants qwen1.5-0.5b does not use (layernorm, a vanilla MLP, other
-// activations, no RoPE, fp32) are refused by the wrapper.
+// variants no served config uses (layernorm, a vanilla MLP, activations
+// other than silu and gelu, no RoPE, fp32) are refused by the wrapper.
 //
 // Numerics are decode_block_row's: fp32 sums, rounded to bf16 after each
 // norm, after each projection (q, k, v, o.Wo, g, u, m.Wd), at the bias add
 // (the bias itself cast to bf16 first), after RoPE (fp32, no FMA
-// contraction), at the softmax weights before w.V, at w.V, at silu(g) and
-// at silu(g)*u, at each residual add, and on route bf16 in the adapter at
+// contraction), at the softmax weights before w.V, at w.V, at act(g) and
+// at act(g)*u, at each residual add, and on route bf16 in the adapter at
 // h (before B_hat) and at y. The adapter's LN and activation stay fp32.
 // Routes int8/int4 keep the adapter fp32 end to end, as decode_block_row's
 // quantized branch does: x2's bf16 value times the exact dequantized A, h
@@ -55,7 +56,7 @@
 //      the last split to finish adds the partial o in split order.
 //                                                           -- grid.sync
 //   2. out-projection + residual                            -- grid.sync
-//   3. RMSNorm2 (once per block) + gate|up, silu(g) * u     -- grid.sync
+//   3. RMSNorm2 (once per block) + gate|up, act(g) * u      -- grid.sync
 //   4. down-projection + residual (the output on route none); with an
 //      adapter, each task also multiplies its 16 x2 columns by the same 16
 //      rows of every slot's A_hat: its share of x2 . A_hat  -- grid.sync
@@ -82,8 +83,19 @@
 // layer even out. A
 // phase's input rows (bf16 values on every route) are gathered once per
 // block into shared memory, 8 loads in flight per thread and no division
-// per element. The main GEMVs run on tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate, the slots as rows of the A operand): the
+// per element, where B rows of the widest GEMV depth fit beside the ring
+// (kin = max(d, H*hd, ff): qwen1.5-0.5b at 1-8 slots). Wider rows
+// (gemma-2b's d_ff 16,384 and llava-next-34b's 20,480 at any slot count,
+// deepseek-7b's and musicgen-medium's at 5-8 slots) are read in windows of
+// kin rows of the depth, kin then the widest whole number of 1024-row
+// tiles that fits: a task gathers each window from the phase's input in
+// global memory (x, or the scratch rows, which stay in L2) when its tiles
+// reach it, and a norm phase whose rows do not fit takes each slot's RMS
+// factor first, from the same bf16 values in the same order. The tiles,
+// their order and every sum are those of whole rows: a window changes
+// only where the inputs are read from. The main GEMVs run on tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate, the slots as rows of the
+// A operand): the
 // products are exact and the sums fp32 in a fixed order. The adapter's
 // products stay on CUDA cores in fp32 (its h and, on routes int8/int4,
 // its dequantized weights are not bf16 values); B_hat's tiles come by the
@@ -103,6 +115,19 @@
 #include "dequant.cuh"
 
 namespace cg = cooperative_groups;
+
+// The kernel's eight instantiations (4 or 8 slot rows; input rows in
+// windows or whole; a GELU or SiLU gate) make this source the build's one
+// long compile. Built as it is, it holds them all. kernels/_build.py
+// builds it four times at once instead, with -DXPEFT_DEC_PART=p (p = 2 *
+// windows + gelu): each part holds its (windows, gelu) pair behind
+// xpeft_decode_kernel_part<p>, part 0 also the C entry points.
+#ifdef XPEFT_DEC_PART
+extern "C" const void* xpeft_decode_kernel_part0(int NB);
+extern "C" const void* xpeft_decode_kernel_part1(int NB);
+extern "C" const void* xpeft_decode_kernel_part2(int NB);
+extern "C" const void* xpeft_decode_kernel_part3(int NB);
+#endif
 
 namespace {
 
@@ -161,6 +186,7 @@ struct Args {
   int qkv_bias, adapter, gelu;
   float cap, scale;
   int sc;              // cache rows per attention split (the plan)
+  int kin;             // depth rows of an input row in shared memory
   // derived from the shapes (fill_layout)
   int nsplit, nitems, nct_q, nct_kv, nct_qkv;
   int ntask[kPhases], nchunk[kPhases], base[kPhases];
@@ -699,6 +725,70 @@ __device__ void input_rows(bf16* in, int K, int B, F load, const float* norm,
   csync();
 }
 
+// Slot b's RMS factor rsqrt(mean(v^2) + eps) of row load(b, 0 .. K-1) into
+// s_r[b] (0 for the rows up to NB), for rows too wide for shared memory:
+// warp b sums the squares of the same bf16 values in input_rows' order,
+// 8 loads in flight per lane. Every thread calls it; synced.
+template <int NB, typename F>
+__device__ void norm_factors(int K, int B, F load, float* s_r) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kU = 8;
+  if (warp < NB) {
+    float ss = 0.0f;
+    for (int i0 = lane; warp < B && i0 < K; i0 += kU * 32) {
+      float v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int i = i0 + u * 32;
+        v[u] = i < K ? rnd(load(warp, i)) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (i0 + u * 32 < K) ss = fmaf(v[u], v[u], ss);
+    }
+    ss = warp_sum(ss);
+    if (lane == 0)
+      s_r[warp] = warp < B
+          ? rsqrtf(__fdiv_rn(ss, static_cast<float>(K)) + kNormEps) : 0.0f;
+  }
+  csync();
+}
+
+// A window of the phase's input rows, depth rows k0 .. k0+n-1, into in
+// [NB][pitch] as bf16: in[b][k - k0] as input_rows makes it (with norm,
+// from norm_factors' s_r). Every thread calls it; synced.
+template <int NB, typename F>
+__device__ void window_rows(bf16* in, int pitch, int k0, int n, int B,
+                            F load, const float* norm, const float* s_r) {
+  constexpr int kU = 8;
+  for (int c0 = threadIdx.x; c0 < n; c0 += kU * kThreads) {
+    float v[NB][kU], sc[kU];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        v[b][u] = b < B && c < n ? load(b, k0 + c) : 0.0f;
+      }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int c = c0 + u * kThreads;
+      sc[u] = norm && c < n ? __fadd_rn(1.0f, norm[k0 + c]) : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c < n)
+          in[b * pitch + c] = __float2bfloat16_rn(
+              norm ? __fmul_rn(__fmul_rn(rnd(v[b][u]), s_r[b]), sc[u])
+                   : v[b][u]);
+      }
+  }
+  csync();
+}
+
 // ---- the block's tile sequence ------------------------------------------
 
 // The first task of phase ph this block takes (tasks t0, t0 + G, ...; the
@@ -955,7 +1045,12 @@ __device__ void producer(const Args& p, unsigned char* ring, uint64_t* bars,
   }
 }
 
-template <int NB>
+// NB: the slot rows; WIN: input rows in windows (some GEMV depth past
+// kin); GELU: the MLP's gate activation gelu (tanh form), else silu. Each
+// a template parameter, so that an instantiation holds no code of the
+// others: qwen1.5-0.5b's, <4 | 8, false, false>, hold neither windows nor
+// the gelu gate (both cost it time on the card when compiled in).
+template <int NB, bool WIN, bool GELU>
 __global__ void __launch_bounds__(kBlock, 1)
     decode_block_kernel(const __grid_constant__ Args p) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -963,14 +1058,14 @@ __global__ void __launch_bounds__(kBlock, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int B = p.B, d = p.d, hd = p.hd, ff = p.ff;
   const int nq = p.H * hd, nkv = p.KV * hd, nqkv = nq + 2 * nkv;
-  const int kmax = max(max(d, nq), ff);
   const int G = gridDim.x;
 
   unsigned char* ring = smem;
-  // the phase's input rows, bf16 [NB][K + kPad]; the attention and
-  // adapter phases' buffers in the same space
+  // the phase's input rows, bf16 [NB][K + kPad] (K <= kin) or a window of
+  // them [NB][kin + kPad]; the attention and adapter phases' buffers in
+  // the same space
   bf16* s_in = reinterpret_cast<bf16*>(smem + kStages * kStage);
-  float* s_part = reinterpret_cast<float*>(s_in + NB * (kmax + kPad));
+  float* s_part = reinterpret_cast<float*>(s_in + NB * (p.kin + kPad));
   float* s_misc = s_part + kWarps * NB * kNT;
   float* s_r = s_misc;                      // [8] norm factors
   float* s_red = s_misc + 8;                // [kWarps]
@@ -989,7 +1084,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   float* g_op = scr + p.o_op;     // [nitems][hd] partial o
   float* g_o = scr + p.o_o;       // [B][nq] attention output
   float* g_x1 = scr + p.o_x1;     // [B][d]
-  float* g_act = scr + p.o_act;   // [B][ff] silu(g) * u
+  float* g_act = scr + p.o_act;   // [B][ff] act(g) * u
   float* g_x2 = scr + p.o_x2;     // [B][d]
   float* g_phh = scr + p.o_phh;   // [d / 16][B][nb] x2 . A_hat partials
   int* cnt = reinterpret_cast<int*>(scr + p.o_cnt);
@@ -1037,12 +1132,25 @@ __global__ void __launch_bounds__(kBlock, 1)
     producer(p, ring, bars, s_seq, s_pos, grid);
     return;
   }
+  // the phases' inputs: x, the attention output, x1, act(g) * u
+  auto x_in = [&](int b, int k) { return bf(p.x[b * d + k]); };
+  auto o_in = [&](int b, int k) { return ldcg(g_o + b * nq + k); };
+  auto x1_in = [&](int b, int k) { return ldcg(g_x1 + b * d + k); };
+  auto act_in = [&](int b, int k) { return ldcg(g_act + b * ff + k); };
+  // a phase's input rows, whole where they fit (K <= kin); else only the
+  // norm's factors here, the windows as the tasks reach them (mma_task)
+  auto phase_rows = [&](int K, auto&& load, const float* norm) {
+    if constexpr (WIN) {
+      if (K > p.kin) {
+        if (norm) norm_factors<NB>(K, B, load, s_r);
+        return;
+      }
+    }
+    input_rows<NB>(s_in, K, B, load, norm, s_r);
+  };
   // phase 0's input rows before the weight stream, which would queue
   // ahead of them
-  if (count_tasks(p, kQKV))
-    input_rows<NB>(s_in, d, B,
-                   [&](int b, int k) { return bf(p.x[b * d + k]); }, p.n1,
-                   s_r);
+  if (count_tasks(p, kQKV)) phase_rows(d, x_in, p.n1);
   // the counters start at 0; first used after the first grid.sync
   for (int i = blockIdx.x * kThreads + tid; i < p.ncnt; i += G * kThreads)
     cnt[i] = 0;
@@ -1060,13 +1168,24 @@ __global__ void __launch_bounds__(kBlock, 1)
     ++seq;
   };
   // a main-phase task: its chunks through the tensor cores, then the
-  // epilogue fn(slot, column in the task, sum) on thread slot * 16 + col
-  auto mma_task = [&](int ph, int K, auto&& fn) {
+  // epilogue fn(slot, column in the task, sum) on thread slot * 16 + col;
+  // rows wider than kin come in windows of kin depth rows (load, norm:
+  // the phase's input, as phase_rows takes it)
+  auto mma_task = [&](int ph, int K, auto&& load, const float* norm,
+                      auto&& fn) {
+    const bool whole = !WIN || K <= p.kin;
+    const int pitch = (whole ? K : p.kin) + kPad;
     float acc[2][4] = {};
     for (int ch = 0; ch < p.nchunk[ph]; ++ch) {
+      const int k0 = ch * kChunk, w0 = whole ? 0 : k0 / p.kin * p.kin;
+      // the stage's last reader passed done_tile's barrier
+      if constexpr (WIN)
+        if (!whole && k0 == w0)
+          window_rows<NB>(s_in, pitch, w0, min(p.kin, K - w0), B, load,
+                          norm, s_r);
       const unsigned char* tile = next_tile();
-      mma_tile<NB>(tile, ph == kGU, min(kChunk, K - ch * kChunk), s_in,
-                   K + kPad, ch * kChunk, acc);
+      mma_tile<NB>(tile, ph == kGU, min(kChunk, K - k0), s_in, pitch,
+                   k0 - w0, acc);
       if (ch + 1 < p.nchunk[ph]) done_tile();
     }
     const float s = mma_finish<NB>(acc, s_part);
@@ -1090,7 +1209,7 @@ __global__ void __launch_bounds__(kBlock, 1)
       // latency (here and in the phases below)
       const int cc = c0 + tid % kNT;
       const float bv = p.qkv_bias && tid < B * kNT && cc < N ? bias[cc] : 0.0f;
-      mma_task(kQKV, d, [&](int b, int c, float s) {
+      mma_task(kQKV, d, x_in, p.n1, [&](int b, int c, float s) {
         if (c0 + c >= N) return;
         float v = rnd(s);
         if (p.qkv_bias) v = rnd(v + rnd(bv));
@@ -1217,31 +1336,27 @@ __global__ void __launch_bounds__(kBlock, 1)
 
   // 2. out-projection + residual
   if (count_tasks(p, kWo)) {
-    input_rows<NB>(s_in, nq, B,
-                   [&](int b, int k) { return ldcg(g_o + b * nq + k); },
-                   nullptr, s_r);
+    phase_rows(nq, o_in, nullptr);
     for (int j = 0, t = first_task(p, kWo); j < count_tasks(p, kWo);
          ++j, t += G) {
       const int c0 = t * kNT, cc = c0 + tid % kNT;
       const float xv = tid < B * kNT && cc < d
           ? bf(p.x[tid / kNT * d + cc]) : 0.0f;
-      mma_task(kWo, nq, [&](int b, int c, float s) {
+      mma_task(kWo, nq, o_in, nullptr, [&](int b, int c, float s) {
         if (c0 + c < d) g_x1[b * d + c0 + c] = rnd(xv + rnd(s));
       });
     }
   }
   grid.sync();
 
-  // 3. RMSNorm2 + gate|up + silu(g) * u: columns 0-7 of a task's sums are
+  // 3. RMSNorm2 + gate|up + act(g) * u: columns 0-7 of a task's sums are
   // g, 8-15 u, of the same 8 columns of ff
   if (count_tasks(p, kGU)) {
-    input_rows<NB>(s_in, d, B,
-                   [&](int b, int k) { return ldcg(g_x1 + b * d + k); },
-                   p.n2, s_r);
+    phase_rows(d, x1_in, p.n2);
     for (int j = 0, t = first_task(p, kGU); j < count_tasks(p, kGU);
          ++j, t += G) {
       const int c0 = t * 8;
-      mma_task(kGU, d, [&](int b, int c, float s) {
+      mma_task(kGU, d, x1_in, p.n2, [&](int b, int c, float s) {
         s_part[kWarps * NB * kNT - kNT * NB + b * kNT + c] = s;
       });
       // g and u meet in shared memory (the part buffer's last row block,
@@ -1252,7 +1367,8 @@ __global__ void __launch_bounds__(kBlock, 1)
         const float* gu = s_part + kWarps * NB * kNT - kNT * NB + b * kNT;
         if (c0 + c < ff) {
           const float g = rnd(gu[c]), u = rnd(gu[8 + c]);
-          const float a = rnd(__fdiv_rn(g, __fadd_rn(1.0f, expf(-g))));
+          const float a = rnd(GELU ? gelu_tanh(g)
+                                   : __fdiv_rn(g, __fadd_rn(1.0f, expf(-g))));
           g_act[b * ff + c0 + c] = rnd(__fmul_rn(a, u));
         }
       }
@@ -1263,9 +1379,7 @@ __global__ void __launch_bounds__(kBlock, 1)
 
   // 4. down-projection + residual (the output on route none)
   if (count_tasks(p, kDown)) {
-    input_rows<NB>(s_in, ff, B,
-                   [&](int b, int k) { return ldcg(g_act + b * ff + k); },
-                   nullptr, s_r);
+    phase_rows(ff, act_in, nullptr);
     // the task's x2 columns, kept for the adapter's down-projection
     float* s_x2 = s_part + (kWarps - 1) * NB * kNT;  // [NB][16]
     const int nbv = p.nb / 8, items = B * kNT * nbv;
@@ -1286,7 +1400,7 @@ __global__ void __launch_bounds__(kBlock, 1)
       const int cc = c0 + tid % kNT;
       const float x1v = tid < B * kNT && cc < d
           ? ldcg(g_x1 + tid / kNT * d + cc) : 0.0f;
-      mma_task(kDown, ff, [&](int b, int c, float s) {
+      mma_task(kDown, ff, act_in, nullptr, [&](int b, int c, float s) {
         if (c0 + c >= d) return;
         const float v = rnd(x1v + rnd(s));
         if (p.adapter) {
@@ -1352,7 +1466,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   {
     const int nct = (d + kNT - 1) / kNT;
     float* s_h = s_part + 256;  // [nb]; row_finish uses s_part[0, 256)
-    const int cap = NB * (kmax + kPad) / 2;  // s_f's floats
+    const int cap = NB * (p.kin + kPad) / 2;  // s_f's floats
     int cur = -1;
     for (int j = 0, t = first_task(p, kAdUp); j < count_tasks(p, kAdUp);
          ++j, t += G) {
@@ -1409,15 +1523,44 @@ __global__ void __launch_bounds__(kBlock, 1)
   }
 }
 
-// Dynamic shared memory: the ring, the input rows, the warps' partial sums
-// and 64 words of per-block state.
-long long smem_bytes(int NB, int kmax) {
+// Dynamic shared memory: the ring, the input rows (kin depth rows), the
+// warps' partial sums and 64 words of per-block state.
+long long smem_bytes(int NB, int kin) {
   return static_cast<long long>(kStages) * kStage +
-         2LL * NB * (kmax + kPad) + 4LL * (kWarps * NB * kNT + kMisc);
+         2LL * NB * (kin + kPad) + 4LL * (kWarps * NB * kNT + kMisc);
 }
 
-template <int NB>
-cudaError_t config(long long smem, int* grid) {
+// The depth rows of an input row held in shared memory: all kmax where NB
+// rows fit, else the widest whole number of weight tiles (windows).
+int in_width(int NB, int kmax) {
+  if (smem_bytes(NB, kmax) <= kMaxSmem) return kmax;
+  const long long room = kMaxSmem - smem_bytes(NB, 0) + 2LL * NB * kPad;
+  return static_cast<int>((room / (2 * NB) - kPad) / kChunk * kChunk);
+}
+
+// The (windows, gelu) pair's instantiation for NB slot rows.
+template <bool WIN, bool GELU>
+const void* pair_kernel(int NB) {
+  return NB == 8
+             ? reinterpret_cast<const void*>(decode_block_kernel<8, WIN, GELU>)
+             : reinterpret_cast<const void*>(decode_block_kernel<4, WIN, GELU>);
+}
+
+// The instantiation for NB slot rows, windows or not, gelu or silu.
+const void* kernel_of(int NB, bool win, bool gelu) {
+#ifdef XPEFT_DEC_PART
+  const void* (*const part[4])(int) = {
+      xpeft_decode_kernel_part0, xpeft_decode_kernel_part1,
+      xpeft_decode_kernel_part2, xpeft_decode_kernel_part3};
+  return part[2 * win + gelu](NB);
+#else
+  if (win) return gelu ? pair_kernel<true, true>(NB)
+                       : pair_kernel<true, false>(NB);
+  return gelu ? pair_kernel<false, true>(NB) : pair_kernel<false, false>(NB);
+#endif
+}
+
+cudaError_t config(const void* kernel, long long smem, int* grid) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1426,28 +1569,28 @@ cudaError_t config(long long smem, int* grid) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(decode_block_kernel<NB>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, decode_block_kernel<NB>, kBlock, static_cast<size_t>(smem));
+      &per_sm, kernel, kBlock, static_cast<size_t>(smem));
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *grid = per_sm * sms;
   return cudaSuccess;
 }
 
-template <int NB>
-cudaError_t launch(Args& a, int grid, long long smem, cudaStream_t stream) {
+cudaError_t launch(const void* kernel, Args& a, int grid, long long smem,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_block_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(decode_block_kernel<NB>), dim3(grid),
-      dim3(kBlock), args, static_cast<size_t>(smem), stream);
+      kernel, dim3(grid), dim3(kBlock), args, static_cast<size_t>(smem),
+      stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1463,11 +1606,14 @@ int kmax_of(const Args& a) {
   return a.d > nq ? (a.d > a.ff ? a.d : a.ff) : (nq > a.ff ? nq : a.ff);
 }
 
+int kin_of(const Args& a) { return in_width(slot_bucket(a.B), kmax_of(a)); }
+
 // The shapes the kernel is built for (the wrapper's plan returns nothing
 // else): widths multiples of 16, hd a power of two in [16, 256], the
 // attention split's rows (sc) within one stage (its K and V rows when one
 // split covers S), the per-block buffers within the input rows' space and
-// the shared memory within the card's 227 KB.
+// the shared memory within the card's 227 KB (rows wider than that come
+// in windows of kin depth rows).
 bool valid(const Args& a) {
   const bool quant = a.adapter == kInt8 || a.adapter == kInt4;
   const int nb_slots = slot_bucket(a.B);
@@ -1485,10 +1631,11 @@ bool valid(const Args& a) {
                 a.d % a.b_groups || (a.nb / a.a_groups) % 8 ||
                 (a.d / a.b_groups) % 8))
     return false;
-  const int kmax = kmax_of(a);
-  const long long in_floats = 1LL * nb_slots * (kmax + kPad) / 2;
-  if (in_floats < 3 * a.hd + a.sc + kThreads || in_floats < a.d ||
-      in_floats < a.nb || smem_bytes(nb_slots, kmax) > kMaxSmem)
+  const int kin = kin_of(a);
+  const long long in_floats = 1LL * nb_slots * (kin + kPad) / 2;
+  if (kin < kChunk || in_floats < 3 * a.hd + a.sc + kThreads ||
+      in_floats < a.d || in_floats < a.nb ||
+      smem_bytes(nb_slots, kin) > kMaxSmem)
     return false;
   return true;
 }
@@ -1557,11 +1704,22 @@ Args shape_args(int B, int d, int H, int KV, int hd, int ff, int S, int nb,
   a.B = B, a.d = d, a.H = H, a.KV = KV, a.hd = hd, a.ff = ff, a.S = S;
   a.nb = nb, a.adapter = adapter, a.sc = sc;
   a.a_groups = a_groups, a.b_groups = b_groups;
+  if (slot_bucket(B)) a.kin = kin_of(a);
   return a;
 }
 
 }  // namespace
 
+#ifdef XPEFT_DEC_PART
+#define XPEFT_DEC_CAT(a, b) a##b
+#define XPEFT_DEC_FN(p) XPEFT_DEC_CAT(xpeft_decode_kernel_part, p)
+extern "C" const void* XPEFT_DEC_FN(XPEFT_DEC_PART)(int NB) {
+  return pair_kernel<(XPEFT_DEC_PART & 2) != 0, (XPEFT_DEC_PART & 1) != 0>(
+      NB);
+}
+#endif
+
+#if !defined(XPEFT_DEC_PART) || XPEFT_DEC_PART == 0
 // The co-resident grid (blocks per SM x SMs) of the instantiation for B
 // slots at these widths (its shared memory depends on the slot bucket and
 // the widest GEMV depth). Returns a cudaError_t (cudaErrorNotSupported
@@ -1571,10 +1729,11 @@ extern "C" int xpeft_decode_block_config(int B, int d, int H, int hd, int ff,
   Args a = shape_args(B, d, H, H, hd, ff, 1, 16, kNone, 0, 0, 16);
   const int nb_slots = slot_bucket(B);
   if (!nb_slots) return cudaErrorInvalidValue;
-  const long long smem = smem_bytes(nb_slots, kmax_of(a));
+  const long long smem = smem_bytes(nb_slots, a.kin);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  return static_cast<int>(nb_slots == 4 ? config<4>(smem, grid)
-                                        : config<8>(smem, grid));
+  // one block per SM whatever the instantiation: the shared memory sets it
+  return static_cast<int>(config(
+      kernel_of(nb_slots, a.kin < kmax_of(a), false), smem, grid));
 }
 
 // The fp32 scratch words a launch at these shapes needs (<= 0 for a
@@ -1594,8 +1753,10 @@ extern "C" int xpeft_decode_block_scratch(int B, int d, int H, int KV, int hd,
 // and a scratch of xpeft_decode_block_scratch words. adapter: 0 = none,
 // 1 = bf16 (a_hat, b_hat, strides a_bs/b_bs), 2 = int8, 3 = int4
 // (a_q/a_s/b_q/b_s with their strides and a_groups/b_groups scales per A/B
-// row; dequant.cuh has the layouts); ln_s/ln_b on routes 1-3. gelu: 0 =
-// identity, 1 = gelu (tanh form); cap <= 0 turns the softcap off. Every
+// row; dequant.cuh has the layouts); ln_s/ln_b on routes 1-3. gelu: the
+// adapter's activation, 0 = identity, 1 = gelu (tanh form); mlp_gelu: the
+// MLP's gate activation, 0 = silu, 1 = gelu (tanh form); cap <= 0 turns
+// the softcap off. Every
 // bf16 matrix has 16-byte aligned rows, every quantized row 8-byte
 // aligned; the wrapper checks shapes, strides and alignment. Returns the
 // launch's cudaError_t.
@@ -1608,7 +1769,8 @@ extern "C" int xpeft_decode_block(
     long long a_bs, long long b_bs, long long ln_bs, const void* inv_freq,
     void* y, void* k_row, void* v_row, void* scratch, int B, int d, int H,
     int KV, int hd, int ff, int S, int nb, int qkv_bias, int adapter,
-    int gelu, float cap, float scale, const void* a_q, const void* a_s,
+    int gelu, int mlp_gelu, float cap, float scale, const void* a_q,
+    const void* a_s,
     const void* b_q, const void* b_s, long long aq_bs, long long as_bs,
     long long bq_bs, long long bs_bs, int a_groups, int b_groups, int sc,
     int grid, void* stream) {
@@ -1655,8 +1817,9 @@ extern "C" int xpeft_decode_block(
       !map_cache(&a.tm_vc, vc, B * S, KV, hd))
     return cudaErrorInvalidValue;
   const int nb_slots = slot_bucket(B);
-  const long long smem = smem_bytes(nb_slots, kmax_of(a));
+  const long long smem = smem_bytes(nb_slots, a.kin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(nb_slots == 4 ? launch<4>(a, grid, smem, s)
-                                        : launch<8>(a, grid, smem, s));
+  return static_cast<int>(launch(
+      kernel_of(nb_slots, a.kin < kmax_of(a), mlp_gelu), a, grid, smem, s));
 }
+#endif

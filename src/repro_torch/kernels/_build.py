@@ -3,7 +3,9 @@
 Every ``csrc/*.cu`` file has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds each in seconds; ``csrc/*.cuh`` holds device code they
 share (``dequant.cuh``, ``terms.cuh``). All sources compile at once, one
-``nvcc`` process per file, and link into ONE shared library in
+``nvcc`` process per file (``decode_fused.cu``, whose eight kernel
+instantiations would take the longest alone, as four: ``units``), and
+link into ONE shared library in
 ``<repo>/build/`` (listed in .gitignore), loaded with ``ctypes``. The
 library's name carries a hash of the sources, headers and flags: it is
 built at first use and rebuilt when a source changes. Nothing here runs
@@ -46,7 +48,7 @@ SIGNATURES = {
     "xpeft_decode_block_config": [_I] * 5 + [ctypes.POINTER(_I)],
     "xpeft_decode_block_scratch": [_I] * 12,
     "xpeft_decode_block":
-        [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 11 + [_F, _F]
+        [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 12 + [_F, _F]
         + [_P] * 4 + [_LL] * 4 + [_I] * 4 + [_P],
 }
 
@@ -56,6 +58,19 @@ _lib = None
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def units():
+    """(source, object stem, extra flags) for each nvcc process: every
+    source once, but ``decode_fused.cu`` once per part of its kernel's
+    instantiations (``-DXPEFT_DEC_PART``, see its head)."""
+    out = []
+    for src in sources():
+        parts = 4 if src.name == "decode_fused.cu" else 0
+        out += [(src, f"{src.stem}_{p}" if parts else src.stem,
+                 [f"-DXPEFT_DEC_PART={p}"] if parts else [])
+                for p in range(parts or 1)]
+    return out
 
 
 def nvcc() -> str:
@@ -74,6 +89,7 @@ def headers():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr([(stem, flags) for _, stem, flags in units()]).encode())
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -105,9 +121,10 @@ def build(verbose: bool = False) -> Path:
     try:
         cc = nvcc()
         extra = ["-Xptxas=-v"] if verbose else []
-        objs = [tmp / (src.stem + ".o") for src in sources()]
-        outs = _run_all([[cc, *NVCC_FLAGS, *extra, "-c", str(src), "-o",
-                          str(obj)] for src, obj in zip(sources(), objs)])
+        objs = [tmp / (stem + ".o") for _, stem, _ in units()]
+        outs = _run_all([[cc, *NVCC_FLAGS, *extra, *flags, "-c", str(src),
+                          "-o", str(obj)]
+                         for (src, _, flags), obj in zip(units(), objs)])
         if verbose:
             print("".join(outs), flush=True)
         part = tmp / so.name

@@ -4,8 +4,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/decode_fused.py:219``
 (``decode_block_pallas``, ``pallas_call`` at ``:274``): one whole decoder
 block (norm1, QKV with bias, RoPE, attention over the slot's cache with
 the new K/V row substituted at ``pos``, out-projection, norm2, the GLU
-MLP) and the X-PEFT adapter, for every slot, returning ``(y, k_rows,
-v_rows)``; the caller scatters the rows into the cache.
+MLP with a SiLU or a GELU gate, the latter in its tanh form) and the X-PEFT
+adapter, for every slot, returning ``(y, k_rows, v_rows)``; the caller
+scatters the rows into the cache.
 
 The kernel (``csrc/decode_fused.cu``) is bound by bytes on the H100: a
 layer-step must read the layer's weights once (25.7 MB at qwen1.5-0.5b)
@@ -21,11 +22,16 @@ no partial sum crosses blocks. Every block streams ONE sequence of weight
 tiles and K/V rows across all phases through a ring of four 32 KB
 shared-memory stages filled by TMA, so the next phase's tiles are in
 flight while it waits at a barrier; the GEMVs run on tensor cores (bf16
-in, fp32 sums in a fixed order). Attention reads only the rows each slot
-attends; ``plan`` splits S over blocks (flash-decoding) only where one
-stage cannot hold a slot's K and V rows. Its numerics are
-``decode_block_row``'s (the roundings the Pallas body makes), not the
-fused-adapter kernel's. Routes int8/int4 read the slots' quantized Â/B̂
+in, fp32 sums in a fixed order). A phase's input rows sit in shared memory
+beside the ring where B of them fit at the widest GEMV depth (qwen1.5-0.5b
+at 1-8 slots); wider rows (gemma-2b's and llava-next-34b's d_ff at any slot
+count, deepseek-7b's and musicgen-medium's at 5-8 slots) are read in
+windows of ``in_width`` depth rows as the tasks reach them, each slot's
+RMS factor taken first: the same tiles, order and sums. Attention reads
+only the rows each slot attends; ``plan`` splits S over blocks
+(flash-decoding) only where one stage cannot hold a slot's K and V rows.
+Its numerics are ``decode_block_row``'s (the roundings the Pallas body
+makes), not the fused-adapter kernel's. Routes int8/int4 read the slots' quantized Â/B̂
 and dequantize each value once (the shared ``csrc/dequant.cuh``); their
 adapter stays fp32 from x2 to one rounding of x2 + y, as
 ``decode_block_row``'s quantized branch does.
@@ -49,6 +55,7 @@ from repro_torch.kernels.mask_aggregate_quant import check_rows
 MAX_SLOTS = 8
 _ROUTES = {"none": 0, "bf16": 1, "int8": 2, "int4": 3}
 _ADAPTER_ACTS = {"identity": 0, "gelu": 1}
+_MLP_ACTS = {"silu": 0, "gelu": 1}
 
 
 def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
@@ -58,10 +65,10 @@ def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
         return f"adapter route {adapter!r}"
     if adapter != "none" and adapter_act not in _ADAPTER_ACTS:
         return f"adapter activation {adapter_act!r}"
-    if norm != "rmsnorm" or mlp_type != "glu" or act_name != "silu" \
+    if norm != "rmsnorm" or mlp_type != "glu" or act_name not in _MLP_ACTS \
             or not use_rope:
         return (f"norm {norm!r}, mlp {mlp_type!r}, act {act_name!r}, "
-                f"rope {use_rope}: only RMSNorm, GLU-SiLU and RoPE are "
+                f"rope {use_rope}: only RMSNorm, GLU-SiLU/GELU and RoPE are "
                 "built (ROADMAP queue 1, item 10)")
     return None
 
@@ -71,24 +78,40 @@ _inv_freq = functools.lru_cache(maxsize=16)(ref.rope_inv_freq)
 
 
 # The kernel's fixed geometry (csrc/decode_fused.cu): 512 consumer threads,
-# tasks of 16 output columns, a ring of four 32 KB stages, input rows
-# padded by 8 values.
+# tasks of 16 output columns, a ring of four 32 KB stages, weight tiles of
+# 1024 depth rows, input rows padded by 8 values.
 THREADS = 512
 TASK_COLS = 16
 STAGE_BYTES = 32768
 STAGES = 4
+CHUNK = 1024
 ROW_PAD = 8
 MAX_SMEM = 232448
 
 
-def smem_bytes(B, d, H, hd, ff) -> int:
-    """Dynamic shared memory of the instantiation for B slots (4 or 8
-    rows) at these widths: the ring, the bf16 input rows of the widest
-    GEMV depth, the warps' partial sums and 64 words of per-block state."""
-    nb = 4 if B <= 4 else 8
+def _smem(rows, kin) -> int:
+    return (STAGES * STAGE_BYTES + 2 * rows * (kin + ROW_PAD)
+            + 4 * ((THREADS // 32) * rows * TASK_COLS + 64))
+
+
+def in_width(B, d, H, hd, ff) -> int:
+    """Depth rows of an input row in shared memory for B slots (4 or 8
+    rows) at these widths: the widest GEMV depth where its rows fit beside
+    the ring, else the widest whole number of 1024-row weight tiles that
+    fits (the rows then come in windows of that many)."""
+    rows = 4 if B <= 4 else 8
     kmax = max(d, H * hd, ff)
-    return (STAGES * STAGE_BYTES + 2 * nb * (kmax + ROW_PAD)
-            + 4 * ((THREADS // 32) * nb * TASK_COLS + 64))
+    if _smem(rows, kmax) <= MAX_SMEM:
+        return kmax
+    room = MAX_SMEM - _smem(rows, 0) + 2 * rows * ROW_PAD
+    return (room // (2 * rows) - ROW_PAD) // CHUNK * CHUNK
+
+
+def smem_bytes(B, d, H, hd, ff) -> int:
+    """Dynamic shared memory of the instantiation for B slots at these
+    widths: the ring, the bf16 input rows (``in_width`` depth rows), the
+    warps' partial sums and 64 words of per-block state."""
+    return _smem(4 if B <= 4 else 8, in_width(B, d, H, hd, ff))
 
 
 def plan(B, d, H, KV, hd, ff, S, nb, adapter):
@@ -96,7 +119,9 @@ def plan(B, d, H, KV, hd, ff, S, nb, adapter):
     stage holds the K and V rows of the whole cache (S <= 128 at hd 64):
     the item then needs no exchange with other blocks. Otherwise splits of
     as many rows as a stage holds of K (256 at hd 64), ceil(S / rows) of
-    them. Raises ValueError on what the kernel does not build."""
+    them, and at least two (a stage holds one split's K rows only: S=128
+    at hd 128 takes two splits of 64). Raises ValueError on what the
+    kernel does not build."""
     if not 1 <= B <= MAX_SLOTS or H < 1 or KV < 1 or H % KV \
             or hd not in (16, 32, 64, 128, 256) \
             or any(n % 16 for n in (d, H * hd, KV * hd, ff)) or S < 1:
@@ -104,13 +129,17 @@ def plan(B, d, H, KV, hd, ff, S, nb, adapter):
                          f"KV={KV} hd={hd} ff={ff} S={S}")
     if adapter != "none" and (nb % 16 or not 0 < nb <= 256):
         raise ValueError(f"decode megakernel bottleneck {nb}")
-    if smem_bytes(B, d, H, hd, ff) > MAX_SMEM:
-        raise ValueError(f"decode megakernel: {smem_bytes(B, d, H, hd, ff)}"
-                         f" bytes of shared memory at d={d} ff={ff}")
     whole = -(-S // 16) * 16
-    if 4 * whole * hd <= STAGE_BYTES:
-        return whole
-    return min(256, STAGE_BYTES // (2 * hd))
+    sc = whole if 4 * whole * hd <= STAGE_BYTES \
+        else min(256, STAGE_BYTES // (2 * hd), -(-S // 32) * 16)
+    # the attention item's and the adapter's fp32 buffers use the input
+    # rows' space
+    kin = in_width(B, d, H, hd, ff)
+    floats = (4 if B <= 4 else 8) * (kin + ROW_PAD) // 2
+    if kin < CHUNK or floats < max(d, nb, 3 * hd + sc + THREADS):
+        raise ValueError(f"decode megakernel: input rows of {kin} at d={d}"
+                         f" ff={ff}")
+    return sc
 
 
 @functools.lru_cache(maxsize=16)
@@ -314,7 +343,8 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
             freqs.data_ptr(), y.data_ptr(), k_rows.data_ptr(),
             v_rows.data_ptr(), scratch.data_ptr(), B, d, H, KV, hd, ff, S,
             nb, int(qkv_bias), _ROUTES[adapter],
-            _ADAPTER_ACTS.get(adapter_act, 0), float(cap or 0.0),
+            _ADAPTER_ACTS.get(adapter_act, 0), _MLP_ACTS[act_name],
+            float(cap or 0.0),
             ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
             *ad["quant_strides"], *ad["groups"], sc, grid, stream)
     if err:

@@ -203,6 +203,35 @@ def _dot(a, w):
     return (a.float() @ w.float()).to(a.dtype)
 
 
+def adapter_row(x, ad, adapter: str, adapter_act: str):
+    """``decode_block_row``'s X-PEFT adapter on x2 [1, d] (route none
+    returns x2): on route bf16 rounded at h and at y, on int8/int4 fp32
+    from x2's bf16 value to one rounding of x2 + y."""
+    dt = x.dtype
+    if adapter == "bf16":
+        hh = x.float() @ ad["a_hat"].float()
+        mu = hh.mean(-1, keepdim=True)
+        var = torch.square(hh - mu).mean(-1, keepdim=True)
+        hh = (hh - mu) * torch.rsqrt(var + 1e-6)
+        hh = hh * ad["ln_scale"].float() + ad["ln_bias"].float()
+        if adapter_act == "gelu":
+            hh = F.gelu(hh, approximate="tanh")
+        y = hh.to(dt).float() @ ad["b_hat"].float()
+        x = x + y.to(dt)
+    elif adapter in ("int8", "int4"):
+        x32 = x.float()
+        hh = x32 @ dequant_block(ad["a_q"], ad["a_scale"], adapter)
+        mu = hh.mean(-1, keepdim=True)
+        var = torch.square(hh - mu).mean(-1, keepdim=True)
+        hh = (hh - mu) * torch.rsqrt(var + 1e-6)
+        hh = hh * ad["ln_scale"].float() + ad["ln_bias"].float()
+        if adapter_act == "gelu":
+            hh = F.gelu(hh, approximate="tanh")
+        y = hh @ dequant_block(ad["b_q"], ad["b_scale"], adapter)
+        x = (x32 + y).to(dt)
+    return x
+
+
 def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
                      qkv_bias: bool, use_rope: bool, theta: float,
                      cap: float, mlp_type: str, act_name: str,
@@ -280,27 +309,7 @@ def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
         x = x + (_dot(m, mlp["w2"]) + mlp["b2"].to(h.dtype))
 
     # --- X-PEFT adapter ---------------------------------------------------
-    if adapter == "bf16":
-        hh = x.float() @ ad["a_hat"].float()
-        mu = hh.mean(-1, keepdim=True)
-        var = torch.square(hh - mu).mean(-1, keepdim=True)
-        hh = (hh - mu) * torch.rsqrt(var + 1e-6)
-        hh = hh * ad["ln_scale"].float() + ad["ln_bias"].float()
-        if adapter_act == "gelu":
-            hh = F.gelu(hh, approximate="tanh")
-        y = hh.to(dt).float() @ ad["b_hat"].float()
-        x = x + y.to(dt)
-    elif adapter in ("int8", "int4"):
-        x32 = x.float()
-        hh = x32 @ dequant_block(ad["a_q"], ad["a_scale"], adapter)
-        mu = hh.mean(-1, keepdim=True)
-        var = torch.square(hh - mu).mean(-1, keepdim=True)
-        hh = (hh - mu) * torch.rsqrt(var + 1e-6)
-        hh = hh * ad["ln_scale"].float() + ad["ln_bias"].float()
-        if adapter_act == "gelu":
-            hh = F.gelu(hh, approximate="tanh")
-        y = hh @ dequant_block(ad["b_q"], ad["b_scale"], adapter)
-        x = (x32 + y).to(dt)
+    x = adapter_row(x, ad, adapter, adapter_act)
     return x, k_row, v_row
 
 

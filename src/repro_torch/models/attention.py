@@ -1,7 +1,10 @@
-"""Attention: MHA/GQA with RoPE, a KV cache and long-sequence chunking.
+"""Attention: MHA/GQA/MQA with RoPE, a sliding-window/global mix, a KV
+cache and long-sequence chunking.
 
-The counterpart of ``repro.models.attention.attention`` for full
-attention, causal (decoders) or bidirectional (the encoder): the
+The counterpart of ``repro.models.attention.attention``, causal (decoders)
+or bidirectional (the encoder), full or ``sliding_mix`` (gemma3: a local
+layer masks keys ``window`` or more positions behind the query, a global
+layer takes an effectively infinite window, ``2**30``): the
 cacheless self-attention, the cache write at a scalar ``cache_pos`` and
 at a per-slot vector ``cache_pos``, the dense softmax over the whole
 ``[T, S]`` logits, and, where JAX takes it (T > ``q_chunk``, T a multiple
@@ -11,8 +14,10 @@ a running max and an fp32 accumulator, so the ``[T, S]`` logits never
 exist at once. Both are plain torch ops, as JAX computes them outside any
 Pallas kernel. ``front_skip`` (serving over prefix KV rows hydrated into
 the cache) and ``extra_kv`` (the prefix rows of the dense training path,
-un-rotated in front of the example's own keys) are ported; sliding
-windows (ROADMAP queue 1, item 10) are not.
+un-rotated in front of the example's own keys) are ported. The window
+is a term of the positional mask on every path, the chunked one
+included, as JAX applies it: hydrated prefix rows at key positions [0,
+P) are windowed like any other key.
 
 Unlike the functional JAX cache, the port writes the cache IN PLACE (one
 KV cache per engine instead of a fresh copy per layer-step) and returns
@@ -44,9 +49,12 @@ def init_attention(cfg, dtype, *, generator: torch.Generator, device) -> dict:
     return p
 
 
-def _mask(q_pos, k_pos, *, causal, kv_valid, front_skip=None, k_idx=None):
+def _mask(q_pos, k_pos, *, causal, kv_valid, window=None, front_skip=None,
+          k_idx=None):
     """q_pos [B,Tq], k_pos [S] or [B,S], kv_valid [B] -> bool [B,Tq,S].
 
+    ``window`` (None: no window) keeps the keys with ``q_pos - k_pos <
+    window``.
     ``front_skip [B]`` masks the first ``front_skip[b]`` key buffer slots:
     the per-example gate of prefix KV rows at the front of the cache (an
     example whose profile selected no prefix slot at this layer attends
@@ -62,6 +70,8 @@ def _mask(q_pos, k_pos, *, causal, kv_valid, front_skip=None, k_idx=None):
         m = m & (ki >= front_skip.reshape(-1, 1, 1))
     if causal:
         m = m & (kp <= qp)
+    if window is not None:
+        m = m & (qp - kp < window)
     return m
 
 
@@ -80,13 +90,14 @@ def _sdpa_dense(q, k, v, mask, scale, cap):
 
 
 def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, kv_valid, scale, cap,
-                  q_chunk, k_chunk):
+                  q_chunk, k_chunk, window=None):
     """Online softmax over key chunks, for each query chunk in turn (JAX's
     ``_sdpa_chunked``, the ``lax.scan`` pair as two loops): q [B,KV,G,Tq,
     hd], k/v [B,KV,S,hd], q_pos [B,Tq], k_pos [S]; Tq a multiple of
     ``q_chunk`` and S of ``k_chunk``. Logits and the accumulator in fp32,
     ``p`` cast to v's dtype before the AV product, the row sum floored at
-    1e-30."""
+    1e-30. The window masks inside each chunk pair; no chunk is skipped,
+    as in JAX."""
     B, KV, G, Tq, _ = q.shape
     S, dv = k.shape[2], v.shape[-1]
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=q.device)
@@ -105,7 +116,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, kv_valid, scale, cap,
                 * scale
             logits = softcap(logits, cap)
             msk = _mask(qpi, k_pos[j:j + k_chunk], causal=causal,
-                        kv_valid=kv_valid)
+                        kv_valid=kv_valid, window=window)
             logits = torch.where(msk[:, None, None], logits, neg)
             m_new = torch.maximum(m_run, logits.amax(-1))
             p = torch.exp(logits - m_new[..., None])
@@ -143,7 +154,8 @@ def write_cache(buf, new, cache_pos):
 
 
 def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
-              front_skip=None, extra_kv=None, q_chunk=512, k_chunk=1024):
+              is_global=True, front_skip=None, extra_kv=None, q_chunk=512,
+              k_chunk=1024):
     """x [B,T,d] -> (y [B,T,d], cache).
 
     cache: {"k","v": [B, S, KV, hd]}, written in place at ``cache_pos``
@@ -160,13 +172,12 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
     slot. ``pvalid`` False masks the rows out (``front_skip`` P), so such
     an example attends exactly the bare sequence. This path always takes
     the dense softmax, as JAX's does.
+    is_global: the layer's flag under ``sliding_mix`` (``layer_meta``);
+    a local layer attends the keys less than ``cfg.sliding_window``
+    positions behind each query.
     q_chunk / k_chunk: the chunk sizes of the online-softmax path, taken
     when T > q_chunk, T % q_chunk == 0, S % k_chunk == 0 and there is no
     ``front_skip`` (JAX's condition); the dense softmax otherwise."""
-    if cfg.attn_type != "full":
-        raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r}: only full attention is ported "
-            "(ROADMAP queue 1, item 10)")
     B, T, d = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -219,16 +230,21 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
     vals = vals.permute(0, 2, 1, 3)
     qg = q.reshape(B, T, KV, G, hd).permute(0, 2, 3, 1, 4)  # [B,KV,G,T,hd]
 
+    window = None
+    if cfg.attn_type == "sliding_mix":
+        # global layers get an "infinite" window, as JAX's traced flag does
+        window = 2 ** 30 if is_global else int(cfg.sliding_window)
+
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     use_chunked = T > q_chunk and T % q_chunk == 0 and S % k_chunk == 0
     if use_chunked and front_skip is None:
         out = _sdpa_chunked(qg, keys, vals, positions, k_pos,
                             causal=cfg.causal, kv_valid=kv_valid,
                             scale=scale, cap=cfg.logit_softcap,
-                            q_chunk=q_chunk, k_chunk=k_chunk)
+                            q_chunk=q_chunk, k_chunk=k_chunk, window=window)
     else:
         msk = _mask(positions, k_pos, causal=cfg.causal, kv_valid=kv_valid,
-                    front_skip=front_skip, k_idx=k_idx)
+                    window=window, front_skip=front_skip, k_idx=k_idx)
         out = _sdpa_dense(qg, keys, vals, msk, scale, cfg.logit_softcap)
     if extra_kv is not None:
         # an example whose rows are masked out takes the softmax over its
@@ -240,6 +256,7 @@ def attention(params, x, *, positions, cfg, cache=None, cache_pos=None,
                                 kv_valid=torch.full((B,), T,
                                                     dtype=torch.int64,
                                                     device=x.device),
+                                window=window,
                                 k_idx=torch.arange(T, device=x.device)),
                           scale, cfg.logit_softcap)
         out = torch.where(extra_kv[2][:, None, None, None, None], out, own)

@@ -1,9 +1,15 @@
 """The LM: a loop over stacked transformer layers with X-PEFT adapter hooks.
 
-The port of ``repro.models.model`` for ``block_pattern="attn"`` with full
-attention: causal decoders with RoPE, dense or mixture-of-experts
-(``models/moe.py`` in place of the MLP; the forward's aux is the mean of
-the layers' load-balance losses, as JAX's), and the encoder
+The port of ``repro.models.model`` for ``block_pattern="attn"``: causal
+decoders with RoPE, dense or mixture-of-experts (``models/moe.py`` in
+place of the MLP; the forward's aux is the mean of the layers' load-
+balance losses, as JAX's), full attention or gemma3's ``sliding_mix``
+(``layer_meta``'s per-layer global flags, a Python bool per layer into
+``attention``), gemma's embedding scale (the token rows times sqrt(d)
+rounded to fp32 and then to x's dtype, JAX's ``jnp.sqrt(d).astype``),
+the frontends' ``prefix_embeds`` (the vision patches or audio frames,
+cast to x's dtype and put unscaled in front of the token rows, the
+positions running over both), and the encoder
 (``bert-base-xpeft``: learned positions, bidirectional attention,
 LayerNorm, the vanilla GELU MLP and the classification head,
 ``cls_logits``). Params are plain dicts of tensors in the JAX package's
@@ -23,8 +29,8 @@ takes the same route; over a heterogeneous bank it aggregates each typed
 segment (bottleneck -> LoRA -> IA3), and without a cache each layer's
 prefix KV rows ride into attention as ``extra_kv``, the prompt's
 positions shifted by P for the examples that select a prefix slot.
-Every other block pattern, sliding windows, frontends and embedding
-scaling raise ``NotImplementedError`` naming their ROADMAP item.
+The recurrent and hybrid block patterns (rwkv, mamba, zamba) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -57,14 +63,14 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"block_pattern {cfg.block_pattern!r} is not ported (ROADMAP "
             "queue 1, item 10)")
-    if cfg.attn_type != "full":
-        raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} is not ported (sliding windows, "
-            "ROADMAP queue 1, item 10)")
-    if cfg.frontend != "none" or cfg.embed_scale:
-        raise NotImplementedError(
-            "frontends and embedding scaling are not ported (ROADMAP queue "
-            "1, item 10)")
+
+
+def layer_meta(cfg) -> list:
+    """Static per-layer flags: is_global (gemma3's 5 local : 1 global)."""
+    if cfg.attn_type == "sliding_mix":
+        return [l % cfg.global_every == cfg.global_every - 1
+                for l in range(cfg.num_layers)]
+    return [True] * cfg.num_layers
 
 
 # ----------------------------------------------------------------------------
@@ -254,11 +260,12 @@ def _decode_fused_apply(block, x, masks_l, cfg, *, positions, cache_l,
 
 
 def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
-                      front_skip=None, extra_kv=None):
+                      is_global=True, front_skip=None, extra_kv=None):
     h = norm_apply(x, block["n1"], cfg.norm)
     h, _ = ATT.attention(block["attn"], h, positions=positions, cfg=cfg,
                          cache=cache_l, cache_pos=cache_pos,
-                         front_skip=front_skip, extra_kv=extra_kv)
+                         is_global=is_global, front_skip=front_skip,
+                         extra_kv=extra_kv)
     x = x + h
     h = norm_apply(x, block["n2"], cfg.norm)
     if cfg.moe:
@@ -267,10 +274,25 @@ def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
     return x + MLP.mlp_apply(block["mlp"], h, cfg), None
 
 
-def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
-            cache_pos=0, positions=None):
-    """tokens [B,T] -> (hidden [B,T,d], cache, aux_loss).
+def embed_tokens(params, tokens, cfg):
+    """The token rows [B, T, d], times gemma's embedding scale: sqrt(d) in
+    fp32, rounded to the rows' dtype, one product in that dtype (a Python
+    float would multiply in fp32 by the unrounded scale)."""
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        scale = torch.sqrt(torch.tensor(float(cfg.d_model),
+                                        dtype=torch.float32))
+        x = x * scale.to(device=x.device, dtype=x.dtype)
+    return x
 
+
+def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
+            cache=None, cache_pos=0, positions=None):
+    """tokens [B,T] -> (hidden [B,P+T,d], cache, aux_loss).
+
+    prefix_embeds: optional [B,P,d] frontend rows (vision patches, audio
+    frames), cast to x's dtype and put in front of the (scaled) token
+    rows; the positions then run over all P + T rows from ``cache_pos``.
     profile_masks: {"a_hat" [B,L,d,b], "b_hat" [B,L,b,d], "ln_scale",
     "ln_bias" [B,L,b]} (admission-time aggregated adapters), their
     quantized form {"a_q", "a_scale", "b_q", "b_scale", "ln_scale",
@@ -286,8 +308,11 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     from a scalar ``cache_pos`` on (the start clamped so T rows fit, as
     ``lax.dynamic_slice`` clamps), or each slot's ``positions``."""
     check_supported(cfg)
-    B, T = tokens.shape
-    x = params["embed"][tokens.long()]
+    B = tokens.shape[0]
+    x = embed_tokens(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    T = x.shape[1]
     if positions is None:
         if torch.is_tensor(cache_pos) and cache_pos.ndim == 1:
             positions = cache_pos[:, None] + torch.arange(
@@ -325,6 +350,7 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
     bank = params.get("xpeft_bank")
     fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
                                       T)
+    meta = layer_meta(cfg)
     auxs = []
     for l in range(cfg.num_layers):
         block = {name: {k: v[l] for k, v in sub.items()}
@@ -357,7 +383,8 @@ def forward(params, tokens, cfg, *, profile_masks=None, cache=None,
                 cfg.num_kv_heads, cfg.head_dim)
         x, aux = _attn_block_apply(block, x, cfg, positions=positions,
                                    cache_l=cache_l, cache_pos=cache_pos,
-                                   front_skip=front_skip, extra_kv=extra_kv)
+                                   is_global=meta[l], front_skip=front_skip,
+                                   extra_kv=extra_kv)
         if aux is not None:
             auxs.append(aux)
         x = _xpeft_apply(x, bank_l, masks_l, cfg)

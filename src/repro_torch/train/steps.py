@@ -185,10 +185,11 @@ def _noise_kw(rng) -> dict:
 
 
 def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
-    """(hidden [B,T,d], aux, head_override, params) of the batch under
-    ``mode``: head_override is the batch's per-example heads (xpeft), the
-    one trainable head (adapter, head_only) or None (the shared head, or
-    no classification)."""
+    """(hidden [B,P+T,d], aux, head_override, params) of the batch under
+    ``mode`` (P: the batch's ``prefix_embeds`` rows, if any):
+    head_override is the batch's per-example heads (xpeft), the one
+    trainable head (adapter, head_only) or None (the shared head, or no
+    classification)."""
     _check_mode(mode)
     tokens = batch["tokens"]
     masks = None
@@ -222,7 +223,9 @@ def _forward_mode(frozen, trainable, batch, cfg, mode, rng, training=True):
         cfg = cfg.with_xpeft(enabled=False)
     else:
         params = trainable
-    hidden, _, aux = MDL.forward(params, tokens, cfg, profile_masks=masks)
+    hidden, _, aux = MDL.forward(params, tokens, cfg,
+                                 prefix_embeds=batch.get("prefix_embeds"),
+                                 profile_masks=masks)
     return hidden, aux, head_override, params
 
 
@@ -245,7 +248,10 @@ def loss_for_batch(frozen, trainable, batch, cfg, mode, rng, training=True):
             logits = MDL.cls_logits(params, hidden, cfg)
         loss, metrics["accuracy"] = cls_loss(logits, batch["labels"])
     else:
-        loss = lm_loss_chunked(params, hidden, batch["labels"], cfg)
+        # the LM loss over the token rows, behind a frontend's P prefix rows
+        prefix = batch.get("prefix_embeds")
+        P = 0 if prefix is None else prefix.shape[1]
+        loss = lm_loss_chunked(params, hidden[:, P:], batch["labels"], cfg)
     metrics["loss"] = loss
     metrics["aux_loss"] = aux
     return loss + 0.01 * aux, metrics

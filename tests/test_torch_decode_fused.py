@@ -189,18 +189,19 @@ def test_plain_decode_block_dispatch_and_past_the_end():
 
 
 def test_kernel_refuses_unbuilt_variants():
-    """The CUDA path builds RMSNorm, GLU-SiLU and RoPE with routes none,
-    bf16, int8 and int4; the wrapper names everything else before
-    touching the card."""
+    """The CUDA path builds RMSNorm, GLU-SiLU and GLU-GELU and RoPE with
+    routes none, bf16, int8 and int4; the wrapper names everything else
+    before touching the card."""
     base = dict(norm="rmsnorm", use_rope=True, mlp_type="glu",
                 act_name="silu", adapter="bf16", adapter_act="gelu")
     assert KD._unsupported(**base) is None
     for accept in (dict(adapter="none"), dict(adapter_act="identity"),
                    dict(adapter="int8"), dict(adapter="int4"),
-                   dict(adapter="int4", adapter_act="identity")):
+                   dict(adapter="int4", adapter_act="identity"),
+                   dict(act_name="gelu")):
         assert KD._unsupported(**dict(base, **accept)) is None, accept
     for change in (dict(norm="layernorm"), dict(mlp_type="vanilla"),
-                   dict(act_name="gelu"), dict(use_rope=False),
+                   dict(act_name="relu"), dict(use_rope=False),
                    dict(adapter="int2"), dict(adapter_act="relu"),
                    dict(adapter="int8", adapter_act="relu")):
         assert KD._unsupported(**dict(base, **change)), change
@@ -304,12 +305,13 @@ def test_decode_plan_refusals():
     base = dict(B=4, S=128, adapter="bf16", **QWEN_SHAPES)
     for change in (dict(B=0), dict(B=9), dict(hd=48), dict(hd=512),
                    dict(H=16, KV=3), dict(d=1000), dict(ff=2820),
-                   dict(nb=60), dict(nb=512), dict(S=0),
-                   dict(B=8, ff=14336)):  # input rows past shared memory
+                   dict(nb=60), dict(nb=512), dict(S=0)):
         with pytest.raises(ValueError):
             KD.plan(**dict(base, **change))
-    # route none takes no bottleneck
+    # route none takes no bottleneck; rows past shared memory come in
+    # windows
     KD.plan(**dict(base, adapter="none", nb=0))
+    KD.plan(**dict(base, B=8, ff=14336))
 
 
 def test_decode_plan_matches_the_kernel():
@@ -326,8 +328,11 @@ def test_decode_plan_matches_the_kernel():
     assert const("kNT") == KD.TASK_COLS
     assert const("kStage") == KD.STAGE_BYTES
     assert const("kStages") == KD.STAGES
+    assert const("kChunk") == KD.CHUNK
     assert const("kPad") == KD.ROW_PAD
     assert const("kMaxSmem") == KD.MAX_SMEM
     assert const("kMisc") == 64
-    assert ("2LL * NB * (kmax + kPad) + 4LL * (kWarps * NB * kNT + kMisc)"
+    assert ("2LL * NB * (kin + kPad) + 4LL * (kWarps * NB * kNT + kMisc)"
             in src)
+    assert "return static_cast<int>((room / (2 * NB) - kPad) / kChunk * " \
+        "kChunk);" in src

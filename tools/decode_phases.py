@@ -1,6 +1,6 @@
 """Where the decode megakernel's time goes, phase by phase, on the card.
 
-    python3 tools/decode_phases.py [--tree DIR]
+    python3 tools/decode_phases.py [--tree DIR] [--plain]
 
 Copies ``DIR/src/repro_torch/csrc`` (default: this checkout) into
 ``build/decode_phases/``, inserts ``%globaltimer`` stamps into the copy of
@@ -15,6 +15,10 @@ times it), and the median over 96 calls of each phase's work (block 0's
 leave of the last barrier to the last block's arrival at the next), each
 barrier (last arrival to block 0's leave) and the launch (the call's time
 less block 0's start to the last block's end).
+
+``--plain`` builds ``DIR``'s library as it is (into ``DIR/build``, no
+stamps) and prints only each shape's time: to compare two checkouts, run
+parent, change, change, parent in one call on one card.
 """
 import argparse
 import ctypes
@@ -78,22 +82,10 @@ def stamped(src: str):
     return s + READERS, n[0], before_none
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=str(HERE),
-                    help="checkout whose kernel and wrapper are timed")
-    tree = Path(ap.parse_args().tree).resolve()
-    sys.path[:0] = [str(HERE), str(tree / "src")]
-    import torch
-    import chip_smoke as CS
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, decode_fused as KD, ref
-    from repro_torch.quant import schemes as QS
-    assert Path(KD.__file__).resolve().is_relative_to(tree)
-    if not torch.cuda.is_available():
-        print("decode_phases: needs a CUDA card", file=sys.stderr)
-        return 2
-
+def stamped_library(_build, KD):
+    """The checkout's decode_fused.cu with stamps, built alone and put
+    behind its wrapper: (library, barriers stamped, barriers before route
+    none returns), or (None, 0, 0) where nvcc fails."""
     out = HERE / "build" / "decode_phases"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -108,7 +100,7 @@ def main():
                        capture_output=True, text=True)
     if r.returncode:
         print(r.stdout, r.stderr)
-        return 1
+        return None, 0, 0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _build.SIGNATURES.items():
         if hasattr(lib, name):
@@ -120,6 +112,35 @@ def main():
         if hasattr(KD, fn):
             getattr(KD, fn).cache_clear()
 
+    return lib, nbar, nbar_none
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(HERE),
+                    help="checkout whose kernel and wrapper are timed")
+    ap.add_argument("--plain", action="store_true",
+                    help="the checkout's own build, times only")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path[:0] = [str(HERE), str(tree / "src")]
+    import torch
+    import chip_smoke as CS
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, decode_fused as KD, ref
+    from repro_torch.quant import schemes as QS
+    assert Path(KD.__file__).resolve().is_relative_to(tree)
+    if not torch.cuda.is_available():
+        print("decode_phases: needs a CUDA card", file=sys.stderr)
+        return 2
+
+    if args.plain:
+        _build.build()
+        lib, nbar = _build.load_library(), 0
+    else:
+        lib, nbar, nbar_none = stamped_library(_build, KD)
+        if lib is None:
+            return 1
     print(f"tree {tree} | {CS.nvidia_smi()} | {nbar} barriers", flush=True)
     cfg = get_config("qwen1.5-0.5b")
     kw = dict(norm=cfg.norm, qkv_bias=cfg.qkv_bias, use_rope=True,
@@ -144,6 +165,11 @@ def main():
         ms = CS.device_ms(torch, CS.rotating(
             lambda *a: KD.decode_block_fused(*a, **rkw), sets),
             calls=len(sets))
+        if args.plain:
+            print(f"== route={route} S={S}: {ms:.5f} ms a call (cold graph "
+                  "replay)", flush=True)
+            del sets
+            continue
         rows = []
         for _ in range(4):
             for a in sets:

@@ -24,9 +24,10 @@ max_seq 128, sync_every 8) throughout.
     through ``launch/train.py``'s loop (8 profiles, B=8, T=64), timed and
     profiled as phase 7's; the trained table packed into a hard store,
     saved and loaded back byte-equal. The run's frozen weights serve (a)
-    to (d).
+    to (d) at their first SERVE_LAYERS = 16 layers (the call's time) and
+    (f) at all 48.
 (a) composed windowed serving of 4 random profiles: #1 twice per wave
-    that aggregates, #2 48 times per decode step and prefill batch. Held
+    that aggregates, #2 16 times per decode step and prefill batch. Held
     to its ``kernel_impl="ref"`` run, with every layer's routing recorded
     in both (``Routing``). The routing rule (``routing_diff``): for each
     request whose routing parts before its tokens do, the first (layer,
@@ -40,7 +41,7 @@ max_seq 128, sync_every 8) throughout.
     that run that parts from the ref's, in any layer, meets the routing
     rule (``replay_check``). A decode step timed and profiled, the
     expert GEMMs' share of its device time (their three batched GEMMs
-    timed apart over the 48 layers' weights) and its byte bound.
+    timed apart over the 16 layers' weights) and its byte bound.
 (b) ``decode_fused=True``: MoE blocks stay composed, so #8 launches 0
     times and the tokens are (a)'s bitwise.
 (c) continuous serving (pages of 16) against (a)'s windowed run, by the
@@ -49,7 +50,7 @@ max_seq 128, sync_every 8) throughout.
     self-speculation (gamma 3) against the continuous run, reported with
     its acceptance and routing divergences, not asserted equal (the
     verify's gamma + 1 tokens a slot change the capacity, as in JAX).
-(d) the int8 bank, composed: #5 twice per aggregating wave, #6 48 times
+(d) the int8 bank, composed: #5 twice per aggregating wave, #6 16 times
     per decode step and prefill batch, #1 and #2 never; held to its ref
     run as (a).
 (f) (e)'s trained store served and held to its ref run as (a).
@@ -78,6 +79,9 @@ TRAIN_ARGV = ["--arch", ARCH, "--mode", "xpeft", "--steps", "10", "--batch",
 # the token's max |d router logit|: for an expert a the reference keeps
 # and b it does not, g_a - g_b <= |d g_a| + |d g_b| once the run swaps them
 ROUTE_GAP_FACTOR = 2.0
+# the depth (a)-(d) serve at: the first 16 of the 48 trained layers (the
+# call's time); (e) trains and (f) serves all 48
+SERVE_LAYERS = 16
 
 
 # ----------------------------------------------------------------------------
@@ -443,9 +447,10 @@ def expect(kind, L, d, gamma=0):
 
 
 def forced_run(torch, cfg, params, store, reqs, forced, bare=False,
-               rec=None):
+               rec=None, eng_kw=None):
     """``chip_smoke.forced_decode`` with the routing kept: a fresh
-    windowed engine serves ``reqs`` in the free run's admission waves,
+    windowed engine (phase 4's shape, overridden by ``eng_kw``) serves
+    ``reqs`` in the free run's admission waves,
     each slot's decode step fed ``forced[uid]``'s token (teacher forcing);
     ``bare`` leaves the adapter out of the prefills and decode steps (the
     adapters' share of the logits). Returns (decode-
@@ -454,8 +459,8 @@ def forced_run(torch, cfg, params, store, reqs, forced, bare=False,
     from repro_torch.models import model as MDL
     from repro_torch.serve import Request, ServeEngine
 
-    eng = ServeEngine(cfg, params, store, max_slots=4, max_seq=128,
-                      sync_every=8)
+    eng = ServeEngine(cfg, params, store,
+                      **dict(cs.CB_ENGINE, **(eng_kw or {})))
     groups, pre = [], {}
     group_by_bucket = eng.scheduler.group_by_bucket
     prefill = eng.prefill_logits
@@ -619,8 +624,8 @@ def tree_bytes(tree):
 def step_budget(torch, cfg, params, step):
     """The three expert GEMMs of a decode step (4 slots: capacity 8 per
     expert, every expert's buffer computed) timed apart: CUDA-graph
-    replays over the 48 layers' weights in order (each layer's 1.2 GB of
-    experts read cold, as the step reads them), times 48, against the
+    replays over the served layers' weights in order (each layer's 1.2 GB
+    of experts read cold, as the step reads them), times L, against the
     step's profiled device time; and the step's byte bound: every weight
     it reads once (all blocks, the final norm, the LM head), the 4 slots'
     Â/B̂ and LN rows, the K/V cache, over the card's memory rate."""
@@ -787,6 +792,7 @@ def phase_moe(torch):
     launches of every kernel (``runs``), and the kernel rows at d=2048."""
     from repro_torch.core import xpeft as XP
     from repro_torch.core.profiles import ProfileStore
+    from repro_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
     secs, lap = {}, [t0]
@@ -820,6 +826,12 @@ def phase_moe(torch):
            f"k={cfg.xpeft.k}); {torch.cuda.memory_allocated() / 2**30:.2f} "
            "GiB allocated")
     mark("e")
+    full = dict(cfg=cfg, params=params)
+    cfg = cfg.with_(num_layers=SERVE_LAYERS)
+    params = dict(params, **{k: tree_map(lambda t: t[:SERVE_LAYERS],
+                                         params[k])
+                             for k in ("blocks", "xpeft_bank")})
+    L = SERVE_LAYERS
     xp = cfg.xpeft
     table = XP.init_profile_table(cfg.with_xpeft(max_profiles=4), seed=0)
 
@@ -920,10 +932,10 @@ def phase_moe(torch):
     torch.cuda.empty_cache()
     mark("d")
 
-    # (f) the trained store
-    f, _ = serve_path(torch, "(f) trained store", cfg, params,
-                      stores["hard"], counters, "bf16", warm=False,
-                      profile=False)
+    # (f) the trained store, all 48 layers
+    f, _ = serve_path(torch, "(f) trained store", full["cfg"],
+                      full["params"], stores["hard"], counters, "bf16",
+                      warm=False, profile=False)
     runs["trained"] = f["launches"]
     mark("f")
     del run_a
