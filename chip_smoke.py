@@ -61,14 +61,16 @@ Phases, in order; any failed check exits non-zero:
              prefill batch; the same comparisons with its kernel_impl="ref"
              run, and the same profile of a decode step.
 5. serve from a quantized bank — the same workload with bank_quant int8
-             and int4, each on the composed path and with decode_fused=True:
-             the engine quantizes the bank and drops it from its params;
-             profiles 0 and 1 carry quantized aggregated store records, so
-             the first wave admits through quant_mixed. The quantized
-             aggregation launches twice per aggregating wave, the
-             dequantizing adapter 24 times per decode step and prefill batch
-             (composed) or per prefill batch (fused), the megakernel's
-             int8/int4 route 24 times per decode step (fused); the bf16
+             and int4, each on the composed path and with decode_fused=True,
+             on the first QUANT_LAYERS (12) of the 24 layers (for the
+             call's time): the engine quantizes the bank and drops
+             it from its params; profiles 0 and 1 carry quantized
+             aggregated store records, so the first wave admits through
+             quant_mixed. The quantized aggregation launches twice per
+             aggregating wave, the dequantizing adapter 12 times per decode
+             step and prefill batch (composed) or per prefill batch
+             (fused), the megakernel's int8/int4 route 12 times per decode
+             step (fused); the bf16
              kernels not at all. Each path is held to its kernel_impl="ref"
              run as above (a reading over the adapters'-share bound is
              reported, see the tolerances), and a decode step of each is
@@ -262,9 +264,31 @@ Phases, in order; any failed check exits non-zero:
              ``{"forms": ...}`` JSON line carries its numbers;
              ``launches_forms`` in each kernel row.
 
+14. recurrent — ``tools/recurrent_phase.py``: the recurrent block
+             families on the shared chunked linear attention (bf16, random
+             weights from seed 0, bank N=256, b=64, k=50): (d) #1, #2,
+             #5/#6 int8 and the hetero launch at rwkv6-7b's d=4096, each
+             held to its plain version and timed; (a) the chunked GLA
+             against the naive fp32 recurrence at rwkv6-7b's and
+             zamba2-1.2b's shapes (T=1,024, chunk 128), strong decay, the
+             decode step after a chunked prefix, the refusal at T=20; (b)
+             rwkv6-7b at full width: a card-vs-CPU train step (2 layers,
+             float32, and its float64 twin), composed at full depth held
+             to its ref run, a
+             decode step split by op class, four 1,024-token prompts in one
+             exact-length prefill batch, then on 8 of its 32 layers int8
+             and a heterogeneous bank held to their ref runs, continuous
+             (no page pool) and decode_fused (#8 0 times) bitwise the
+             windowed run; (c) zamba2-1.2b at full size: a card-vs-CPU
+             step (6 layers), composed and int8 held to their ref runs,
+             continuous with preemptions and decode_fused bitwise
+             windowed. A ``{"recurrent": ...}`` JSON line carries its
+             numbers; ``launches_recurrent`` in each kernel row.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
 """
+import contextlib
 import gc
 import json
 import math
@@ -343,11 +367,23 @@ E2E_SHARE_REL = 0.5
 #   LM head, 2 layers and the straight-through softmax).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_REL_L2 = 1e-3
+# - a step whose float32 gradients are too ill-conditioned for that bound
+#   (rwkv6-7b at random init: ``tools/grad_floor.py``) also runs in float64
+#   on both devices (``float64_everywhere``), where the card must give the
+#   CPU's loss and gradients within TRAIN_F64_REL: float64 rounding (1.1e-16)
+#   times the amplification its float32 gradients show (their distance
+#   from float64 over float32's 6e-8, up to 7e4) is ~1e-11 (rwkv6-7b read
+#   1.7e-11 to 2.5e-11 on an H100)
+TRAIN_F64_REL = 1e-9
 # phases 9 and 10 drive their paths at this depth of qwen1.5-0.5b (24
 # layers) and full width, so that the whole script, phase 12's 48-layer
 # model included, stays well inside its time limit: their serving and
 # training steps are host-bound, so their time follows the layer count
 CUT_LAYERS = 12
+# phase 5 serves its four quantized paths on the first QUANT_LAYERS of
+# qwen1.5-0.5b's 24 layers (full width), for the whole call's time with
+# phase 14
+QUANT_LAYERS = 12
 # - the encoder (phase 8): its card-vs-CPU step under phase 7's two bounds
 #   for every mode, with the accuracy equal (fp32 logits of 15 classes);
 #   its kernel route against the same route's kernel_impl="ref" run under
@@ -1423,7 +1459,7 @@ def serve_once(torch, cfg, params, store, reqs, eng_kw=None):
 
 def drive_path(torch, label, cfg, params, store, counters, check_launches,
                check_runs=None, report_share=False, eng_kw=None,
-               ref_kw=None, own_prefill=False, profiles=4):
+               ref_kw=None, own_prefill=False, profiles=4, witness=None):
     """One serving path end to end: a warm-up drain, then the 8 requests
     with every counter in ``counters`` set to 0 just before
     (``check_launches(launches, serve_stats, waves)`` asserts what must
@@ -1435,7 +1471,11 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     run's (default: the same); ``own_prefill`` holds the prefill logits
     the teacher-forced runs' own admission waves computed, in place of
     one padded bucket of all 8 requests. ``profiles``: the requests'
-    profiles, as ``make_requests`` takes them."""
+    profiles, as ``make_requests`` takes them. ``witness(ref_engine,
+    ref_requests)``, where given, returns (W_prefill, W_decode), the ref
+    run's own max |d logit| from the same run in float32, and the logits
+    are held within twice it (``e2e_check``'s witness bound), for a model
+    whose bf16 noise is above E2E_STEPS."""
     ref_kw = eng_kw if ref_kw is None else ref_kw
     from repro_torch.models import model as MDL
     from repro_torch.serve import Request, ServeEngine
@@ -1484,11 +1524,16 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
         f"{ref_dt:.3f}s = {ref_toks / ref_dt:.1f} tok/s")
     if check_runs is not None:
         check_runs(eng, ref_eng)
+    w_pre = w_dec = None
+    if witness is not None:
+        w_pre, w_dec = witness(ref_eng, ref_reqs)
+
     def check_prefill(pre):
         assert torch.isfinite(pre[0]).all()
         assert pre[0].shape == (8, cfg.vocab_size)
         e2e_check("prefill logits", *pre,
-                  prefill_logits(torch, ref_eng, ref_reqs, bare=True))
+                  prefill_logits(torch, ref_eng, ref_reqs, bare=True),
+                  witness=w_pre)
 
     if not own_prefill:
         pre = [prefill_logits(torch, e, rs) for e, rs in
@@ -1519,7 +1564,8 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     # runs' own
     assert replay == ref_tokens.numel(), replay
     e2e = e2e_check(f"{label} decode-step logits, teacher-forced (8 "
-                    "requests x 15 steps)", *dec, report_share=report_share)
+                    "requests x 15 steps)", *dec, report_share=report_share,
+                    witness=w_dec)
     agree, total = explain_divergence(torch, reqs, ref_reqs, pre, dec[:2])
     log(f"  greedy tokens agree {agree / total:.3f} ({agree}/{total})")
     extra = {}
@@ -1682,22 +1728,31 @@ def phase_serve_quant(torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused):
     int4): the engine quantizes the bank at construction and drops it from
     its params. Profiles 0 and 1 graduate with aggregated records (the bf16
     engine's admission aggregates, quantized on write), so the first wave
-    admits through quant_mixed. Composed: #6 runs 24 times per decode step
-    and per prefill batch; ``decode_fused``: #8's int8/int4 route 24 times
-    per decode step and #6 per prefill batch only. The bf16 kernels must
-    not launch. Held to its kernel_impl="ref" run as the bf16 paths are."""
+    admits through quant_mixed. On the first QUANT_LAYERS (12) of the 24
+    layers: composed, #6 runs 12 times per decode step and per prefill
+    batch; ``decode_fused``: #8's int8/int4 route 12 times per decode step
+    and #6 per prefill batch only. The bf16 kernels must not launch. Held
+    to its kernel_impl="ref" run as the bf16 paths are."""
     from repro_torch.core.profiles import ProfileStore
+    from repro_torch.utils.tree import tree_map
 
-    cfg = ctx["cfg"].with_xpeft(bank_quant=scheme).with_(decode_fused=fused)
-    xp, L = cfg.xpeft, cfg.num_layers
+    # the first QUANT_LAYERS layers' weights, bank, table rows and
+    # aggregates (views)
+    L = QUANT_LAYERS
+    cfg = ctx["cfg"].with_xpeft(bank_quant=scheme).with_(decode_fused=fused,
+                                                         num_layers=L)
+    params = dict(ctx["params"], **{
+        k: tree_map(lambda t: t[:L], ctx["params"][k])
+        for k in ("blocks", "xpeft_bank")})
+    xp = cfg.xpeft
     store = ProfileStore(cfg.num_layers, xp.num_adapters, xp.bottleneck,
                          xp.mask_type, xp.k, quant=scheme,
                          quant_group=xp.quant_group)
     for pid in range(4):
         entry = ctx["engine"].profile_cache.peek(pid)
-        agg = (entry["a_hat"], entry["b_hat"]) if pid < 2 else None
-        store.add_profile(pid, {k: v[pid] for k, v in ctx["table"].items()},
-                          agg=agg)
+        agg = (entry["a_hat"][:L], entry["b_hat"][:L]) if pid < 2 else None
+        store.add_profile(pid, {k: v[pid, :L]
+                                for k, v in ctx["table"].items()}, agg=agg)
     label = f"{scheme} {'decode_fused' if fused else 'composed'}"
 
     def check_launches(launches, st, waves):
@@ -1729,7 +1784,7 @@ def phase_serve_quant(torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused):
         assert equal and "xpeft_bank" not in eng.params
 
     eng, reqs, launches, stats = drive_path(
-        torch, label, cfg, ctx["params"], store,
+        torch, label, cfg, params, store,
         (("mask_aggregate_quant_batched", KAQ.mask_aggregate_quant_batched),
          ("fused_adapter_quant_batched", KFQ.fused_adapter_quant_batched),
          ("decode_block_fused", KD.decode_block_fused),
@@ -1738,10 +1793,9 @@ def phase_serve_quant(torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused):
         check_launches, check_runs, report_share=True)
     stats["resident_bank_bytes"] = sum(v.numel() * v.element_size()
                                        for v in eng.qbank.values())
-    stats["tokens_equal_bf16_composed"] = tokens_equal(reqs, ctx["reqs"])
-    log(f"  quantized bank resident {stats['resident_bank_bytes'] / 1e6:.1f}"
-        f" MB; tokens equal to the bf16 composed kernel run "
-        f"{stats['tokens_equal_bf16_composed']:.3f}")
+    stats["layers"] = L
+    log(f"  {L} of 24 layers; quantized bank resident "
+        f"{stats['resident_bank_bytes'] / 1e6:.1f} MB")
     return launches, stats
 
 
@@ -2291,21 +2345,74 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+@contextlib.contextmanager
+def float64_everywhere(torch):
+    """The port's float32 arithmetic run in float64: inside,
+    ``torch.float32``, ``Tensor.float`` and the config dtype "float32"
+    all give float64, so the model's float32 islands (the GLA, norms,
+    softmax, the decay LoRA) run in float64 too. For a float64 twin of a
+    float32 step whose state is cast to float64; restored on exit."""
+    from repro_torch.models import model as MDL
+    f32, to_float = torch.float32, torch.Tensor.float
+    torch.float32 = torch.float64
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    MDL._DTYPES["float32"] = torch.float64
+    try:
+        yield
+    finally:
+        torch.float32, torch.Tensor.float = f32, to_float
+        MDL._DTYPES["float32"] = f32
+
+
+def train_step_grads(torch, cfg, state, batch, noise, dev):
+    """One xpeft step's (mask weights, gradients, loss, aux, seconds) on
+    ``dev``: ``state`` and ``noise`` moved there."""
+    from repro_torch.core import xpeft as XP
+    from repro_torch.train import steps as ST
+
+    st = _tree_to(state, dev)
+    tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    nz = tuple(n.to(dev) for n in noise)
+    prof = XP.gather_profiles(st["trainable"]["table"], tb["profile_ids"])
+    w = XP.profile_mask_weights(prof, cfg.xpeft, noise=nz)
+    t = time.perf_counter()
+    grads, metrics = ST.grads_for_batch(st["frozen"], st["trainable"], tb,
+                                        cfg, "xpeft", nz)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return dict(w=[x.detach().cpu() for x in w],
+                grads=_tree_to(grads, "cpu"), loss=float(metrics["loss"]),
+                aux=float(metrics["aux_loss"]), s=time.perf_counter() - t)
+
+
+def rel_l2(a, b):
+    """Relative L2 distance of a from b (absolute where b is 0)."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item() if b.norm() > 0 \
+        else (a - b).norm().item()
+
+
 def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
-                            label="train (a)"):
+                            label="train (a)",
+                            grad_rel_l2=TRAIN_GRAD_REL_L2, float64=False):
     """(a) One xpeft train step's forward and gradient on the card against
     the same step on the CPU: qwen1.5-0.5b at full width (the 151936-wide
     LM head included) cut to 2 layers, float32 with TF32 off, the same
     weights, batch and Gumbel draws. The k-hot selection must be bitwise
     equal, the loss within TRAIN_LOSS_RTOL and each trainable gradient
-    leaf within TRAIN_GRAD_REL_L2 (relative L2). ``cfg``: that config
-    (another bank, e.g.); ``prepare(state, batch)`` edits the state before
-    the step; ``check_w(w)`` checks the card's mask weights."""
+    leaf within TRAIN_GRAD_REL_L2 (relative L2; ``grad_rel_l2`` for a
+    config whose own float32 gradient error is larger). ``cfg``: that
+    config (another bank, e.g.); ``prepare(state, batch)`` edits the state
+    before the step; ``check_w(w)`` checks the card's mask weights.
+    ``float64``: the same step also in float64 on both devices, the card's
+    loss and each gradient leaf within TRAIN_F64_REL of the CPU's, and
+    each float32 run's distance from the card's float64 gradients (its
+    float32 floor) reported."""
     from repro_torch.configs import get_config
     from repro_torch.core import masks as M
-    from repro_torch.core import xpeft as XP
     from repro_torch.data import MarkovLM
     from repro_torch.train import steps as ST
+    from repro_torch.utils.tree import tree_map
 
     cfg = cfg or get_config("qwen1.5-0.5b").with_(
         num_layers=2, dtype="float32").with_xpeft(max_profiles=8)
@@ -2318,25 +2425,8 @@ def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
     shape = (8, cfg.num_layers, xp.num_adapters)
     noise = tuple(M.gumbel(shape, generator=gen, device="cuda")
                   for _ in range(2))
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        st = state if dev == "cuda" else _tree_to(state, "cpu")
-        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        nz = tuple(n.to(dev) for n in noise)
-        prof = XP.gather_profiles(st["trainable"]["table"],
-                                  tb["profile_ids"])
-        w = XP.profile_mask_weights(prof, xp, noise=nz)
-        t = time.perf_counter()
-        grads, metrics = ST.grads_for_batch(st["frozen"], st["trainable"],
-                                            tb, cfg, "xpeft", nz)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        runs[dev] = dict(w=[x.detach().cpu() for x in w],
-                         grads=_tree_to(grads, "cpu"),
-                         loss=float(metrics["loss"]),
-                         aux=float(metrics["aux_loss"]),
-                         s=time.perf_counter() - t)
-    gpu, cpu = runs["cuda"], runs["cpu"]
+    gpu, cpu = (train_step_grads(torch, cfg, state, batch, noise, dev)
+                for dev in ("cuda", "cpu"))
     if check_w is not None:
         check_w(gpu["w"])
     khot_equal = all(torch.equal(a > 0.5 / xp.k, b > 0.5 / xp.k)
@@ -2346,29 +2436,57 @@ def phase_train_step_vs_cpu(torch, cfg=None, prepare=None, check_w=None,
     loss_err = abs(gpu["loss"] - cpu["loss"])
     # the load-balance aux (0 for dense blocks) under the loss's bound
     aux_err = abs(gpu["aux"] - cpu["aux"])
-    rel = {}
-    for k in gpu["grads"]["table"]:
-        a, b = gpu["grads"]["table"][k], cpu["grads"]["table"][k]
-        rel[k] = ((a - b).norm() / b.norm()).item() if b.norm() > 0 \
-            else (a - b).norm().item()
-    log(f"{label}: one xpeft step, {cfg.name} L=2 d={cfg.d_model} "
-        f"V={cfg.vocab_size} float32, B=8 T=64: card {gpu['s']:.3f}s, CPU "
+    rel = {k: rel_l2(a, cpu["grads"]["table"][k])
+           for k, a in gpu["grads"]["table"].items()}
+    log(f"{label}: one xpeft step, {cfg.name} L={cfg.num_layers} "
+        f"d={cfg.d_model} V={cfg.vocab_size} float32, B=8 T=64: card "
+        f"{gpu['s']:.3f}s, CPU "
         f"{cpu['s']:.3f}s; k-hot selection bitwise equal {khot_equal}, "
         f"straight-through weights max|d| {st_err:.3e}; loss card "
         f"{gpu['loss']:.6f} CPU {cpu['loss']:.6f} |d| {loss_err:.3e} (tol "
         f"{TRAIN_LOSS_RTOL * abs(cpu['loss']):.3e}); grad relative L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-        + f" (tol {TRAIN_GRAD_REL_L2}); aux card {gpu['aux']:.6f} CPU "
+        + f" (tol {grad_rel_l2}); aux card {gpu['aux']:.6f} CPU "
         f"{cpu['aux']:.6f} |d| {aux_err:.3e}")
     assert khot_equal
     assert loss_err <= TRAIN_LOSS_RTOL * abs(cpu["loss"]), loss_err
     assert aux_err <= TRAIN_LOSS_RTOL * abs(cpu["aux"]), aux_err
-    assert all(v <= TRAIN_GRAD_REL_L2 for v in rel.values()), rel
+    assert all(v <= grad_rel_l2 for v in rel.values()), rel
     assert all(gpu["grads"]["table"][k].abs().max() > 0 for k in rel)
-    return dict(khot_bitwise=khot_equal, st_weights_max_abs_err=st_err,
-                loss_card=gpu["loss"], loss_cpu=cpu["loss"],
-                loss_abs_err=loss_err, aux_card=gpu["aux"],
-                aux_cpu=cpu["aux"], aux_abs_err=aux_err, grad_rel_l2=rel)
+    out = dict(khot_bitwise=khot_equal, st_weights_max_abs_err=st_err,
+               loss_card=gpu["loss"], loss_cpu=cpu["loss"],
+               loss_abs_err=loss_err, aux_card=gpu["aux"],
+               aux_cpu=cpu["aux"], aux_abs_err=aux_err, grad_rel_l2=rel)
+    if float64:
+        with float64_everywhere(torch):
+            st64 = tree_map(lambda t: t.double() if t.is_floating_point()
+                            else t, state)
+            gpu64, cpu64 = (train_step_grads(
+                torch, cfg, st64, batch, tuple(n.double() for n in noise),
+                dev) for dev in ("cuda", "cpu"))
+            del st64
+        g64, c64 = gpu64["grads"]["table"], cpu64["grads"]["table"]
+        assert all(v.dtype == torch.float64 for v in g64.values())
+        rel64 = {k: rel_l2(g64[k], c64[k]) for k in g64}
+        loss64 = abs(gpu64["loss"] - cpu64["loss"]) / abs(cpu64["loss"])
+        floor = {k: dict(card=rel_l2(gpu["grads"]["table"][k], g64[k]),
+                         cpu=rel_l2(cpu["grads"]["table"][k], g64[k]))
+                 for k in g64}
+        log(f"{label}: the same step in float64: card {gpu64['s']:.3f}s, "
+            f"CPU {cpu64['s']:.3f}s; loss {gpu64['loss']:.12f} relative "
+            f"|d| {loss64:.3e}; grad relative L2 card vs CPU "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel64.items())
+            + f" (tol {TRAIN_F64_REL}); float32 runs from float64 (their "
+            "floor): " + ", ".join(f"{k} card {v['card']:.3e} CPU "
+                                   f"{v['cpu']:.3e}"
+                                   for k, v in floor.items()))
+        assert loss64 <= TRAIN_F64_REL, loss64
+        assert all(v <= TRAIN_F64_REL for v in rel64.values()), rel64
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(float64_loss_rel_err=loss64, float64_grad_rel_l2=rel64,
+                   float32_floor=floor)
+    return out
 
 
 def phase_train_full(torch, argv=TRAIN_ARGV):
@@ -3108,7 +3226,7 @@ def cb_drain(torch, run, counters, reqs=None):
     assert all(r.done and len(r.generated) == r.max_new_tokens
                for r in reqs)
     assert all(0 <= t < vocab for r in reqs for t in r.generated)
-    if run["continuous"]:
+    if run["continuous"] and eng.page_alloc is not None:
         eng.page_alloc.check()
         if eng.mask_alloc is not None:
             eng.mask_alloc.check()
@@ -3597,6 +3715,13 @@ def main():
     import forms_phase
     forms = forms_phase.phase_forms(torch)
     lap("13 forms")
+    # 14. the recurrent block families (rwkv6-7b at full width, zamba2-1.2b
+    # at full size) on the chunked linear attention, nothing else held
+    gc.collect()
+    torch.cuda.empty_cache()
+    import recurrent_phase
+    recurrent = recurrent_phase.phase_recurrent(torch)
+    lap("14 recurrent")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3728,6 +3853,16 @@ def main():
         for row in forms["kernel_rows"][key]:
             row["launches_forms"] = kernels[i]["launches_forms"]
         kernels[i]["other_shapes"] += forms["kernel_rows"][key]
+    # phase 14: each kernel's launches on each run; #1, #2, #5, #6 and the
+    # hetero launch at rwkv6-7b's d=4096
+    for row in kernels:
+        row["launches_recurrent"] = {run: n.get(row["name"], 0)
+                                     for run, n in recurrent["runs"].items()}
+    for i, key in ((0, "agg"), (1, "fa"), (5, "aggq"), (6, "faq"),
+                   (8, "hetero")):
+        for row in recurrent["kernel_rows"][key]:
+            row["launches_recurrent"] = kernels[i]["launches_recurrent"]
+        kernels[i]["other_shapes"] += recurrent["kernel_rows"][key]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3746,6 +3881,8 @@ def main():
     log(json.dumps({"forms": {k: v for k, v in forms.items()
                               if k not in ("kernel_rows", "decode_rows")}},
                    default=str))
+    log(json.dumps({"recurrent": {k: v for k, v in recurrent.items()
+                                  if k != "kernel_rows"}}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

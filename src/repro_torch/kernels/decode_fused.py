@@ -69,7 +69,7 @@ def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
             or not use_rope:
         return (f"norm {norm!r}, mlp {mlp_type!r}, act {act_name!r}, "
                 f"rope {use_rope}: only RMSNorm, GLU-SiLU/GELU and RoPE are "
-                "built (ROADMAP queue 1, item 10)")
+                "built (ROADMAP queue 2, item 1)")
     return None
 
 

@@ -1,6 +1,6 @@
 """The LM: a loop over stacked transformer layers with X-PEFT adapter hooks.
 
-The port of ``repro.models.model`` for ``block_pattern="attn"``: causal
+The port of ``repro.models.model`` for every block pattern: causal
 decoders with RoPE, dense or mixture-of-experts (``models/moe.py`` in
 place of the MLP; the forward's aux is the mean of the layers' load-
 balance losses, as JAX's), full attention or gemma3's ``sliding_mix``
@@ -29,8 +29,16 @@ takes the same route; over a heterogeneous bank it aggregates each typed
 segment (bottleneck -> LoRA -> IA3), and without a cache each layer's
 prefix KV rows ride into attention as ``extra_kv``, the prompt's
 positions shifted by P for the examples that select a prefix slot.
-The recurrent and hybrid block patterns (rwkv, mamba, zamba) raise
-``NotImplementedError`` naming their ROADMAP item.
+The recurrent block patterns run on the shared chunked linear attention
+(``models/linear_attn.py``): ``rwkv`` (RWKV6, ``models/rwkv.py``) and
+``mamba`` (Mamba2, ``models/mamba.py``) layers, and ``zamba``, Mamba2
+layers in groups of ``shared_attn_every`` with ONE attention block of
+shared weights after each whole group (``params["shared_attn"]``, full
+attention, no MoE, no adapter after it, its own K/V cache slice per
+invocation); the adapter follows every recurrent layer as it follows an
+attention block. Their state leaves are written into the cache IN PLACE
+after each layer, as the attention blocks write K/V: the continuous
+engine's resident leaves reach its pool only that way.
 """
 from __future__ import annotations
 
@@ -40,8 +48,10 @@ from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
+from repro_torch.models import mamba as MB
 from repro_torch.models import mlp as MLP
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv as RK
 from repro_torch.models.common import dense_init, init_norm, norm_apply, \
     softcap
 from repro_torch.utils import resolve_device
@@ -57,12 +67,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+BLOCK_PATTERNS = ("attn", "rwkv", "mamba", "zamba")
+
+
 def check_supported(cfg) -> None:
-    """Raise for configurations outside the ported slice."""
-    if cfg.block_pattern != "attn":
+    """Raise for a block pattern the model does not know."""
+    if cfg.block_pattern not in BLOCK_PATTERNS:
         raise NotImplementedError(
-            f"block_pattern {cfg.block_pattern!r} is not ported (ROADMAP "
-            "queue 1, item 10)")
+            f"unknown block_pattern {cfg.block_pattern!r} (known: "
+            f"{', '.join(BLOCK_PATTERNS)})")
 
 
 def layer_meta(cfg) -> list:
@@ -77,7 +90,7 @@ def layer_meta(cfg) -> list:
 # Init
 # ----------------------------------------------------------------------------
 
-def _init_block(cfg, dtype, gen, device) -> dict:
+def _init_attn_block(cfg, dtype, gen, device) -> dict:
     block = {
         "attn": ATT.init_attention(cfg, dtype, generator=gen, device=device),
         "n1": init_norm(cfg.norm, cfg.d_model, device=device),
@@ -88,6 +101,23 @@ def _init_block(cfg, dtype, gen, device) -> dict:
     else:
         block["mlp"] = MLP.init_mlp(cfg, dtype, generator=gen, device=device)
     return block
+
+
+def _init_block(cfg, dtype, gen, device) -> dict:
+    kw = dict(generator=gen, device=device)
+    if cfg.block_pattern == "rwkv":
+        return {"rwkv": RK.init_rwkv_block(cfg, dtype, **kw),
+                "n1": init_norm("rmsnorm", cfg.d_model, device=device),
+                "n2": init_norm("rmsnorm", cfg.d_model, device=device)}
+    if cfg.block_pattern in ("mamba", "zamba"):
+        return {"mamba": MB.init_mamba_block(cfg, dtype, **kw),
+                "n1": init_norm("rmsnorm", cfg.d_model, device=device)}
+    return _init_attn_block(cfg, dtype, gen, device)
+
+
+def shared_attn_cfg(cfg):
+    """The config of zamba's shared attention block."""
+    return cfg.with_(attn_type="full", moe=False)
 
 
 def _init_blocks(cfg, dtype, gen, device) -> dict:
@@ -129,6 +159,9 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
                                        cfg.d_model, dtype, **kw)
+    if cfg.block_pattern == "zamba":
+        params["shared_attn"] = _init_attn_block(shared_attn_cfg(cfg), dtype,
+                                                 gen, device)
     if cfg.num_labels:
         d, C, f32 = cfg.d_model, cfg.num_labels, torch.float32
         params["cls"] = {
@@ -148,13 +181,31 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# KV cache
+# KV / recurrent cache
 # ----------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
+    """Zeroed cache, layers stacked on a leading axis: K/V [L, B, S, KV,
+    hd] for attention blocks; rwkv's ``tm_last``/``cm_last``/``wkv`` and
+    mamba's ``conv``/``ssd`` [L, B, ...] (their recurrent leaves fp32);
+    zamba's mamba leaves plus ``attn_k``/``attn_v`` [n_inv, B, S, KV, hd],
+    one slice per shared-block invocation."""
     check_supported(cfg)
     dtype = dtype or torch_dtype(cfg.cache_dtype or cfg.dtype)
-    shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    L = cfg.num_layers
+    if cfg.block_pattern == "rwkv":
+        return RK.init_rwkv_state(batch, cfg, dtype, lead=(L,),
+                                  device=device)
+    if cfg.block_pattern in ("mamba", "zamba"):
+        cache = MB.init_mamba_state(batch, cfg, dtype, lead=(L,),
+                                    device=device)
+        if cfg.block_pattern == "zamba":
+            shape = (L // cfg.shared_attn_every, batch, seq,
+                     cfg.num_kv_heads, cfg.head_dim)
+            cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return cache
+    shape = (L, batch, seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -274,6 +325,22 @@ def _attn_block_apply(block, x, cfg, *, positions, cache_l, cache_pos,
     return x + MLP.mlp_apply(block["mlp"], h, cfg), None
 
 
+def _recurrent_layer(block, x, cfg, cache_l):
+    """One rwkv or mamba layer; its new state goes into the layer's cache
+    leaves in place, after the block has read the old one."""
+    if cfg.block_pattern == "rwkv":
+        x, new = RK.rwkv_block(block["rwkv"], x, cfg,
+                               {"n1": block["n1"], "n2": block["n2"]},
+                               cache_l)
+    else:
+        x, new = MB.mamba_block(block["mamba"], x, cfg, {"n1": block["n1"]},
+                                cache_l)
+    if cache_l is not None:
+        for k, v in new.items():
+            cache_l[k].copy_(v)
+    return x
+
+
 def embed_tokens(params, tokens, cfg):
     """The token rows [B, T, d], times gemma's embedding scale: sqrt(d) in
     fp32, rounded to the rows' dtype, one product in that dtype (a Python
@@ -351,18 +418,35 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
     fused_route = _decode_fused_route(cfg, profile_masks, cache is not None,
                                       T)
     meta = layer_meta(cfg)
+    recurrent = cfg.block_pattern != "attn"
     auxs = []
     for l in range(cfg.num_layers):
         block = {name: {k: v[l] for k, v in sub.items()}
                  for name, sub in blocks.items()}
         cache_l = None if cache is None else \
-            {"k": cache["k"][l], "v": cache["v"][l]}
+            {k: v[l] for k, v in cache.items()
+             if k not in ("attn_k", "attn_v")}
         masks_l = None if profile_masks is None else \
             {k: v[:, l] for k, v in profile_masks.items()}
         # the bank's layer slice, for the on-the-fly mask routes only
         bank_l = {k: v[l] for k, v in bank.items()} \
             if bank is not None and masks_l is not None \
             and "w_a" in masks_l else None
+        if recurrent:
+            x = _recurrent_layer(block, x, cfg, cache_l)
+            x = _xpeft_apply(x, bank_l, masks_l, cfg)
+            if cfg.block_pattern == "zamba" \
+                    and (l + 1) % cfg.shared_attn_every == 0:
+                # the shared block after each whole group (none after the
+                # remainder: 38 = 6 * 6 + 2), on its own K/V slice
+                g = (l + 1) // cfg.shared_attn_every - 1
+                x, _ = _attn_block_apply(
+                    params["shared_attn"], x, shared_attn_cfg(cfg),
+                    positions=positions,
+                    cache_l=None if cache is None else
+                    {"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
+                    cache_pos=cache_pos)
+            continue
         if fused_route is not None:
             # the block and the adapter in one launch: no _xpeft_apply
             x = _decode_fused_apply(block, x, masks_l, cfg,

@@ -136,6 +136,9 @@ def _check_hetero(cfg, store, *, precompute, max_seq) -> None:
             "spec_enable cannot serve a prefix-bearing bank_spec: bare-PLM "
             "drafts would attend the adapted prefix KV rows resident in the "
             "shared cache")
+    if xp.has_prefix and cfg.block_pattern != "attn":
+        raise ValueError("prefix segments require pure-attention blocks "
+                         "(KV-row hydration)")
     if xp.has_prefix and not precompute:
         raise ValueError(
             "per-step mask serving cannot hydrate prefix KV rows; a "
@@ -231,31 +234,38 @@ class ServeEngine:
         self.spec = bool(cfg.spec_enable)
         self.spec_gamma = int(cfg.spec_gamma)
         dev = self.device
+        # the cache: a dense [lead, n_slots, S, ...] block (windowed), or
+        # page pools + a per-slot page table (continuous). A pure-recurrent
+        # arch has no sequence-axis leaf: the pool degenerates away (no
+        # allocator, no page growth or preemption) and the continuous
+        # engine still admits mid-stream into pooled mask entries.
+        self._paged = False
+        self.page_alloc = None
+        self.n_pages = 0
         if continuous:
-            # the KV cache as a page pool + per-slot page table; the host
-            # mirror of the table is the allocator's view of it
+            # the host mirror of the page table is the allocator's view
             template = MDL.init_cache(cfg, max_slots, max_seq, device="meta")
-            if max_seq % page_size:
-                raise ValueError(f"max_seq {max_seq} must be a multiple of "
-                                 f"page_size {page_size}")
-            per_req = PG.pages_needed(PG.paged_seq_len(template), page_size)
-            self.n_pages = (max_pages if max_pages is not None
-                            else max_slots * per_req)
-            if self.n_pages < per_req:
-                raise ValueError(
-                    f"max_pages={self.n_pages} cannot hold one max-length "
-                    f"request ({per_req} pages) — the engine could deadlock "
-                    "instead of preempting")
-            self.page_alloc = PG.PageAllocator(self.n_pages)
-            self.cache = PG.make_paged_cache(template, self.n_pages,
+            self._paged = PG.paged_seq_len(template) > 0
+            if self._paged:
+                if max_seq % page_size:
+                    raise ValueError(f"max_seq {max_seq} must be a multiple "
+                                     f"of page_size {page_size}")
+                per_req = PG.pages_needed(max_seq, page_size)
+                self.n_pages = (max_pages if max_pages is not None
+                                else max_slots * per_req)
+                if self.n_pages < per_req:
+                    raise ValueError(
+                        f"max_pages={self.n_pages} cannot hold one "
+                        f"max-length request ({per_req} pages) — the engine "
+                        "could deadlock instead of preempting")
+                self.page_alloc = PG.PageAllocator(self.n_pages)
+            self.cache = PG.make_paged_cache(template, max(self.n_pages, 1),
                                              page_size, max_slots, device=dev)
             self._mp = int(self.cache["table"].shape[1])
-            self._sentinel = self.n_pages
+            self._sentinel = max(self.n_pages, 1)
             self._page_table_h = np.full((max_slots, self._mp),
                                          self._sentinel, np.int32)
         else:
-            self.page_alloc = None
-            self.n_pages = 0
             self.cache = MDL.init_cache(cfg, max_slots, max_seq, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         # resilience: admission probes each profile (with retry) before
@@ -825,26 +835,38 @@ class ServeEngine:
                     self.mask_alloc.alloc(1, r.uid)
                 # pages cover the hydrated prefix rows too, resolved from
                 # the store before hydration
-                need = PG.pages_needed(self._req_prefix_len(r)
-                                       + len(r.prompt), self.page_size)
-                try:
-                    self.page_alloc.alloc(need, r.uid)
-                except PG.PageOOM:
-                    if self.mask_alloc is not None:
-                        self.mask_alloc.free_owner(r.uid)
-                    raise
+                self._alloc_pages(self._req_prefix_len(r) + len(r.prompt),
+                                  r.uid)
             except PG.PageOOM:
                 self.scheduler.requeue_front(reqs[k:])
                 break
             kept.append(r)
         return kept
 
+    def _pages_for(self, length: int) -> int:
+        return PG.pages_needed(length, self.page_size) if self._paged else 0
+
+    def _alloc_pages(self, length: int, uid) -> None:
+        """Claim the pages covering ``length`` positions for ``uid`` (none
+        without a paged leaf); on PageOOM the request's mask entry, if
+        any, is given back before the error goes up."""
+        need = self._pages_for(length)
+        if not need:
+            return
+        try:
+            self.page_alloc.alloc(need, uid)
+        except PG.PageOOM:
+            if self.mask_alloc is not None:
+                self.mask_alloc.free_owner(uid)
+            raise
+
     def _assign_tables(self, slot: int, r: Request) -> None:
         """Point a slot's page-table row and entry-table entry at what its
         request holds (host mirrors; pushed by ``_push_tables``)."""
-        pages = self.page_alloc.pages_of(r.uid)
-        self._page_table_h[slot] = self._sentinel
-        self._page_table_h[slot, :len(pages)] = pages
+        if self._paged:
+            pages = self.page_alloc.pages_of(r.uid)
+            self._page_table_h[slot] = self._sentinel
+            self._page_table_h[slot, :len(pages)] = pages
         if self.mask_alloc is not None:
             self._mask_table_h[slot] = self.mask_alloc.pages_of(r.uid)[0]
             self._view_dirty = True
@@ -855,8 +877,9 @@ class ServeEngine:
         table rows (the slot is already inactive on the device, so its
         writes go to the scratch page either way; its stale view row is
         never read)."""
-        self.page_alloc.free_owner(req.uid)
-        self._page_table_h[slot] = self._sentinel
+        if self._paged:
+            self.page_alloc.free_owner(req.uid)
+            self._page_table_h[slot] = self._sentinel
         if self.mask_alloc is not None:
             self.mask_alloc.free_owner(req.uid)
             self._mask_table_h[slot] = self.n_mask_entries
@@ -918,13 +941,7 @@ class ServeEngine:
             try:
                 if self.mask_alloc is not None:
                     self.mask_alloc.alloc(1, r.uid)
-                try:
-                    self.page_alloc.alloc(
-                        PG.pages_needed(snap["len"], self.page_size), r.uid)
-                except PG.PageOOM:
-                    if self.mask_alloc is not None:
-                        self.mask_alloc.free_owner(r.uid)
-                    raise
+                self._alloc_pages(snap["len"], r.uid)
             except PG.PageOOM:
                 break
             self._resume_q.pop(0)
@@ -954,6 +971,8 @@ class ServeEngine:
         live slot is preempted and its pages reused. The pool holds one
         max-length request (checked at construction), so the oldest slot
         always makes progress — no deadlock, no starvation."""
+        if not self._paged:
+            return
         for _, i in sorted((self._slot_seq[i], i)
                            for i, r in enumerate(self.slot_req)
                            if r is not None):
@@ -1441,7 +1460,8 @@ class ServeEngine:
             out["resumes"] = self.resumes
             out["resume_pending"] = len(self._resume_q)
             out["page_size"] = self.page_size
-            out["pages"] = self.page_alloc.stats()
+            if self.page_alloc is not None:
+                out["pages"] = self.page_alloc.stats()
             if self.mask_alloc is not None:
                 out["mask_entries"] = self.mask_alloc.stats()
         return out

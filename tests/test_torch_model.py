@@ -185,12 +185,14 @@ def test_cached_prefill_then_per_slot_decode(model):
 
 
 def test_outside_the_slice_raises(model):
-    """Other block patterns still raise, naming their ROADMAP item; dense
-    masks over a heterogeneous bank (once refused) now run and match
-    JAX's forward."""
+    """An unknown block pattern still raises; the recurrent ones (once
+    refused as ROADMAP item 10) initialise; dense masks over a
+    heterogeneous bank (once refused) now run and match JAX's forward."""
     cfg, tcfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TMDL.init_lm(treduce(tget_config("rwkv6-7b")), device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown block_pattern"):
+        TMDL.init_lm(tcfg.with_(block_pattern="s4"), device="cpu")
+    for arch in ("rwkv6-7b", "zamba2-1.2b"):
+        assert TMDL.init_lm(treduce(tget_config(arch)), device="cpu")
     spec = (("bottleneck", 4), ("lora", 4))
     hcfg, htcfg = (c.with_xpeft(bank_spec=spec) for c in (cfg, tcfg))
     params = JINIT(jax.random.key(1), hcfg)

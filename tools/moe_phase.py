@@ -24,8 +24,8 @@ max_seq 128, sync_every 8) throughout.
     through ``launch/train.py``'s loop (8 profiles, B=8, T=64), timed and
     profiled as phase 7's; the trained table packed into a hard store,
     saved and loaded back byte-equal. The run's frozen weights serve (a)
-    to (d) at their first SERVE_LAYERS = 16 layers (the call's time) and
-    (f) at all 48.
+    to (d) and (f) at their first SERVE_LAYERS = 16 layers (the call's
+    time).
 (a) composed windowed serving of 4 random profiles: #1 twice per wave
     that aggregates, #2 16 times per decode step and prefill batch. Held
     to its ``kernel_impl="ref"`` run, with every layer's routing recorded
@@ -53,7 +53,8 @@ max_seq 128, sync_every 8) throughout.
 (d) the int8 bank, composed: #5 twice per aggregating wave, #6 16 times
     per decode step and prefill batch, #1 and #2 never; held to its ref
     run as (a).
-(f) (e)'s trained store served and held to its ref run as (a).
+(f) (e)'s trained profiles, repacked as a hard store on the first
+    SERVE_LAYERS layers, served and held to its ref run as (a).
 
 Every failed check raises. Prints one JSON line of its numbers last.
 Without a card it exits non-zero.
@@ -79,8 +80,8 @@ TRAIN_ARGV = ["--arch", ARCH, "--mode", "xpeft", "--steps", "10", "--batch",
 # the token's max |d router logit|: for an expert a the reference keeps
 # and b it does not, g_a - g_b <= |d g_a| + |d g_b| once the run swaps them
 ROUTE_GAP_FACTOR = 2.0
-# the depth (a)-(d) serve at: the first 16 of the 48 trained layers (the
-# call's time); (e) trains and (f) serves all 48
+# the depth (a)-(d) and (f) serve at: the first 16 of the 48 trained
+# layers (the call's time); (e) trains all 48
 SERVE_LAYERS = 16
 
 
@@ -675,8 +676,10 @@ def step_budget(torch, cfg, params, step):
 # (k) the kernels at this model's shapes
 # ----------------------------------------------------------------------------
 
-def kernel_rows(torch):
-    """#1, #2, #5, #6 at d=2048, b=64, 48 layers (see the module doc)."""
+def kernel_rows(torch, name="moe", d=2048, L=48, fa_ts=None, seed=12):
+    """#1, #2, #5, #6 at d=2048, b=64, 48 layers (see the module doc), or
+    another model's ``d`` and ``L`` (rows tagged ``name``; #2 at each T of
+    ``fa_ts``, default 1, gamma + 1 and 16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_adapter_batched as KF
@@ -686,24 +689,24 @@ def kernel_rows(torch):
     from repro_torch.kernels import ref
     from repro_torch.quant import schemes as QS
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    bf16, d, nb, L, P = torch.bfloat16, 2048, 64, 48, 4 * 48
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16, nb, P = torch.bfloat16, 64, 4 * L
+    fa_ts = fa_ts or (1, cs.CB_GAMMA + 1, 16)
     out = dict(agg=[], fa=[], aggq=[], faq=[])
     sides = (("A_hat", (d, nb)), ("B_hat", (nb, d)))
     for label, (dd, bb) in sides:
         sets = [cs.agg_inputs(torch, gen, dd, bb, L=L, P=P)]
-        out["agg"].append(cs.agg_row(torch, KA, ref, F, f"moe {label}",
+        out["agg"].append(cs.agg_row(torch, KA, ref, F, f"{name} {label}",
                                      sets))
         del sets
         torch.cuda.empty_cache()
-    for T in (1, cs.CB_GAMMA + 1, 16):
+    for T in fa_ts:
         clusters = KF.plan(d, nb, T, 2)
         cs.log(f"fused_adapter_batched plan at d={d} b={nb} T={T}: "
                f"clusters of {clusters} (d-slices of {d // clusters})")
         assert clusters == 8, (T, clusters)
-    out["fa"] = cs.fa_slice_rows(
-        torch, KF, ref, gen, "moe", d, nb, L,
-        ((4, 1, bf16), (4, cs.CB_GAMMA + 1, bf16), (4, 16, bf16)))
+    out["fa"] = cs.fa_slice_rows(torch, KF, ref, gen, name, d, nb, L,
+                                 tuple((4, T, bf16) for T in fa_ts))
     for label, (dd, bb) in sides:
         bank, idx, w = cs.agg_inputs(torch, gen, dd, bb, L=L, P=P)
         rec = QS.quantize(bank, "int8", group=32)
@@ -717,7 +720,7 @@ def kernel_rows(torch):
                                                     scheme="int8")
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        tag = f"moe int8 {label}"
+        tag = f"{name} int8 {label}"
         cs.log(f"mask_aggregate_quant_batched[{tag}] P={P} k=50 q "
                f"{tuple(q.shape)}: max_abs_err {err:.3e} (bitwise "
                f"{torch.equal(got, want)}; atol {cs.AGG_ATOL}); two calls "
@@ -746,7 +749,7 @@ def kernel_rows(torch):
     for T in (1, 16):
         sets = [cs.fa_quant_inputs(torch, gen, QS, "int8", 32, 4, T, d, nb,
                                    bf16, L=3) for _ in range(L)]
-        tag = f"moe int8 B=4 T={T} d={d} b={nb}"
+        tag = f"{name} int8 B=4 T={T} d={d} b={nb}"
         err = cs.check_faq(torch, KFQ, ref, sets[0], "int8",
                            cs.FA_BF16_RTOL, cs.FA_BF16_ATOL, tag)
         first = KFQ.fused_adapter_quant_batched(*sets[0], scheme="int8")
@@ -814,6 +817,7 @@ def phase_moe(torch):
     trained, train = cs.phase_train_full(torch, TRAIN_ARGV)
     stores = cs.phase_pack_reload(torch, trained)
     cfg, params = trained["cfg"], trained["state"]["frozen"]
+    trained_table = trained["state"]["trainable"]["table"]
     L = cfg.num_layers
     n_w = tree_bytes({k: v for k, v in params.items()
                       if k != "xpeft_bank"})
@@ -826,7 +830,6 @@ def phase_moe(torch):
            f"k={cfg.xpeft.k}); {torch.cuda.memory_allocated() / 2**30:.2f} "
            "GiB allocated")
     mark("e")
-    full = dict(cfg=cfg, params=params)
     cfg = cfg.with_(num_layers=SERVE_LAYERS)
     params = dict(params, **{k: tree_map(lambda t: t[:SERVE_LAYERS],
                                          params[k])
@@ -932,10 +935,14 @@ def phase_moe(torch):
     torch.cuda.empty_cache()
     mark("d")
 
-    # (f) the trained store, all 48 layers
-    f, _ = serve_path(torch, "(f) trained store", full["cfg"],
-                      full["params"], stores["hard"], counters, "bf16",
-                      warm=False, profile=False)
+    # (f) the trained profiles, repacked on the first SERVE_LAYERS layers
+    # (for the call's time)
+    f_store = ProfileStore(L, xp.num_adapters, xp.bottleneck, "hard", xp.k)
+    for pid in stores["hard"].profile_ids():
+        f_store.add_profile(pid, {k: v[pid, :L]
+                                  for k, v in trained_table.items()})
+    f, _ = serve_path(torch, "(f) trained store", cfg, params, f_store,
+                      counters, "bf16", warm=False, profile=False)
     runs["trained"] = f["launches"]
     mark("f")
     del run_a
