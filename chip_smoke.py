@@ -85,7 +85,12 @@ Phases, in order; any failed check exits non-zero:
              T=1, 16 and 128 (and 17), bf16 and fp32, layer slices and
              shared operands, each stage of that sequence within the fused
              adapter's bounds of its plain version, zero B_hats with s = 0
-             giving x bitwise, timed beside that sequence; the fused
+             giving x bitwise, timed beside that sequence; at the widths
+             no cluster of the launch fits with a bottleneck and a LoRA
+             stage (d=6144 at T=16, dbrx-132b's; d=7168 at T=1 and 16,
+             llava-next-34b's) ``ops.hetero_adapter``'s separate route,
+             #2 twice and #7 once, bitwise the CUDA sequence and each
+             stage within the fused adapter's bounds; the fused
              adapter's LoRA route (no LN, identity) on layer slices at T=1
              and T=16; the aggregation at the typed
              leaves' shapes (IA3 rows [624, 1024, 1], prefix rows
@@ -273,17 +278,32 @@ Phases, in order; any failed check exits non-zero:
              zamba2-1.2b's shapes (T=1,024, chunk 128), strong decay, the
              decode step after a chunked prefix, the refusal at T=20; (b)
              rwkv6-7b at full width: a card-vs-CPU train step (2 layers,
-             float32, and its float64 twin), composed at full depth held
-             to its ref run, a
+             float32, and its float64 twin), composed on 16 of its 32
+             layers held to its ref run, a
              decode step split by op class, four 1,024-token prompts in one
-             exact-length prefill batch, then on 8 of its 32 layers int8
+             exact-length prefill batch, then on its first 8 layers int8
              and a heterogeneous bank held to their ref runs, continuous
              (no page pool) and decode_fused (#8 0 times) bitwise the
-             windowed run; (c) zamba2-1.2b at full size: a card-vs-CPU
-             step (6 layers), composed and int8 held to their ref runs,
+             windowed run; (c) zamba2-1.2b at full width: a card-vs-CPU
+             step (6 layers), on 14 of its 38 layers composed held to its
+             ref run,
              continuous with preemptions and decode_fused bitwise
              windowed. A ``{"recurrent": ...}`` JSON line carries its
              numbers; ``launches_recurrent`` in each kernel row.
+
+15. mesh   — ``tools/mesh_phase.py``: multi-device serving of
+             qwen1.5-0.5b at full width and CUT_LAYERS layers: (a) a
+             world-1 NCCL mesh 1x1:data,model in this process, composed,
+             decode_fused, continuous and int8 bitwise their mesh=None
+             runs, #1, #2, #5, #6 and #8 launched on the mesh runs; (b)
+             two processes on the one card over gloo (its collectives
+             checked on CUDA tensors first), meshes 2x1 and 1x2, the
+             composed tokens bitwise (a)'s mesh=None run, #1 and #2
+             launched on each rank, resident bytes per device against
+             one device, a decode step's host ms, device ms and bytes
+             gathered. A ``{"mesh": ...}`` JSON line carries its numbers;
+             ``launches_mesh`` (the (a) runs) and ``launches_mesh_b``
+             (rank 0 of each (b) mesh) in each kernel row.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
@@ -1969,6 +1989,61 @@ def check_hetero(torch, KH, KF, KI, ref, x, stages, label):
     return err
 
 
+# widths no cluster of the hetero launch fits with a bottleneck and a
+# LoRA stage (dbrx-132b's d at T > 1, llava-next-34b's at any T):
+# ``ops.hetero_adapter`` runs the three kernels there
+HETERO_WIDE = ((6144, 16), (7168, 1), (7168, 16))
+
+
+def hetero_route_rows(torch, KH, KF, KI, ref, gen, B=4, b=64):
+    """``ops.hetero_adapter`` at HETERO_WIDE in bf16 on layer slices, all
+    three stages: the route is "separate", launches #2 twice and #7 once
+    (the hetero launch never), equals the CUDA sequence bitwise, and each
+    of its stages holds to its plain version (``check_hetero``'s
+    bounds)."""
+    from repro_torch.kernels import ops
+    rows = []
+    for d, T in HETERO_WIDE:
+        x, st = hetero_operands(torch, gen, B, T, d, b, torch.bfloat16,
+                                False)
+        masks_l = dict(zip(ops.HETERO_STAGES["bottleneck"], st["bottleneck"]),
+                       lora_a=st["lora"][0], lora_b=st["lora"][1],
+                       ia3_s=st["ia3"])
+        assert ops.hetero_route(x, st) == "separate", (d, T)
+        fns = (KF.fused_adapter_batched, KI.ia3_apply_batched,
+               KH.hetero_adapter_batched)
+        for fn in fns:
+            fn.launches = 0
+        got = ops.hetero_adapter(x, masks_l, activation="gelu", impl="auto")
+        launches = [fn.launches for fn in fns]
+        assert launches == [2, 1, 0], launches
+        seq = hetero_sequence(KF, KI, x, **st)
+        want = ref.hetero_adapter_batched_ref(x, **st)
+        torch.cuda.synchronize()
+        assert torch.equal(got, seq) and torch.isfinite(got.float()).all()
+        y = x
+        for name in ("bottleneck", "lora", "ia3"):
+            k_out = hetero_sequence(KF, KI, y, **{name: st[name]})
+            p_out = ref.hetero_adapter_batched_ref(y, **{name: st[name]})
+            if name == "ia3":
+                assert torch.equal(k_out, p_out), (d, T)
+            else:
+                assert ((k_out.float() - p_out.float()).abs() <= FA_BF16_RTOL
+                        * p_out.float().abs() + FA_BF16_ATOL).all(), (d, T)
+            y = k_out
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"  check hetero route d={d} T={T} bf16 slices: separate "
+            f"(#2 x{launches[0]}, #7 x{launches[1]}, hetero launch "
+            f"x{launches[2]}), bitwise the CUDA sequence, stages within "
+            f"bounds; max_abs_err vs the plain composition {err:.3e}")
+        rows.append(dict(shape=f"route separate d={d} T={T}",
+                         max_abs_err=err, launches_fa=launches[0],
+                         launches_ia3=launches[1]))
+    for fn in fns:
+        fn.launches = 0
+    return rows
+
+
 def phase_hetero_adapter(torch, KH, KF, KI, ref):
     """The hetero-adapter launch (#7's redesign) at the hetero path's
     shapes, B=4, d=1024, b=r=64: every subset of stages, T=1, 16 and 128
@@ -2009,6 +2084,7 @@ def phase_hetero_adapter(torch, KH, KF, KI, ref):
         log(f"  check hetero zero B_hats, s = 0, {dtype}: y bitwise x "
             f"{torch.equal(y, x)}")
         assert torch.equal(y, x)
+    route = hetero_route_rows(torch, KH, KF, KI, ref, gen)
 
     results = []
     for T in (1, 16, 128):
@@ -2052,7 +2128,7 @@ def phase_hetero_adapter(torch, KH, KF, KI, ref):
                             bound_by=bound_by, library_ms=None,
                             sequence_ms=seq_ms, eager_ms=host_ms))
         del sets
-    return results
+    return results + route
 
 
 def agg_zero_terms(torch, KA, ref, bank, idx, w, label):
@@ -3722,6 +3798,13 @@ def main():
     import recurrent_phase
     recurrent = recurrent_phase.phase_recurrent(torch)
     lap("14 recurrent")
+    # 15. multi-device serving: a world-1 NCCL mesh in this process, then
+    # two processes on the one card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    import mesh_phase
+    mesh = mesh_phase.phase_mesh(torch)
+    lap("15 mesh")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3863,6 +3946,13 @@ def main():
         for row in recurrent["kernel_rows"][key]:
             row["launches_recurrent"] = kernels[i]["launches_recurrent"]
         kernels[i]["other_shapes"] += recurrent["kernel_rows"][key]
+    # phase 15: each kernel's launches on each (a) mesh run and on rank 0
+    # of each (b) mesh
+    for row in kernels:
+        row["launches_mesh"] = {run: n.get(row["name"], 0)
+                                for run, n in mesh["runs"].items()}
+        row["launches_mesh_b"] = {run: n.get(row["name"], 0)
+                                  for run, n in mesh["runs_b"].items()}
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3883,6 +3973,7 @@ def main():
                    default=str))
     log(json.dumps({"recurrent": {k: v for k, v in recurrent.items()
                                   if k != "kernel_rows"}}, default=str))
+    log(json.dumps({"mesh": mesh}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

@@ -1,2 +1,17 @@
-"""Distributed training substrate: on one device, the host-side fault
+"""Distribution layer: sharding rules and placement, the mesh context,
+compressed collectives, the GPipe pipeline, and the host-side fault
 hooks of the training loop (``fault.py``)."""
+from repro_torch.distributed import ctx  # noqa: F401
+from repro_torch.distributed.sharding import (  # noqa: F401
+    P,
+    Sharded,
+    batch_specs,
+    cache_specs,
+    gather,
+    leading_axis_specs,
+    paged_cache_specs,
+    param_specs,
+    place,
+    shard,
+    sharded_bytes_per_device,
+)

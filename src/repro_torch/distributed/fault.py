@@ -4,10 +4,10 @@ and the step watchdog (``StepWatchdog`` lives in
 ``repro_torch.obs.metrics`` and is re-exported here).
 
 Every mechanism here is host-side. The elastic half of the JAX module,
-``reshard_state`` and ``surviving_mesh`` (moving a sharded state onto the
-mesh that survives a node failure), needs a device mesh, which the port
-does not have yet (ROADMAP queue 1, item 11): those names raise
-``NotImplementedError``.
+``reshard_state`` and ``surviving_mesh`` (moving a sharded training state
+onto the mesh that survives a node failure), belongs to the training half
+of multi-device, which is not ported (ROADMAP queue 1, item 11; the port
+serves on a mesh): those names raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ import numpy as np
 
 from repro_torch.obs.metrics import StepWatchdog  # noqa: F401  (re-export)
 
-_MESH = ("elastic resharding needs a device mesh, which is not ported "
-         "(ROADMAP queue 1, item 11)")
+_MESH = ("elastic resharding of a training state is the training half of "
+         "multi-device, which is not ported (ROADMAP queue 1, item 11)")
 
 
 def rebalance_assignment(num_examples: int, hosts: List[int],

@@ -58,17 +58,27 @@ def smem_bytes(ds, nbs, tt, itemsize, mma, s_itemsize):
         + ds * s_itemsize
 
 
-def plan(d, nbs, T, itemsize, s_itemsize=0):
+def widths_ok(nbs, itemsize) -> bool:
+    """Whether every matmul stage's width is a whole number of 16-byte
+    vectors in [1, MAX_B], as the launch needs."""
+    vec = 16 // itemsize
+    return all(nb % vec == 0 and 1 <= nb <= MAX_B for nb in nbs)
+
+
+def cluster_for(d, nbs, T, itemsize, s_itemsize=0):
     """Blocks per cluster for matmul stages of widths ``nbs`` and an IA3
     scale of ``s_itemsize`` bytes a value (0: none): the first of
     ``CLUSTERS`` whose d-slice is a whole number of 16-byte vectors (of 16
     values in bf16), whose s slice is too, and whose shared memory, both
-    stages' tiles together, fits in a block. Raises ValueError when none
-    does, or when a width is not a whole number of 16-byte vectors; never
-    falls back to separate launches."""
+    stages' tiles together, fits in a block; None when none does. Raises
+    ValueError when a width is not a whole number of 16-byte vectors.
+    ``kernels/ops.py``'s ``hetero_adapter`` asks this first: where no
+    cluster fits (a bottleneck + LoRA entry at d=6144 with T > 1, or
+    d=7168; dbrx-132b's and llava-next-34b's widths) it runs the stages
+    as their own kernels, #2 -> #2's LoRA route -> #7."""
     vec = 16 // itemsize
     for nb in nbs:
-        if nb % vec or not 1 <= nb <= MAX_B:
+        if not widths_ok([nb], itemsize):
             raise ValueError(f"width {nb} is not a whole number of 16-byte "
                              f"vectors ({vec} values) in [1, {MAX_B}]")
     step = 16 if itemsize == 2 else vec
@@ -80,6 +90,16 @@ def plan(d, nbs, T, itemsize, s_itemsize=0):
                 and smem_bytes(ds, nbs, tt, itemsize, mma,
                                s_itemsize) <= MAX_SMEM:
             return cs
+    return None
+
+
+def plan(d, nbs, T, itemsize, s_itemsize=0):
+    """``cluster_for``'s cluster size, raising ValueError where no cluster
+    fits: this launch never splits into separate launches itself."""
+    cs = cluster_for(d, nbs, T, itemsize, s_itemsize)
+    if cs is not None:
+        return cs
+    step = 16 if itemsize == 2 else 16 // itemsize
     raise ValueError(f"no cluster of {CLUSTERS} blocks fits d={d}, widths "
                      f"{tuple(nbs)} at {itemsize}-byte values: the d-slice "
                      f"must be a multiple of {step} values and the block's "

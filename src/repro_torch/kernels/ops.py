@@ -40,6 +40,8 @@ from repro_torch.kernels.decode_fused import (
 from repro_torch.kernels.fused_adapter import fused_adapter as _fused_cuda
 from repro_torch.kernels.fused_adapter_batched import (
     fused_adapter_batched as _fused_cuda_batched)
+from repro_torch.kernels.hetero_adapter import cluster_for as _hetero_cluster
+from repro_torch.kernels.hetero_adapter import widths_ok as _hetero_widths_ok
 from repro_torch.kernels.hetero_adapter import (
     hetero_adapter_batched as _hetero_cuda)
 from repro_torch.kernels.ia3_apply import ia3_apply_batched as _ia3_cuda
@@ -153,7 +155,9 @@ def hetero_adapter(x, masks_l, *, activation: str = "gelu",
     the bottleneck (``a_hat``/``b_hat``/``ln_*`` with ``activation``),
     LoRA (``lora_a``/``lora_b``) and IA3 (``ia3_s``), the stages whose
     leaves ``masks_l`` carries, in that order, each rounded to x's dtype:
-    equal to ``fused_adapter`` -> ``lora_adapter`` -> ``ia3_apply``."""
+    equal to ``fused_adapter`` -> ``lora_adapter`` -> ``ia3_apply``. Where
+    no cluster holds every stage's tiles at once (``hetero_route``), the
+    stages run as those three kernels in that order."""
     if x.ndim != 3:
         raise ValueError(f"hetero_adapter is batched-only: x must be "
                          f"[B, T, d], got ndim={x.ndim}")
@@ -165,7 +169,34 @@ def hetero_adapter(x, masks_l, *, activation: str = "gelu",
         return ref.hetero_adapter_batched_ref(x, activation=activation,
                                               **stages)
     _no_grad_into_kernel("hetero_adapter", x, masks_l)
-    return _hetero_cuda(x, activation=activation, **stages)
+    if hetero_route(x, stages) == "one":
+        return _hetero_cuda(x, activation=activation, **stages)
+    if "bottleneck" in stages:
+        x = _fused_cuda_batched(x, *stages["bottleneck"],
+                                activation=activation, use_ln=True)
+    if "lora" in stages:
+        x = _fused_cuda_batched(x, *stages["lora"], None, None,
+                                activation="identity", use_ln=False)
+    if "ia3" in stages:
+        x = _ia3_cuda(x, stages["ia3"])
+    return x
+
+
+def hetero_route(x, stages) -> str:
+    """"separate" (#2, #2's LoRA route, #7: each its own launch) where no
+    cluster of the hetero-adapter launch fits every stage of ``stages`` at
+    x's shape [B, T, d] and dtype (``cluster_for``), else "one". Widths
+    the launch cannot take at all (``widths_ok``) stay "one": on a CPU
+    tensor the wrapper computes its plain version, which takes any width
+    (the reduced test configs' b=4), and on the card its checks raise."""
+    nbs = [stages[name][0].shape[-1] for name in ("bottleneck", "lora")
+           if name in stages]
+    if not _hetero_widths_ok(nbs, x.element_size()):
+        return "one"
+    s = stages.get("ia3")
+    cs = _hetero_cluster(x.shape[-1], nbs, x.shape[1], x.element_size(),
+                         0 if s is None else s.element_size())
+    return "separate" if cs is None else "one"
 
 
 def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,

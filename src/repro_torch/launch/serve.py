@@ -7,10 +7,16 @@
       --no-precompute       # per-step mask serving (the paper's path)
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --metrics-json /tmp/m.json --trace /tmp/t.json   # observability
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2x2:data,model          # a data x model mesh of 4 processes
 
 Builds the model with random weights from seed 0, adds hard-mask
 profiles to a ``ProfileStore`` and drains the requests through the
 ``ServeEngine``. Runs on the card unless ``--device cpu`` is passed.
+``--mesh`` serves on a mesh of the processes ``torchrun`` starts (NCCL
+on the card, gloo on the CPU, or ``--backend``); every rank drains the
+same requests and rank 0 prints, with its per-device resident bytes.
 ``--metrics-json`` / ``--trace`` attach an observability bundle and write
 its counters and p50/p95/p99 histograms, and a Chrome trace (Perfetto),
 at exit.
@@ -43,6 +49,12 @@ def main(argv=None):
                     help="per-step mask serving: aggregate the masks "
                     "against the bank in every layer of every step instead "
                     "of once at admission (greedy tokens equal)")
+    ap.add_argument("--mesh", default="",
+                    help="serve on a mesh, e.g. 2x2:data,model (one "
+                    "process per device, started by torchrun)")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend of --mesh (default: nccl "
+                    "on cuda, gloo on cpu)")
     from repro_torch import obs as OBS
     OBS.add_cli_args(ap)  # --metrics-json PATH, --trace PATH
     args = ap.parse_args(argv)
@@ -55,6 +67,14 @@ def main(argv=None):
     from repro_torch.utils import resolve_device
 
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh:
+        from repro_torch.launch import mesh as MESH
+        rank = MESH.init_distributed(device, args.backend)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = MESH.parse_mesh(args.mesh, device.type)
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
@@ -67,14 +87,19 @@ def main(argv=None):
                                   seed=0)
     for pid in range(args.profiles):
         store.add_profile(pid, {k: v[pid] for k, v in table.items()})
-    print(f"profiles: {args.profiles} x {store.bytes_per_profile()} B each "
+    say(f"profiles: {args.profiles} x {store.bytes_per_profile()} B each "
           f"(masks, byte-level)")
 
     obs = OBS.from_cli_args(args)
     eng = ServeEngine(cfg, params, store, max_slots=args.slots,
                       max_seq=args.max_seq, sync_every=args.sync_every,
                       cache_bytes=args.cache_mb << 20,
-                      precompute=not args.no_precompute, obs=obs)
+                      precompute=not args.no_precompute, mesh=mesh,
+                      obs=obs)
+    if mesh is not None:
+        rb = eng.resident_bytes_per_device()
+        say(f"mesh {args.mesh}: {rb['total']} resident B/device (params "
+            f"{rb['params']}, cache {rb['cache']})")
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
@@ -90,11 +115,11 @@ def main(argv=None):
     toks = sum(len(r.generated) for r in reqs)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
-    print(f"served {len(reqs)} requests / {toks} tokens in {steps} engine "
+    say(f"served {len(reqs)} requests / {toks} tokens in {steps} engine "
           f"steps, {dt:.3f}s ({toks / dt:.1f} tok/s on {where}, first-call "
           "costs included)")
     st = eng.serve_stats()
-    print(f"profile cache: hit rate {st['profile_cache']['hit_rate']}, "
+    say(f"profile cache: hit rate {st['profile_cache']['hit_rate']}, "
           f"{st['profile_cache']['entries']} entries / "
           f"{st['profile_cache']['bytes']} B; "
           f"prefill occupancy {st['prefill_occupancy']} over "
@@ -102,13 +127,16 @@ def main(argv=None):
           f"{st['syncs_per_token']} host syncs/token "
           f"(sync_every={st['sync_every']})")
     for r in reqs[:3]:
-        print(f"  req {r.uid} (profile {r.profile_id}): {r.generated}")
+        say(f"  req {r.uid} (profile {r.profile_id}): {r.generated}")
     if obs is not None:
         obs.export(args.metrics_json or None, args.trace or None)
         cats = obs.tracer.category_counts()
         ttft = obs.metrics.snapshot()["histograms"].get("serve.ttft_us", {})
-        print(f"obs: {sum(cats.values())} trace events {cats}; TTFT p50 "
+        say(f"obs: {sum(cats.values())} trace events {cats}; TTFT p50 "
               f"{ttft.get('p50', 0.0)} us, p95 {ttft.get('p95', 0.0)} us")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return reqs, eng
 
 

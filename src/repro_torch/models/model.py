@@ -14,7 +14,11 @@ positions running over both), and the encoder
 LayerNorm, the vanilla GELU MLP and the classification head,
 ``cls_logits``). Params are plain dicts of tensors in the JAX package's
 layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
-becomes a Python loop over that axis. With ``cfg.decode_fused`` a T=1
+becomes a Python loop over that axis. A serving mesh holds its
+model-sharded leaves as ``distributed.sharding.Sharded`` blocks: the loop
+gathers each layer's whole before use (the embedding looks its rows up
+on the rank that holds them), so every layer runs its one-device code.
+With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
 attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
 A heterogeneous bank's entries (``lora_a``, ``ia3_s``, ``prefix_skip``)
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
 from repro_torch.models import mamba as MB
@@ -345,7 +350,7 @@ def embed_tokens(params, tokens, cfg):
     """The token rows [B, T, d], times gemma's embedding scale: sqrt(d) in
     fp32, rounded to the rows' dtype, one product in that dtype (a Python
     float would multiply in fp32 by the unrounded scale)."""
-    x = params["embed"][tokens.long()]
+    x = SH.rows(params["embed"], tokens.long())
     if cfg.embed_scale:
         scale = torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32))
@@ -421,7 +426,10 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
     recurrent = cfg.block_pattern != "attn"
     auxs = []
     for l in range(cfg.num_layers):
-        block = {name: {k: v[l] for k, v in sub.items()}
+        # a mesh engine's model-sharded leaves (``SH.Sharded``) are
+        # gathered whole here, one layer at a time, so the layer code and
+        # its kernels run as on one device
+        block = {name: {k: SH.layer(v, l) for k, v in sub.items()}
                  for name, sub in blocks.items()}
         cache_l = None if cache is None else \
             {k: v[l] for k, v in cache.items()
@@ -429,7 +437,7 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
         masks_l = None if profile_masks is None else \
             {k: v[:, l] for k, v in profile_masks.items()}
         # the bank's layer slice, for the on-the-fly mask routes only
-        bank_l = {k: v[l] for k, v in bank.items()} \
+        bank_l = {k: SH.layer(v, l) for k, v in bank.items()} \
             if bank is not None and masks_l is not None \
             and "w_a" in masks_l else None
         if recurrent:
@@ -441,7 +449,8 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
                 # remainder: 38 = 6 * 6 + 2), on its own K/V slice
                 g = (l + 1) // cfg.shared_attn_every - 1
                 x, _ = _attn_block_apply(
-                    params["shared_attn"], x, shared_attn_cfg(cfg),
+                    SH.whole_tree(params["shared_attn"]), x,
+                    shared_attn_cfg(cfg),
                     positions=positions,
                     cache_l=None if cache is None else
                     {"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
@@ -485,9 +494,9 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
 
 def lm_logits(params, hidden, cfg):
     if cfg.tie_embeddings:
-        logits = hidden @ params["embed"].T
+        logits = hidden @ SH.whole(params["embed"]).T
     else:
-        logits = hidden @ params["lm_head"]
+        logits = hidden @ SH.whole(params["lm_head"])
     return softcap(logits.float(), cfg.logit_softcap)
 
 

@@ -62,7 +62,45 @@ quarantined or unknown is served by the bare PLM (a zero-adapter entry,
 Observability (``obs``): spans, instants, counters and histograms at the
 host boundaries the engine already has, fed at each sync by the slot
 state's device accumulator, which comes back in the sync's one transfer.
-A mesh raises ``NotImplementedError`` naming its ROADMAP item.
+
+Multi-device (``mesh=``, a ``torch.distributed`` ``DeviceMesh`` with a
+"data" and/or "model" axis, one process per device, see
+``launch/mesh.py``): every rank runs the same host loop on the same
+requests, so the scheduler, allocators, profile cache and host mirrors
+stay identical, and the device state is laid out as follows.
+
+- Params and a quantized bank take JAX's ``param_specs(fsdp=False)`` and
+  are held as this rank's blocks at rest (``distributed.sharding.place``);
+  the model gathers a layer's whole weights before it runs the layer
+  (JAX instead lets GSPMD split its matmuls over "model"), so every
+  kernel runs its one-device code and the tokens equal the one-device
+  engine's bitwise. Where this differs from JAX's specs: an int4 bank's
+  ``bank_b_q``/``bank_b_scale`` stay whole on every rank (planar packing
+  pairs element i with i + d/2, so a byte slice is no d-slice).
+- Admission aggregates each missing profile on the rank's d-slice of the
+  bank (aggregation is elementwise in d, so each slice is bitwise the
+  whole bank's) and gathers the aggregated entries over "model"; a
+  quantized engine re-quantizes the gathered rows. Soft masks gather the
+  bank and aggregate it whole.
+- Slot-packed state (slot arrays, mask buffers, the entry pool and the
+  tables) takes ``leading_axis_specs``: each data rank holds and steps
+  only its own slots. The dense cache shards its slot axis over "data"
+  and keeps the K/V heads whole (JAX: heads over "model"; no
+  sequence-parallel fallback: a slot count "data" does not divide keeps
+  the slots whole on every rank). The page pool shards its page axis
+  over "data" when the data axis divides the pool and each shard holds
+  one max-length request, else it stays whole; sharded, each shard's
+  pool carries its own scratch page and a slot's pages come from its
+  shard only (JAX's page colours, kept strictly).
+- Each data rank prefills its own slots' rows of a wave and steps its
+  own slots, so its GEMMs run at its share of the rows (the tokens stay
+  the one-device engine's while a row's result does not depend on how
+  many rows share the call); the ranks ``all_gather`` the wave's first
+  tokens, and at each sync their slots' tokens and flags, over "data".
+  A preempted slot's swapped rows come from the rank that held it, so
+  it may resume on any shard.
+
+``resident_bytes_per_device`` counts the layout it applies.
 """
 from __future__ import annotations
 
@@ -71,10 +109,12 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as OBS
 from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as MDL
 from repro_torch.obs import trace as TR
 from repro_torch.quant import schemes as QS
@@ -87,7 +127,7 @@ from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slots import SlotState
 from repro_torch.serve.steps import greedy_next
 from repro_torch.utils import pow2_count
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _rate(num, den, nd: int = 4) -> float:
@@ -164,15 +204,24 @@ def _check_quant(cfg, store, *, precompute) -> None:
                          "(k-sparse quantized aggregation)")
 
 
-def _check_slice(cfg, store, *, precompute, max_seq, continuous,
-                 mesh) -> None:
+def _check_slice(cfg, store, *, precompute, max_seq, continuous) -> None:
     _check_spec(cfg, continuous=continuous)
     _check_hetero(cfg, store, precompute=precompute, max_seq=max_seq)
     _check_quant(cfg, store, precompute=precompute)
     MDL.check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError("multi-device serving is not ported "
-                                  "(ROADMAP queue 1, item 11)")
+
+
+def _local(tree):
+    """The blocks this rank holds of a placed tree."""
+    return tree_map(lambda v: v.local if isinstance(v, SH.Sharded) else v,
+                    tree)
+
+
+# the bank leaf each aggregated entry leaf is a d-slice of, with the same
+# dims split (bank [L, N, d, b] -> entry [P, L, d, b])
+_ENTRY_SOURCE = {"a_hat": "bank_a", "b_hat": "bank_b", "lora_a": "lora_a",
+                 "lora_b": "lora_b"}
+_ENTRY_SOURCE_QUANT = {"a_hat": "bank_a_q", "b_hat": "bank_b_q"}
 
 
 class ServeEngine:
@@ -186,7 +235,7 @@ class ServeEngine:
                  retry_policy: Optional[RetryPolicy] = None,
                  obs: Optional[OBS.Observability] = None):
         _check_slice(cfg, store, precompute=precompute, max_seq=max_seq,
-                     continuous=continuous, mesh=mesh)
+                     continuous=continuous)
         self.cfg = cfg
         self.store = store
         # observability: the slot state's device accumulator exists either
@@ -215,6 +264,20 @@ class ServeEngine:
             self._qrow_bytes = sum(
                 v.numel() * v.element_size()
                 for v in self.qbank.values()) // (L_ * N_)
+        self._mesh_setup(mesh, max_slots)
+        if mesh is not None:
+            # JAX's param_specs(fsdp=False), held as this rank's blocks
+            self._specs["params"] = SH.param_specs(params, mesh, fsdp=False)
+            params = SH.place(params, self._specs["params"], mesh)
+            if self.qbank is not None:
+                specs = SH.param_specs(self.qbank, mesh, fsdp=False)
+                if self.quant == "int4":
+                    # planar int4 pairs element i with i + d/2 in a byte:
+                    # a byte slice of bank_b's rows is no d-slice
+                    for key in ("bank_b_q", "bank_b_scale"):
+                        specs[key] = SH.P(*[None] * self.qbank[key].ndim)
+                self._specs["qbank"] = specs
+                self.qbank = SH.place(self.qbank, specs, mesh)
         self.params = params
         # heterogeneous bank: typed entries and slot buffers; a prefix
         # segment's rows hydrate into the KV cache at prefill
@@ -258,15 +321,28 @@ class ServeEngine:
                         f"max_pages={self.n_pages} cannot hold one "
                         f"max-length request ({per_req} pages) — the engine "
                         "could deadlock instead of preempting")
-                self.page_alloc = PG.PageAllocator(self.n_pages)
-            self.cache = PG.make_paged_cache(template, max(self.n_pages, 1),
-                                             page_size, max_slots, device=dev)
+                # a slot's pages live on its data shard when the pool
+                # splits into shards that each hold one max-length request
+                self._page_shard = self._slot_shard \
+                    and self.n_pages % self._D == 0 \
+                    and self.n_pages // self._D >= per_req
+                self.page_alloc = PG.PageAllocator(
+                    self.n_pages,
+                    n_colors=self._D if self._page_shard else 1)
+            self._pages_local = self.n_pages // self._D \
+                if self._page_shard else self.n_pages
+            template = MDL.init_cache(cfg, self._n_local, max_seq,
+                                      device="meta")
+            self.cache = PG.make_paged_cache(
+                template, max(self._pages_local, 1), page_size,
+                self._n_local, device=dev)
             self._mp = int(self.cache["table"].shape[1])
             self._sentinel = max(self.n_pages, 1)
             self._page_table_h = np.full((max_slots, self._mp),
                                          self._sentinel, np.int32)
         else:
-            self.cache = MDL.init_cache(cfg, max_slots, max_seq, device=dev)
+            self.cache = MDL.init_cache(cfg, self._n_local, max_seq,
+                                        device=dev)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         # resilience: admission probes each profile (with retry) before
         # hydration; a request whose profile can't be served degrades to
@@ -290,28 +366,37 @@ class ServeEngine:
         # continuous mode: the mask records live in an ENTRY POOL (one
         # entry = one request's record, one entry per slot) addressed
         # through a per-slot table
+        # through a per-slot table; on a mesh the entries split over
+        # "data" as the slots do (one entry per slot on each shard)
         self.n_mask_entries = max_slots
         self._entry_keys = self._entry_key_set()
-        self.masks = self._mask_buffers(max_slots)
+        self.masks = self._mask_buffers(self._n_local)
         self.mask_alloc = None
         self._masks_view = self._zero_view = None
         if continuous and self.masks is not None:
-            self.mask_alloc = PG.PageAllocator(self.n_mask_entries)
+            self.mask_alloc = PG.PageAllocator(
+                self.n_mask_entries,
+                n_colors=self._D if self._slot_shard else 1)
             self._mask_table_h = np.full((max_slots,), self.n_mask_entries,
                                          np.int32)
             self.masks = {"pool": self.masks,
-                          "table": torch.from_numpy(self._mask_table_h).to(
-                              dev)}
+                          "table": torch.from_numpy(
+                              self._local_entries(self._mask_table_h)).to(
+                                  dev)}
             # the step reads a slot-indexed VIEW of the pool, gathered
             # again only when an entry table moves (at host syncs)
-            self._masks_view = self._mask_buffers(max_slots)
+            self._masks_view = self._mask_buffers(self._n_local)
             if self.spec:
                 # the drafts' constant zero-adapter view (identity LN): the
                 # draft model IS the bare PLM
-                self._zero_view = self._mask_buffers(max_slots)
+                self._zero_view = self._mask_buffers(self._n_local)
         self.slots = SlotState(
             max_slots, max_seq, sync_every, self._decode_fn(), device=dev,
-            spec_width=self.spec_gamma + 1 if self.spec else 1)
+            spec_width=self.spec_gamma + 1 if self.spec else 1,
+            local=(self._lo, self._lo + self._n_local),
+            gather=self._gather_slots if self._slot_shard else None)
+        if mesh is not None:
+            self._state_specs()
         # what the last admission did (path, cache hits, bank bytes,
         # prefill occupancy), as the JAX engine reports it
         self.last_admission: Optional[dict] = None
@@ -339,6 +424,100 @@ class ServeEngine:
         self.useful_slot_steps = 0
         self.stranded_slot_steps = 0
         self._win_t0 = time.perf_counter()  # host time the window opened
+
+    # ------------------------------------------------------------------ mesh
+    def _mesh_setup(self, mesh, max_slots: int) -> None:
+        """The mesh's axis sizes and this rank's slots: [lo, lo +
+        n_local) of the data axis's even split when it divides the slot
+        count, else every slot."""
+        self.mesh = mesh
+        sizes = SH.axis_sizes(mesh) if mesh is not None else {}
+        self._n_devices = int(np.prod(list(sizes.values()) or [1]))
+        self._D = sizes.get("data", 1)
+        self._slot_shard = self._D > 1 and max_slots % self._D == 0
+        self._dr = mesh.get_local_rank("data") if self._slot_shard else 0
+        self._n_local = max_slots // self._D if self._slot_shard \
+            else max_slots
+        self._lo = self._dr * self._n_local
+        self._page_shard = False
+        self._specs = {}
+
+    def _mine(self, i: int) -> Optional[int]:
+        """This rank's row of slot (or mask entry) ``i``, or None where
+        another data rank holds it."""
+        j = i - self._lo
+        return j if 0 <= j < self._n_local else None
+
+    def _color(self, slot: int) -> int:
+        """The data shard of a slot: its pages' and entry's colour."""
+        return slot // self._n_local if self._slot_shard else 0
+
+    def _local_entries(self, table_h):
+        """This rank's rows of the host entry table, as indices into its
+        entry pool (the sentinel as the pool's size)."""
+        t = table_h[self._lo:self._lo + self._n_local]
+        return np.where(t >= self.n_mask_entries, self._n_local,
+                        t - self._lo).astype(np.int32)
+
+    def _local_pages(self, table_h):
+        """Rows of the host page table as indices into this rank's pool
+        (a sharded pool: the shard's own pages, the sentinel as its
+        scratch page)."""
+        if not self._page_shard:
+            return table_h
+        off = self._dr * self._pages_local
+        return np.where(table_h >= self.n_pages, self._pages_local,
+                        table_h - off).astype(np.int32)
+
+    def _gather_slots(self, packed):
+        """Every data rank's packed slot rows, in slot order."""
+        return torch.cat(SH.all_gather(packed, self.mesh.get_group("data")))
+
+    def _gather_first_tokens(self, reqs, next_toks: dict) -> dict:
+        """Every request's prefill token, each from the data rank that
+        prefilled it (one ``all_gather`` over "data" per wave)."""
+        mine = torch.tensor([next_toks.get(id(r), -1) for r in reqs],
+                            dtype=torch.long, device=self.device)
+        got = torch.stack(SH.all_gather(mine, self.mesh.get_group("data")))
+        return dict(zip(map(id, reqs), got.max(0).values.tolist()))
+
+    def _from_owner(self, tree, owner: int):
+        """``tree`` as the data rank ``owner`` holds it (every rank passes
+        a tree of the same shapes)."""
+        group = self.mesh.get_group("data")
+        return tree_map(lambda x: SH.all_gather(x, group)[owner], tree)
+
+    def _gather_entry(self, agg: dict, bank: dict, source: dict) -> dict:
+        """Aggregated entry leaves computed on this rank's d-slice of the
+        bank, gathered whole over the dims their bank leaf is split on."""
+        for key, name in source.items():
+            leaf = bank.get(name)
+            if key in agg and isinstance(leaf, SH.Sharded):
+                agg[key] = SH.gather(agg[key], leaf.spec, self.mesh)
+        return agg
+
+    def _state_specs(self) -> None:
+        """The specs of the slot-packed device state as this engine lays
+        it out, for ``resident_bytes_per_device``."""
+        data = "data" if self._slot_shard else None
+
+        def lead(x, axis=data):
+            return SH.P(axis, *[None] * (x.ndim - 1))
+
+        def dim1(x, axis=data):
+            return SH.P(None, axis, *[None] * (x.ndim - 2))
+
+        if self.continuous:
+            page = "data" if self._page_shard else None
+            self._specs["cache"] = {
+                "data": PG._map(lambda p, x: dim1(
+                    x, page if PG.leaf_is_paged(p) else data),
+                    self.cache["data"]),
+                "table": lead(self.cache["table"])}
+        else:
+            self._specs["cache"] = tree_map(dim1, self.cache)
+        if self.masks is not None:
+            self._specs["masks"] = tree_map(lead, self.masks)
 
     def _entry_key_set(self) -> tuple:
         """The leaves one hydrated entry carries. The mask buffers hold
@@ -565,6 +744,17 @@ class ServeEngine:
             pid = int(r.profile_id)
             if pid not in verdict:
                 verdict[pid] = self._probe_profile(pid)
+        if self.mesh is not None and self.fault_plan is not None \
+                and verdict:
+            # retries end on a wall-clock deadline: the ranks agree (a
+            # profile any rank failed degrades on all), so their host
+            # loops stay one
+            t = torch.tensor(list(verdict.values()), dtype=torch.int32,
+                             device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            verdict = dict(zip(verdict, map(bool, t.tolist())))
+        for r in reqs:
+            pid = int(r.profile_id)
             if not verdict[pid] and not r.degraded:
                 r.degraded = True
                 self.degraded_requests += 1
@@ -684,7 +874,7 @@ class ServeEngine:
             w_a, w_b, ln_s, ln_b = self.store.batch_mask_weights(missing)
             pad = torch.zeros((Mp - M,) + tuple(w_a.shape[1:]))
             a_hat, b_hat = XP.precompute_effective_adapters_dense_batched(
-                bank, torch.cat([w_a, pad]).to(self.device),
+                SH.whole_tree(bank), torch.cat([w_a, pad]).to(self.device),
                 torch.cat([w_b, pad]).to(self.device))
             agg = {"a_hat": a_hat, "b_hat": b_hat,
                    "ln_scale": ln_s.to(self.device),
@@ -700,13 +890,17 @@ class ServeEngine:
             idx_h, w_h = self._wave_indices(missing)
             idx, w = idx_h.to(self.device), w_h.to(self.device)
             aggregated = idx.shape[1]
+            # on a mesh: this rank's d-slice of the bank, then the entries
+            # gathered whole
             if self.hetero:
                 agg = XP.precompute_effective_adapters_sparse_hetero(
-                    bank, idx[0], w[0], idx[1], w[1], xp)
+                    _local(bank), idx[0], w[0], idx[1], w[1], xp)
             else:
                 agg = dict(zip(("a_hat", "b_hat"),
                                XP.precompute_effective_adapters_sparse(
-                                   bank, idx[0], w[0], idx[1], w[1], xp)))
+                                   _local(bank), idx[0], w[0], idx[1], w[1],
+                                   xp)))
+            agg = self._gather_entry(agg, bank, _ENTRY_SOURCE)
             path = "sparse"
             bank_bytes = aggregated * idx.shape[-1] * L * slice_bytes
             ln_s, ln_b = (t.to(self.device)
@@ -744,9 +938,14 @@ class ServeEngine:
                 for key in self._entry_keys}
 
     def _aggregate_sparse_quant(self, idx, w):
-        """fp32 (Â, B̂) of the padded wave, from the quantized bank."""
-        return XP.precompute_effective_adapters_sparse_quant(
-            self.qbank, idx[0], w[0], idx[1], w[1], self.cfg.xpeft)
+        """fp32 (Â, B̂) of the padded wave, from the quantized bank (on a
+        mesh: its d-slices, gathered whole before re-quantization)."""
+        agg = dict(zip(("a_hat", "b_hat"),
+                       XP.precompute_effective_adapters_sparse_quant(
+                           _local(self.qbank), idx[0], w[0], idx[1], w[1],
+                           self.cfg.xpeft)))
+        agg = self._gather_entry(agg, self.qbank, _ENTRY_SOURCE_QUANT)
+        return agg["a_hat"], agg["b_hat"]
 
     def _requantize(self, a_hat, b_hat) -> dict:
         """Freshly aggregated fp32 rows into the cache/slot record layout
@@ -817,26 +1016,28 @@ class ServeEngine:
         if not self._tables_dirty:
             return
         self._tables_dirty = False
-        self.cache["table"] = torch.from_numpy(self._page_table_h).to(
+        rows = self._page_table_h[self._lo:self._lo + self._n_local]
+        self.cache["table"] = torch.from_numpy(self._local_pages(rows)).to(
             self.device)
         if self.mask_alloc is not None:
-            self.masks["table"] = torch.from_numpy(self._mask_table_h).to(
-                self.device)
+            self.masks["table"] = torch.from_numpy(
+                self._local_entries(self._mask_table_h)).to(self.device)
 
-    def _reserve_resources(self, reqs: List[Request]) -> List[Request]:
+    def _reserve_resources(self, reqs: List[Request],
+                           slots: List[int]) -> List[Request]:
         """Claim a mask entry + prompt-covering pages for each admission
-        candidate; requests the pools can't hold yet go back to the FRONT
-        of the scheduler queue (admission never preempts running requests
-        — only page growth for already-running slots does)."""
+        candidate (``reqs[k]`` goes to ``slots[k]``, whose shard they come
+        from on a mesh); requests the pools can't hold yet go back to the
+        FRONT of the scheduler queue (admission never preempts running
+        requests — only page growth for already-running slots does)."""
         kept: List[Request] = []
         for k, r in enumerate(reqs):
             try:
-                if self.mask_alloc is not None:
-                    self.mask_alloc.alloc(1, r.uid)
+                self._alloc_entry(r.uid, slots[k])
                 # pages cover the hydrated prefix rows too, resolved from
                 # the store before hydration
                 self._alloc_pages(self._req_prefix_len(r) + len(r.prompt),
-                                  r.uid)
+                                  r.uid, slots[k])
             except PG.PageOOM:
                 self.scheduler.requeue_front(reqs[k:])
                 break
@@ -846,15 +1047,23 @@ class ServeEngine:
     def _pages_for(self, length: int) -> int:
         return PG.pages_needed(length, self.page_size) if self._paged else 0
 
-    def _alloc_pages(self, length: int, uid) -> None:
-        """Claim the pages covering ``length`` positions for ``uid`` (none
-        without a paged leaf); on PageOOM the request's mask entry, if
-        any, is given back before the error goes up."""
+    def _alloc_entry(self, uid, slot: int) -> None:
+        """Claim a mask entry for ``uid`` going to ``slot`` (of the slot's
+        shard on a mesh), if the engine pools entries."""
+        if self.mask_alloc is not None:
+            self.mask_alloc.alloc(1, uid, color=self._color(slot),
+                                  strict=self._slot_shard)
+
+    def _alloc_pages(self, length: int, uid, slot: int) -> None:
+        """Claim the pages covering ``length`` positions for ``uid`` going
+        to ``slot`` (none without a paged leaf); on PageOOM the request's
+        mask entry, if any, is given back before the error goes up."""
         need = self._pages_for(length)
         if not need:
             return
         try:
-            self.page_alloc.alloc(need, uid)
+            self.page_alloc.alloc(need, uid, color=self._color(slot),
+                                  strict=self._page_shard)
         except PG.PageOOM:
             if self.mask_alloc is not None:
                 self.mask_alloc.free_owner(uid)
@@ -893,16 +1102,28 @@ class ServeEngine:
         bytes come back unchanged, so a resumed request decodes as if it
         had never left."""
         r = self.slot_req[slot]
-        row = torch.from_numpy(self._page_table_h[slot]).to(self.device)
-        # own host copies (on the CPU, .cpu() would hand back views of
-        # pool rows the next owner overwrites)
-        rows = {k: v.to("cpu", copy=True) for k, v in PG.extract_slot(
-            self.cache["data"], row, slot).items()}
+        # on a mesh the rank holding the slot extracts, the others take
+        # rows of the same shapes, and every rank keeps the holder's
+        mine = self._mine(slot)
+        row = torch.from_numpy(self._local_pages(
+            self._page_table_h[slot]) if mine is not None else np.full(
+                (self._mp,), self._pages_local, np.int32)).to(self.device)
+        rows = PG.extract_slot(self.cache["data"], row, mine or 0)
         mask_row = None
         if self.mask_alloc is not None:
-            entry = self.mask_alloc.pages_of(r.uid)[0]
-            mask_row = {k: v[entry].to("cpu", copy=True)
+            entry = self._mine(self.mask_alloc.pages_of(r.uid)[0])
+            mask_row = {k: v[entry or 0]
                         for k, v in self.masks["pool"].items()}
+        if self._slot_shard:
+            rows = self._from_owner(rows, self._color(slot))
+            if mask_row is not None:
+                mask_row = self._from_owner(mask_row, self._color(slot))
+        # own host copies (on the CPU, .cpu() would hand back views of
+        # pool rows the next owner overwrites)
+        rows = tree_map(lambda v: v.to("cpu", copy=True), rows)
+        if mask_row is not None:
+            mask_row = {k: v.to("cpu", copy=True)
+                        for k, v in mask_row.items()}
         self._resume_q.append({
             "req": r, "rows": rows, "mask": mask_row,
             "len": self._rlen(r) + len(r.generated) - 1,
@@ -922,10 +1143,13 @@ class ServeEngine:
 
     def _youngest_live(self, but: int) -> Optional[int]:
         """Preemption victim: the most recently admitted live slot other
-        than `but` (LIFO preemption keeps the oldest work finishing)."""
+        than `but` (LIFO preemption keeps the oldest work finishing); of
+        `but`'s shard where a shard's pages serve its slots alone."""
         live = [(self._slot_seq[i], i)
                 for i, r in enumerate(self.slot_req)
-                if r is not None and i != but]
+                if r is not None and i != but and (
+                    not self._page_shard
+                    or self._color(i) == self._color(but))]
         return max(live)[1] if live else None
 
     @torch.no_grad()
@@ -939,20 +1163,22 @@ class ServeEngine:
             r = snap["req"]
             slot = self.free_slots()[0]
             try:
-                if self.mask_alloc is not None:
-                    self.mask_alloc.alloc(1, r.uid)
-                self._alloc_pages(snap["len"], r.uid)
+                self._alloc_entry(r.uid, slot)
+                self._alloc_pages(snap["len"], r.uid, slot)
             except PG.PageOOM:
                 break
             self._resume_q.pop(0)
             self._assign_tables(slot, r)
             self._push_tables()
-            row = torch.from_numpy(self._page_table_h[slot]).to(self.device)
-            PG.restore_slot(self.cache["data"], snap["rows"], row, slot)
-            if snap["mask"] is not None:
-                entry = int(self._mask_table_h[slot])
-                for k, v in self.masks["pool"].items():
-                    v[entry] = snap["mask"][k].to(self.device)
+            mine = self._mine(slot)
+            if mine is not None:
+                row = torch.from_numpy(self._local_pages(
+                    self._page_table_h[slot])).to(self.device)
+                PG.restore_slot(self.cache["data"], snap["rows"], row, mine)
+                if snap["mask"] is not None:
+                    entry = self._mine(int(self._mask_table_h[slot]))
+                    for k, v in self.masks["pool"].items():
+                        v[entry] = snap["mask"][k].to(self.device)
             self.slots.restore([slot], [r.generated[-1]], [snap["len"]],
                                [len(r.generated)], [r.max_new_tokens])
             self.slot_req[slot] = r
@@ -985,7 +1211,9 @@ class ServeEngine:
             while need > len(self.page_alloc.pages_of(r.uid)):
                 have = len(self.page_alloc.pages_of(r.uid))
                 try:
-                    new = self.page_alloc.alloc(need - have, r.uid)
+                    new = self.page_alloc.alloc(need - have, r.uid,
+                                                color=self._color(i),
+                                                strict=self._page_shard)
                     self._page_table_h[i, have:need] = new
                     self._tables_dirty = True
                 except PG.PageOOM:
@@ -1043,7 +1271,7 @@ class ServeEngine:
             self.scheduler.requeue_front(reqs[len(free):])
             reqs = reqs[:len(free)]
         if self.continuous and reqs:
-            reqs = self._reserve_resources(reqs)
+            reqs = self._reserve_resources(reqs, free)
         if not reqs:
             if resumed:
                 self._refresh_window()  # resumed slots need window + view
@@ -1076,15 +1304,32 @@ class ServeEngine:
                 dest = [self.mask_alloc.pages_of(r.uid)[0] for r in reqs]
             else:
                 bufs, dest = self.masks, assigned
-            dest = torch.tensor(dest, dtype=torch.long, device=self.device)
-            for key, buf in bufs.items():
-                buf[dest] = stacked[key].to(buf.dtype)
+            # this rank's rows (all of them off a mesh)
+            sel = [i for i, e in enumerate(dest) if self._mine(e) is not None]
+            if sel:
+                dest = torch.tensor([self._mine(dest[i]) for i in sel],
+                                    dtype=torch.long, device=self.device)
+                src = None if len(sel) == len(reqs) else torch.tensor(
+                    sel, device=self.device)
+                for key, buf in bufs.items():
+                    rows = stacked[key] if src is None else stacked[key][src]
+                    buf[dest] = rows.to(buf.dtype)
 
         slot_of = {id(r): s for r, s in zip(reqs, assigned)}
         idx_of = {id(r): i for i, r in enumerate(reqs)}
         groups = self.scheduler.group_by_bucket(reqs)
         next_toks = {}
         for pad, group in sorted(groups.items()):
+            B = len(group)
+            self.prefill_batches += 1
+            self.prefill_rows += pow2_count(B)
+            self.prefill_real += B
+            # this rank prefills its own slots' rows (all of them off a
+            # mesh); the first tokens are gathered after the wave
+            group = [r for r in group
+                     if self._mine(slot_of[id(r)]) is not None]
+            if not group:
+                continue
             B = len(group)
             Bp = pow2_count(B)
             toks = np.zeros((Bp, pad), np.int32)
@@ -1109,7 +1354,8 @@ class ServeEngine:
                 logits, mini = self.prefill_logits(
                     torch.from_numpy(toks).to(self.device), rows,
                     torch.from_numpy(lens).to(self.device), cpos, prows)
-                gslots = torch.tensor([slot_of[id(r)] for r in group],
+                gslots = torch.tensor([self._mine(slot_of[id(r)])
+                                       for r in group], dtype=torch.long,
                                       device=self.device)
                 if self.continuous:
                     PG.insert_group(self.cache["data"], mini, gslots,
@@ -1119,9 +1365,8 @@ class ServeEngine:
                 nxt_h = torch.argmax(logits, dim=-1)[:B].cpu().numpy()
             for j, r in enumerate(group):
                 next_toks[id(r)] = int(nxt_h[j])
-            self.prefill_batches += 1
-            self.prefill_rows += Bp
-            self.prefill_real += B
+        if self._slot_shard:
+            next_toks = self._gather_first_tokens(reqs, next_toks)
         if self.last_admission is not None:
             self.last_admission["prefill_batches"] = len(groups)
             self.last_admission["prefill_occupancy"] = round(
@@ -1291,7 +1536,7 @@ class ServeEngine:
             if self.masks is not None and self._view_dirty:
                 self._view_dirty = False
                 idx = self.masks["table"].long().clamp(
-                    0, self.n_mask_entries - 1)
+                    0, self._n_local - 1)
                 for k, v in self.masks["pool"].items():
                     self._masks_view[k] = v[idx]
         self._backlog = bool(self.scheduler.pending() or self._resume_q)
@@ -1359,16 +1604,26 @@ class ServeEngine:
 
     def resident_bytes_per_device(self) -> dict:
         """Resident bytes of the engine's device state (params, KV cache,
-        quantized bank, mask buffers and their tables) and their total;
-        one device, so per device is the whole."""
+        quantized bank, mask buffers and their tables) and their total,
+        per device: on a mesh ``sharded_bytes_per_device`` of the whole
+        trees under the specs this engine applied."""
         trees = {"params": self.params, "cache": self.cache}
         if self.qbank is not None:
             trees["qbank"] = self.qbank
         if self.masks is not None:
             trees["masks"] = self.masks
-        out = {name: sum(t.numel() * t.element_size()
-                         for t in tree_leaves(tree))
-               for name, tree in trees.items()}
+        out = {}
+        for name, tree in trees.items():
+            if self.mesh is None:
+                out[name] = sum(t.numel() * t.element_size()
+                                for t in tree_leaves(tree))
+                continue
+            specs = self._specs[name]
+            if name in ("cache", "masks"):
+                # rank-local tensors: their whole shapes under the specs
+                tree = tree_map(lambda x, sp: SH.global_meta(
+                    x, sp, self.mesh), tree, specs)
+            out[name] = SH.sharded_bytes_per_device(tree, specs, self.mesh)
         out["total"] = sum(out.values())
         return out
 
@@ -1407,7 +1662,7 @@ class ServeEngine:
         port compiles none until the step is a CUDA graph)."""
         out = {
             "mode": "continuous" if self.continuous else "windowed",
-            "devices": 1,
+            "devices": self._n_devices,
             "bank_quant": self.quant,
             # slot_occupancy: share of slot-steps that emitted a token;
             # stranded_slot_steps: slot-steps idled between a finish and

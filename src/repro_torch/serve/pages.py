@@ -119,19 +119,24 @@ class PageAllocator:
         return list(self._pages_of)
 
     # ------------------------------------------------------------ alloc/free
-    def alloc(self, n: int, owner, *, color: int = 0) -> List[int]:
-        """Allocate ``n`` pages for ``owner`` (color-preferring). Raises
-        ``PageOOM`` — with the allocator untouched — if fewer than ``n``
-        pages are free."""
+    def alloc(self, n: int, owner, *, color: int = 0,
+              strict: bool = False) -> List[int]:
+        """Allocate ``n`` pages for ``owner`` (color-preferring; with
+        ``strict`` only of ``color``: a serving mesh whose pages live on
+        the shard of that color). Raises ``PageOOM`` — with the allocator
+        untouched — if fewer than ``n`` such pages are free."""
         if n < 0:
             raise ValueError(f"alloc of {n} pages")
-        if n > self.free_count():
+        free = len(self._free[color % self.n_colors]) if strict \
+            else self.free_count()
+        if n > free:
             self.oom_events += 1
-            raise PageOOM(f"need {n} pages, {self.free_count()} free "
-                          f"of {self.n_pages}")
+            raise PageOOM(f"need {n} pages, {free} free of {self.n_pages}"
+                          + (f" in color {color}" if strict else ""))
         got: List[int] = []
         order = [color % self.n_colors] + \
-            [c for c in range(self.n_colors) if c != color % self.n_colors]
+            [c for c in range(self.n_colors)
+             if c != color % self.n_colors and not strict]
         for c in order:
             while self._free[c] and len(got) < n:
                 got.append(self._free[c].pop())

@@ -24,6 +24,14 @@ int32 observability accumulator (``repro_torch.obs.metrics``: tokens
 committed, active and stranded steps per slot). It is unconditional, so
 the steps launch the same kernels whether the engine has an obs bundle
 or not, and it comes back in the sync's one transfer, reset per window.
+
+On a serving mesh each data rank holds and steps only its own slots
+``local = (lo, hi)`` of the ``n_slots``: the device tensors are that
+rank's rows, the host mirrors and every call's slot indices stay global
+(a call touching another rank's slots changes only the mirrors), and at
+the sync ``gather`` (an ``all_gather`` over the data axis) puts the
+ranks' packed rows together, so every rank hands the same tokens and
+flags to the same requests.
 """
 from __future__ import annotations
 
@@ -59,7 +67,8 @@ class SlotState:
     position — n_acc [S], the accepted-draft prefix length, cache)."""
 
     def __init__(self, n_slots: int, max_seq: int, sync_every: int,
-                 decode_fn: Callable, *, device, spec_width: int = 1):
+                 decode_fn: Callable, *, device, spec_width: int = 1,
+                 local=None, gather: Optional[Callable] = None):
         if sync_every < 1:
             raise ValueError("sync_every must be >= 1")
         if spec_width < 1:
@@ -70,9 +79,13 @@ class SlotState:
         self.spec_width = spec_width  # gamma+1 (speculative), 1 = plain
         self.decode_fn = decode_fn
         self.device = device
+        # this rank's slots [lo, hi) and the gather of packed rows
+        self.lo, self.hi = local if local is not None else (0, n_slots)
+        self.gather = gather
+        n_dev = self.hi - self.lo
 
         def zeros(dtype):
-            return torch.zeros((n_slots,), dtype=dtype, device=device)
+            return torch.zeros((n_dev,), dtype=dtype, device=device)
 
         self.last_tok = zeros(torch.int32)
         self.lengths = zeros(torch.int32)
@@ -84,12 +97,12 @@ class SlotState:
         # worst case, tokens pack densely from buf_len, and the uncommitted
         # tail of a round goes to one scratch column past the end
         self.tok_buf = torch.full(
-            (n_slots, sync_every * spec_width + int(spec)), -1,
+            (n_dev, sync_every * spec_width + int(spec)), -1,
             dtype=torch.int32, device=device)
         self.buf_len = zeros(torch.int32) if spec else None
         self.drafted = zeros(torch.int32) if spec else None
         self.accepted = zeros(torch.int32) if spec else None
-        self.obs_acc = device_acc_init(n_slots, device=device)
+        self.obs_acc = device_acc_init(n_dev, device=device)
         self.buf_fill = 0            # host: steps since last sync
         self._prev_n_gen = np.zeros((n_slots,), np.int32)  # host mirror
         self._prev_drafted = np.zeros((n_slots,), np.int32)
@@ -155,7 +168,7 @@ class SlotState:
         col = self.buf_len[:, None].long() + j
         ok = was_active[:, None] & (j[None, :] < c[:, None])
         col = torch.where(ok, col, self.sync_every * W)
-        rows = torch.arange(self.n_slots, device=toks.device)[:, None]
+        rows = torch.arange(toks.shape[0], device=toks.device)[:, None]
         self.tok_buf[rows, col] = toks.to(torch.int32)
         self.buf_len = self.buf_len + c
         # every live round drafts W-1; committed drafts are c-1 (the last
@@ -179,21 +192,25 @@ class SlotState:
         n_gens_h = np.asarray(n_gens, np.int32)
         max_news_h = np.asarray(max_news, np.int32)
         actives_h = (n_gens_h < max_news_h) & (lengths_h < self.S - 1)
+        self._prev_n_gen[slots_h] = n_gens_h
+        if self.spec_width > 1:
+            self._prev_drafted[slots_h] = 0
+            self._prev_accepted[slots_h] = 0
+        mine = (slots_h >= self.lo) & (slots_h < self.hi)
+        if not mine.any():
+            return
         packed = torch.from_numpy(np.stack([
             np.asarray(last_toks, np.int32), lengths_h, n_gens_h, max_news_h,
-            actives_h.astype(np.int32)])).to(self.device)
-        sl = torch.from_numpy(slots_h).to(self.device)
+            actives_h.astype(np.int32)])[:, mine]).to(self.device)
+        sl = torch.from_numpy(slots_h[mine] - self.lo).to(self.device)
         self.last_tok[sl] = packed[0]
         self.lengths[sl] = packed[1]
         self.n_gen[sl] = packed[2]
         self.max_new[sl] = packed[3]
         self.active[sl] = packed[4].bool()
-        self._prev_n_gen[slots_h] = n_gens_h
         if self.spec_width > 1:
             self.drafted[sl] = 0
             self.accepted[sl] = 0
-            self._prev_drafted[slots_h] = 0
-            self._prev_accepted[slots_h] = 0
 
     def admit(self, slots, last_toks, lengths, max_news) -> None:
         """Scatter freshly prefilled requests into the slot arrays. The
@@ -208,8 +225,9 @@ class SlotState:
         engine syncs first so no window tokens are in flight)."""
         if self.buf_fill:
             raise RuntimeError("sync() before deactivating")
-        mask = torch.as_tensor(np.asarray(mask, bool), device=self.device)
-        self.active = self.active & ~mask
+        mask = np.asarray(mask, bool)[self.lo:self.hi]
+        self.active = self.active & ~torch.as_tensor(mask,
+                                                     device=self.device)
 
     def deactivate_all(self) -> None:
         """Mark every slot inactive on the device (abort; engine syncs
@@ -236,7 +254,10 @@ class SlotState:
         if self.spec_width > 1:
             cols += [self.drafted[:, None], self.accepted[:, None]]
         cols.append(self.obs_acc)
-        packed = torch.cat(cols, dim=1).cpu().numpy()
+        packed = torch.cat(cols, dim=1)
+        if self.gather is not None:
+            packed = self.gather(packed)
+        packed = packed.cpu().numpy()
         tok_buf = packed[:, :width]
         obs = packed[:, -OBS_COLS:]
         lengths, n_gen = packed[:, width], packed[:, width + 1]

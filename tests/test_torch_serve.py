@@ -157,12 +157,28 @@ def test_tokens_invariant_to_sync_every(served):
     assert eng8.serve_stats()["syncs_per_token"] < 1
 
 
-def test_engine_options_outside_the_slice_raise(served):
-    # precompute=False and continuous=True are ported
-    # (tests/test_torch_serve_perstep.py, tests/test_torch_serve_continuous.py)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TEngine(served["tcfg"], served["tparams"], served["tstore"],
-                mesh=object())
+def test_engine_options_outside_the_slice_raise(served, tmp_path):
+    # precompute=False, continuous=True and mesh= are ported
+    # (tests/test_torch_serve_perstep.py, tests/test_torch_serve_continuous.py,
+    # tests/test_torch_mesh_serve.py): a world-1 mesh serves the one-device
+    # tokens; a mesh the process group cannot fill raises
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs 4 processes"):
+            make_mesh((2, 2), ("data", "model"), "cpu")
+        eng = TEngine(served["tcfg"], served["tparams"], served["tstore"],
+                      max_slots=3, max_seq=64,
+                      mesh=make_mesh((1, 1), ("data", "model"), "cpu"))
+        reqs = _requests(TRequest, served["prompts"])
+        eng.run_until_drained(list(reqs))
+    finally:
+        dist.destroy_process_group()
+    assert [r.generated for r in reqs] == \
+        [r.generated for r in _serve_port(served)[1]]
+    assert eng.serve_stats()["devices"] == 1
     # continuous mode's own refusals are JAX's
     for kw, match in ((dict(max_seq=60), "multiple of page_size"),
                       (dict(max_seq=64, max_pages=3), "max-length")):

@@ -242,14 +242,16 @@ def _hetero_per_step(base, mtype):
 @pytest.mark.parametrize("case", ["hetero", "continuous", "spec", "mesh",
                                   "fault_plan", "obs", "quant_per_step",
                                   "quant_soft", "hetero_soft"])
-def test_remaining_refusals_raise(base, case):
+def test_remaining_refusals_raise(base, case, tmp_path):
     """The options the port still refuses, each naming its ROADMAP item,
     and JAX's own refusals. The cases once refused now hold the ported
     behaviour: continuous per-step serving equals windowed token for
     token; per-step serving over a heterogeneous bank (hard and soft
     masks) equals JAX's engine, windowed and continuous; a fault plan
     degrades the same requests as JAX's engine with the same tokens; an
-    obs bundle changes neither tokens nor host syncs."""
+    obs bundle changes neither tokens nor host syncs; per-step serving on
+    a world-1 mesh equals it off the mesh (tests/test_torch_mesh_serve.py
+    holds four ranks)."""
     tcfg, tparams = base["tcfg"], base["tparams"]
     store = base["stores"]["hard"][1]
     kw = dict(max_slots=2, max_seq=64)
@@ -306,9 +308,24 @@ def test_remaining_refusals_raise(base, case):
             assert counters["serve.decode_tokens"] == eng.decode_tokens
         return
     if case == "mesh":
-        kw[case] = object()
-        match = "item 11"
-    elif case == "spec":
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh
+        dist.init_process_group("gloo", store=dist.FileStore(
+            str(tmp_path / "store"), 1), rank=0, world_size=1)
+        out = []
+        try:
+            for mesh in (None, make_mesh((1, 1), ("data", "model"), "cpu")):
+                eng = TEngine(tcfg, tparams, store, precompute=False,
+                              mesh=mesh, **kw)
+                reqs = _requests(TRequest, base["prompts"])
+                eng.run_until_drained(list(reqs))
+                out.append([r.generated for r in reqs])
+        finally:
+            dist.destroy_process_group()
+        assert out[0] == out[1]
+        assert eng.serve_stats()["devices"] == 1
+        return
+    if case == "spec":
         tcfg = tcfg.with_(spec_enable=True)
         err, match = ValueError, "continuous=True"
     elif case == "quant_per_step":

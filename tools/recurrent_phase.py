@@ -29,8 +29,8 @@ k=50, in this order (each model freed before the next).
     under RWKV_GRAD_REL_L2 (the model's own float32 noise floor is above
     phase 7's), and the same step in float64 on both devices, the card's
     loss and gradients within chip_smoke's TRAIN_F64_REL of the CPU's;
-    then at full depth
-    (32 layers) phase 4's workload composed through
+    then on its first RWKV_LAYERS = 16 of 32 layers (the call's time)
+    phase 4's workload composed through
     ``chip_smoke.drive_path`` (held to its ``kernel_impl="ref"`` run under
     phase 4's bounds, a decode step profiled and split by op class:
     projections, adapter kernels, the rest), one batch of four 1,024-token
@@ -45,9 +45,12 @@ k=50, in this order (each model freed before the next).
     launched 0 times. Every serving path is held to its ref run under
     twice a float32 witness (``fp32_witness``): at random init the bf16
     model's own rounding, amplified with depth, is far above E2E_STEPS.
-(c) zamba2-1.2b at full size (38 layers, d=2048): one step card against
-    CPU at 6 layers (one group and the shared block), composed and int8
-    held to their ref runs, continuous on max_pages=8 (preemptions > 0)
+(c) zamba2-1.2b at full width (d=2048) and ZAMBA_LAYERS = 14 of its 38
+    layers (two groups with the shared block and a remainder of two that
+    skips it; the call's time): one step card against
+    CPU at 6 layers (one group and the shared block), composed held to
+    its ref run (no int8 run, for the call's time: rwkv6-7b's covers #5
+    and #6 on the recurrent path), continuous on max_pages=8 (preemptions > 0)
     bitwise windowed on (b)'s distinct prompt lengths, ``decode_fused=True``
     bitwise composed with #8 launched 0 times.
 
@@ -71,9 +74,12 @@ import forms_phase  # noqa: E402
 import moe_phase  # noqa: E402
 
 RWKV, ZAMBA = "rwkv6-7b", "zamba2-1.2b"
-# the depth of rwkv6-7b's int8, hetero, continuous and decode_fused runs
-# (composed and the 1,024-token batch run all 32 layers): the call's time
+# rwkv6-7b's depth on the card (of 32): its composed run and 1,024-token
+# batch; its int8, hetero, continuous and decode_fused runs take the first
+# RWKV_CUT. zamba2-1.2b's serving depth (of 38). All for the call's time.
+RWKV_LAYERS = 16
 RWKV_CUT = 8
+ZAMBA_LAYERS = 14
 HETERO_SPEC = (("bottleneck", 115), ("lora", 115), ("ia3", 26))
 # the chunked GLA against the naive fp32 recurrence: both fp32, other
 # summation orders over 1,024 tokens of unit-normal q, k, v
@@ -423,7 +429,7 @@ def fp32_witness(torch, cfg, params):
 
 def drive(torch, label, cfg, params, store, counters, check, out, runs):
     """``chip_smoke.drive_path`` with a profile cache that holds all 4
-    profiles' entries (33.6 MB each at rwkv6-7b's 32 layers, d=4096; the
+    profiles' entries (16.8 MB each at rwkv6-7b's 16 layers, d=4096; the
     engine's default 64 MB holds one), as the path's checks read them; the
     prefill logits those of the runs' own exact-length admission waves
     (``own_prefill``: one padded bucket takes another chunk, whose
@@ -591,7 +597,7 @@ def phase_rwkv(torch, counters):
         grad_rel_l2=RWKV_GRAD_REL_L2, float64=True)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(RWKV)
+    cfg = get_config(RWKV).with_(num_layers=RWKV_LAYERS)
     t = time.perf_counter()
     params = init_lm(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
@@ -649,7 +655,7 @@ def phase_zamba(torch, counters):
         .with_xpeft(max_profiles=8), label="recurrent (c) train")
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(ZAMBA)
+    cfg = get_config(ZAMBA).with_(num_layers=ZAMBA_LAYERS)
     params = init_lm(cfg, seed=0, device=DEV)
     n_w = tree_bytes({k: v for k, v in params.items() if k != "xpeft_bank"})
     n_bank = tree_bytes(params["xpeft_bank"])
@@ -660,12 +666,9 @@ def phase_zamba(torch, counters):
            f"{n_w / 1e9:.2f} GB of weights + "
            f"{n_bank / 1e9:.2f} GB of bank")
     out.update(weights_bytes=n_w, bank_bytes=n_bank)
-    store, L, xp = store_for(cfg), cfg.num_layers, cfg.xpeft
+    store, L = store_for(cfg), cfg.num_layers
     drive(torch, "zamba composed", cfg, params, store, counters,
           forms_phase.launch_check(L), out, runs)
-    drive(torch, "zamba int8_composed", cfg.with_xpeft(bank_quant="int8"),
-          params, store_for(cfg, quant="int8", quant_group=xp.quant_group),
-          counters, forms_phase.launch_check(L, quant=True), out, runs)
     st = windowed_vs_continuous(torch, "zamba", cfg, params, store, counters,
                                 dict(max_pages=ZAMBA_PAGES), 40, out, runs,
                                 phase9=False)
