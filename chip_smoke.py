@@ -305,6 +305,25 @@ Phases, in order; any failed check exits non-zero:
              ``launches_mesh`` (the (a) runs) and ``launches_mesh_b``
              (rank 0 of each (b) mesh) in each kernel row.
 
+16. mesh train — ``tools/mesh_train_phase.py``: multi-device training.
+             (a) a world-1 NCCL mesh 1x1:data,model, qwen1.5-0.5b at full
+             width and CUT_LAYERS layers: a gang step and a plain xpeft
+             step bitwise their mesh=None steps; then two processes on
+             the one card over gloo: (b) JAX's elastic drill at 2x1 (an
+             unfailed run, a run checkpointed at 4 and stopped at 6, one
+             2x1 gang step against one device), resumed in a new world of
+             one process on the surviving 1x1 mesh, its store against
+             the unfailed run's and served on the 1x1 mesh (#1 and #2
+             counted, tokens bitwise mesh=None); (c) 1x2: the plain step
+             with the frozen tree as "model" blocks in phase 7's bounds,
+             resident and peak bytes, bytes gathered, host and device ms
+             a step; (d) qwen3-moe-30b-a3b at full width, expert
+             parallel at 1x2: a forward of 8 layers under phase 12's
+             routing rule, a float32 train step at 2 layers in phase 7's
+             bounds, each rank's expert bytes half of one device's. A
+             ``{"mesh_train": ...}`` JSON line carries its numbers;
+             ``launches_mesh_train`` in each kernel row.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
 """
@@ -3805,6 +3824,13 @@ def main():
     import mesh_phase
     mesh = mesh_phase.phase_mesh(torch)
     lap("15 mesh")
+    # 16. multi-device training: a world-1 NCCL mesh in this process, the
+    # MoE reference, then two processes on the one card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    import mesh_train_phase
+    mesh_train = mesh_train_phase.phase_mesh_train(torch)
+    lap("16 mesh train")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -3953,6 +3979,10 @@ def main():
                                 for run, n in mesh["runs"].items()}
         row["launches_mesh_b"] = {run: n.get(row["name"], 0)
                                   for run, n in mesh["runs_b"].items()}
+        # phase 16: the resumed drill's store served on the 1x1 mesh
+        row["launches_mesh_train"] = {
+            run: n.get(row["name"], 0)
+            for run, n in mesh_train["runs"].items()}
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -3974,6 +4004,7 @@ def main():
     log(json.dumps({"recurrent": {k: v for k, v in recurrent.items()
                                   if k != "kernel_rows"}}, default=str))
     log(json.dumps({"mesh": mesh}, default=str))
+    log(json.dumps({"mesh_train": mesh_train}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

@@ -13,8 +13,17 @@ re-labelled from the manifest's dtype record on restore: numpy has no
 bf16 dtype without ``ml_dtypes``, which the port does not use.
 
 An async save makes the blocking device -> host copy first, then writes
-on a daemon thread that ``wait()`` joins. Restoring onto another device
-mesh (JAX's ``shardings``) is ROADMAP queue 1, item 11.
+on a daemon thread that ``wait()`` joins.
+
+On a mesh (``mesh=``) every rank calls ``save`` at the same steps: each
+``Sharded`` leaf (a slot-packed roster's rows, a frozen tree's blocks) is
+gathered whole, and the mesh's rank 0 writes the same ``state.npz`` and
+``MANIFEST.json`` a one-device save writes; every rank meets at a barrier
+after a blocking write and in ``wait()``, so none reads ``latest_step``
+before the file is there. ``restore(shardings=)`` has each rank read the
+payload and cut its own block for the mesh it names. The format never
+changes, so a checkpoint written on any mesh restores on any other mesh,
+or on none.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.resilience.integrity import CheckpointCorruptError, \
     file_crc
 from repro_torch.utils.tree import map_with_path, tree_paths
@@ -65,9 +75,12 @@ def _dtype_name(leaf) -> str:
 
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3,
-                 fault_plan=None):
+                 fault_plan=None, mesh=None):
         self.dir = directory
         self.keep_last = keep_last
+        # on a mesh every rank gathers, its rank 0 alone writes
+        self.mesh = mesh
+        self.writer = mesh is None or SH.is_lead(mesh)
         self._thread: Optional[threading.Thread] = None
         # chaos seam: a FaultPlan may truncate a payload AFTER its manifest
         # checksum was computed, the torn-write case verify_step catches
@@ -79,16 +92,24 @@ class CheckpointManager:
              extra: Optional[dict] = None):
         """Snapshot to host memory synchronously, write to disk (with
         ``blocking=False`` on a daemon thread). The device -> host copy is
-        the only blocking part."""
-        paths = tree_paths(state)
+        the only blocking part. On a mesh, every rank calls it: the
+        ``Sharded`` leaves are gathered whole (collectives) and rank 0
+        writes."""
+        paths = tree_paths(SH.whole_tree(state))
+        if not self.writer:
+            if blocking:
+                SH.barrier(self.mesh)
+            return
         host_flat = {k: _to_host(v) for k, v in paths.items()}
         meta = {"step": int(step), "time": time.time(),
                 "extra": _jsonify(extra or {}),
                 "dtypes": {k: _dtype_name(v) for k, v in paths.items()}}
         if blocking:
             self._write(step, host_flat, meta)
+            if self.mesh is not None:
+                SH.barrier(self.mesh)
         else:
-            self.wait()
+            self._join()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_flat, meta), daemon=True)
             self._thread.start()
@@ -116,6 +137,13 @@ class CheckpointManager:
         self._gc()
 
     def wait(self):
+        """Join the async write; on a mesh every rank then meets, so the
+        checkpoint is on disk for all of them."""
+        self._join()
+        if self.mesh is not None:
+            SH.barrier(self.mesh)
+
+    def _join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
@@ -176,11 +204,11 @@ class CheckpointManager:
     def restore(self, step: int, like_state, shardings=None):
         """Rebuild the state tree from disk in ``like_state``'s nesting:
         each leaf on the device of the matching leaf of ``like_state``,
-        with its dtype. Verifies the payload checksum first."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=): placement on a device mesh is not "
-                "ported (ROADMAP queue 1, item 11)")
+        with its dtype. Verifies the payload checksum first.
+
+        ``shardings``: a tree of ``like_state``'s nesting whose leaves are
+        ``SH.Sharding`` (this rank keeps its block of the whole leaf) or
+        None (whole); without it every leaf comes back whole."""
         self.verify_step(step)
         meta = self.manifest(step)
         dtypes = meta.get("dtypes", {})
@@ -191,6 +219,7 @@ class CheckpointManager:
         if set(paths) != set(flat):
             raise ValueError(f"checkpoint/state mismatch: "
                              f"{sorted(set(paths) ^ set(flat))}")
+        where = tree_paths(shardings) if shardings is not None else {}
 
         def leaf(path, like):
             arr = flat[path]
@@ -198,8 +227,11 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            if torch.is_tensor(like):
-                return t.to(device=like.device, dtype=like.dtype)
+            # this rank's block, cut on the host before the copy
+            t = SH.put(t, where.get(path))
+            if t is not None and (torch.is_tensor(like)
+                                  or isinstance(like, SH.Sharded)):
+                t = SH.to(t, device=like.device, dtype=like.dtype)
             return t
         return map_with_path(leaf, like_state)
 

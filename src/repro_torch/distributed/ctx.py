@@ -63,6 +63,23 @@ def mesh_context(mesh, act_rules: Optional[dict] = None,
         _state.reset(tok)
 
 
+def current():
+    """The active context (mesh, rules, sizes), or None: what
+    ``restored`` re-enters where the context variable does not reach (an
+    autograd worker thread recomputing a checkpointed layer)."""
+    return _state.get()
+
+
+@contextlib.contextmanager
+def restored(state):
+    """Re-enter a context ``current()`` returned."""
+    tok = _state.set(state)
+    try:
+        yield
+    finally:
+        _state.reset(tok)
+
+
 def active_mesh():
     st = _state.get()
     return st["mesh"] if st else None

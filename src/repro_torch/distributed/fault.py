@@ -1,13 +1,14 @@
 """Fault tolerance of the training loop, the port of
 ``repro.distributed.fault``: the data re-balancer, preemption handling,
-and the step watchdog (``StepWatchdog`` lives in
-``repro_torch.obs.metrics`` and is re-exported here).
+the step watchdog (``StepWatchdog`` lives in ``repro_torch.obs.metrics``
+and is re-exported here), and elastic resize: ``surviving_mesh`` builds
+the mesh left after a node failure and ``reshard_state`` moves a training
+state onto it.
 
-Every mechanism here is host-side. The elastic half of the JAX module,
-``reshard_state`` and ``surviving_mesh`` (moving a sharded training state
-onto the mesh that survives a node failure), belongs to the training half
-of multi-device, which is not ported (ROADMAP queue 1, item 11; the port
-serves on a mesh): those names raise ``NotImplementedError``.
+The process set stays the world of ``torch.distributed`` (JAX's
+``jax.devices()``): the surviving mesh is built over its first ranks,
+every rank taking part in the build, and the ranks left out hold no
+block of a state moved onto it.
 """
 from __future__ import annotations
 
@@ -16,11 +17,12 @@ import threading
 from typing import Callable, Dict, List
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.obs.metrics import StepWatchdog  # noqa: F401  (re-export)
-
-_MESH = ("elastic resharding of a training state is the training half of "
-         "multi-device, which is not ported (ROADMAP queue 1, item 11)")
+from repro_torch.utils.tree import tree_map
 
 
 def rebalance_assignment(num_examples: int, hosts: List[int],
@@ -81,10 +83,39 @@ class PreemptionHandler:
         self._flag.set()
 
 
+# ----------------------------------------------------------------------------
+# Elastic resize
+# ----------------------------------------------------------------------------
+
 def reshard_state(state, new_shardings):
-    raise NotImplementedError(f"reshard_state: {_MESH}")
+    """Move a (possibly sharded) tree onto new shardings, the core of
+    elastic shrink and grow after a node failure: each leaf is gathered
+    whole from its old blocks (a collective over its old mesh, so every
+    rank of that mesh calls this) and cut into its ``Sharding`` in
+    ``new_shardings`` (a tree of the state's nesting; None keeps a leaf
+    whole). Gathering moves bytes, so the move is bitwise; a rank outside
+    a new mesh holds None for that leaf."""
+    return tree_map(lambda x, sh: SH.put(SH.whole(x), sh), state,
+                    new_shardings)
 
 
 def surviving_mesh(axis_names, shape, failed_fraction_axis: str,
-                   new_size: int):
-    raise NotImplementedError(f"surviving_mesh: {_MESH}")
+                   new_size: int, device_type: str = "cuda"):
+    """The post-failure mesh: ``failed_fraction_axis`` shrinks to
+    ``new_size`` and the mesh takes the world's first ranks, as JAX's
+    takes ``jax.devices()[:n]``. Every rank of the world must call it
+    (its groups are built collectively); ranks past the first n get a
+    mesh they hold no position in. Without a process group it returns the
+    ``{axis: size}`` mapping, which the spec functions read as a mesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sizes = dict(zip(axis_names, shape))
+    sizes[failed_fraction_axis] = new_size
+    n = int(np.prod(list(sizes.values())))
+    if not dist.is_initialized():
+        return sizes
+    if n > dist.get_world_size():
+        raise ValueError(f"surviving mesh {sizes} needs {n} ranks, the "
+                         f"world has {dist.get_world_size()}")
+    ranks = torch.arange(n).reshape(*sizes.values())
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(sizes))

@@ -23,7 +23,10 @@ kernel needs. The port has no GSPMD, so it places explicitly:
 the whole tensor back together with one ``all_gather`` per named axis
 (bitwise: gathering moves bytes), and ``Sharded`` holds a leaf as its
 block at rest, to be gathered where it is used (``whole``, ``layer``,
-``rows``).
+``rows``). A ``Sharding`` is a (mesh, spec) pair, JAX's
+``NamedSharding``: ``put`` holds a whole tensor under one,
+``constrain_leading`` holds a slot-packed tree as each rank's rows of
+its leading dim, and ``whole_tree`` gathers any such tree back whole.
 """
 from __future__ import annotations
 
@@ -499,3 +502,126 @@ def global_meta(local, spec, mesh):
     sizes = axis_sizes(mesh)
     shape = [s * _size(P(e), sizes) for s, e in zip(local.shape, spec)]
     return torch.empty(shape, dtype=local.dtype, device="meta")
+
+
+# ----------------------------------------------------------------------------
+# Shardings: where a leaf lives, and trees of them
+# ----------------------------------------------------------------------------
+
+class Sharding:
+    """A (mesh, spec) pair: the stand-in for ``jax.sharding.NamedSharding``.
+    ``put`` holds a whole tensor under it."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, P(*spec)
+
+    def __repr__(self):
+        return f"Sharding({axis_sizes(self.mesh)}, {self.spec!r})"
+
+
+def to_shardings(specs, mesh):
+    """A spec tree -> a tree of ``Sharding(mesh, spec)`` (JAX's
+    ``to_shardings``)."""
+    return tree_map(lambda s: Sharding(mesh, s), specs)
+
+
+def sharding_of(x):
+    """The ``Sharding`` a ``Sharded`` leaf is held under; None for a whole
+    tensor."""
+    return Sharding(x.mesh, x.spec) if isinstance(x, Sharded) else None
+
+
+def shardings_of(tree):
+    return tree_map(sharding_of, tree)
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this process holds a position in ``mesh`` (a mesh built
+    over part of the world leaves the other ranks out)."""
+    return mesh.get_coordinate() is not None
+
+
+def is_lead(mesh) -> bool:
+    """Whether this rank sits at coordinate 0 of every axis of ``mesh``:
+    the rank that writes files and prints."""
+    coord = mesh.get_coordinate()
+    return coord is not None and not any(coord)
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` meets here: a barrier on each axis's group
+    in turn, which together reach every rank."""
+    for g in mesh.get_all_groups():
+        dist.barrier(group=g)
+
+
+def put(x, sharding):
+    """A whole tensor held under ``sharding``: this rank's ``Sharded``
+    block, ``x`` itself where the spec keeps it whole (or with no
+    sharding), None on a rank outside the sharding's mesh."""
+    if sharding is None:
+        return x
+    if not in_mesh(sharding.mesh):
+        return None
+    return place(x, sharding.spec, sharding.mesh)
+
+
+def constrain_leading(tree, mesh, axis: str = "data"):
+    """JAX's ``constrain_leading`` for the port: a slot-packed tree of
+    whole tensors held as each rank's rows of its leading dim
+    (``leading_axis_specs``), so per-slot work stays on the rank that
+    holds the slot. No-op without a mesh."""
+    if mesh is None:
+        return tree
+    return place(tree, leading_axis_specs(tree, mesh, axis), mesh)
+
+
+def local(x):
+    """This rank's block of a ``Sharded`` leaf, or the tensor itself."""
+    return x.local if isinstance(x, Sharded) else x
+
+
+def to(x, **kw):
+    """``Tensor.to`` on a tensor or on a ``Sharded`` leaf's block."""
+    if isinstance(x, Sharded):
+        return Sharded(x.local.to(**kw), x.spec, x.mesh, x.shape)
+    return x.to(**kw)
+
+
+def local_tree(tree):
+    return tree_map(local, tree)
+
+
+def row_range(x) -> Tuple[int, int]:
+    """(first row, rows) this rank holds of a leaf's leading dim: all of
+    them for a whole tensor, its block's for a leading-axis ``Sharded``."""
+    if not isinstance(x, Sharded) or x.spec[0] is None:
+        return 0, int(x.shape[0])
+    n = x.local.shape[0]
+    idx = 0
+    sizes = axis_sizes(x.mesh)
+    for a in _axes(x.spec[0]):
+        idx = idx * sizes[a] + x.mesh.get_local_rank(a)
+    return idx * n, n
+
+
+def layer_block(x, l):
+    """``x[l]`` of a layer-stacked leaf with its "model" axis left as this
+    rank's block and every other named axis gathered (the expert-parallel
+    weights: experts stay over "model", a "data" split of their ff dim is
+    gathered, as ``_moe_shard_map`` all-gathers it)."""
+    if not isinstance(x, Sharded):
+        return x[l]
+    assert x.spec[0] is None, x.spec
+    assert all("model" not in _axes(e) or _axes(e) == ("model",)
+               for e in x.spec), x.spec
+    spec = P(*(None if _axes(e) == ("model",) else e for e in x.spec[1:]))
+    return gather(x.local[l], spec, x.mesh)
+
+
+def rank_sum(x, mesh, axis: str):
+    """``x`` summed over the ranks of ``axis`` in rank order (gathered,
+    then added): the same bits on every rank and every backend."""
+    if axis_sizes(mesh)[axis] == 1:
+        return x
+    return torch.stack(all_gather(x, mesh.get_group(axis))).sum(0)

@@ -21,8 +21,20 @@ the newest one that verifies), a preemption signal checkpoints and stops.
 Chrome trace. The plain flow draws ``MarkovLM.sample(step, batch, seq)``
 through a ``ShardedLoader``, with the Gumbel noise from a
 ``torch.Generator`` seeded ``--seed + 1``. Runs on the card unless
-``--device cpu`` is passed. ``--mesh`` (sharded training) raises
-``NotImplementedError``: ROADMAP queue 1, item 11.
+``--device cpu`` is passed.
+
+``--mesh 2x1:data,model`` trains on a mesh of the processes ``torchrun``
+starts (NCCL on the card, gloo on the CPU, or ``--backend``), both flows:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --smoke --device cpu \\
+      --mesh 2x1:data,model [--onboard]
+
+The plain flow holds the frozen tree as "model" blocks and each rank's
+``ShardedLoader`` draws its rows of the batch (``host_id`` the rank's
+data index, ``num_hosts`` the data size); ``--onboard`` puts the
+roster's slots over "data". Every rank runs the same loop; rank 0 prints
+and writes the checkpoints and the store.
 """
 from __future__ import annotations
 
@@ -48,7 +60,12 @@ def parse_args(argv=None):
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default="")
+    ap.add_argument("--mesh", default="",
+                    help="train on a mesh, e.g. 2x1:data,model (one "
+                         "process per device, started by torchrun)")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend of --mesh (default: nccl "
+                         "on the card, gloo on the CPU)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -68,11 +85,30 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--store-out", default="")
     OBS.add_cli_args(ap)  # --metrics-json PATH, --trace PATH
-    args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharded training (ROADMAP queue "
-                                  "1, item 11) is not ported")
-    return args
+    return ap.parse_args(argv)
+
+
+def setup_mesh(args):
+    """(device, mesh) of a run: with ``--mesh``, the process joins the
+    group ``torchrun`` describes and the mesh is built over it."""
+    from repro_torch.utils import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.mesh:
+        return device, None
+    from repro_torch.launch import mesh as MESH
+
+    MESH.init_distributed(device, args.backend)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, MESH.parse_mesh(args.mesh, device.type)
+
+
+def _say(mesh):
+    from repro_torch.distributed import sharding as SH
+
+    return print if mesh is None or SH.is_lead(mesh) else \
+        (lambda *a, **k: None)
 
 
 def _config(args):
@@ -89,35 +125,45 @@ def _report_obs(obs, args) -> None:
               f"events {obs.tracer.category_counts()}")
 
 
-def build(args):
-    """(cfg, state, step, source, generator) of a plain run."""
+def build(args, device=None, mesh=None):
+    """(cfg, state, step, source, generator) of a plain run; on a mesh the
+    state's frozen tree held as this rank's blocks."""
     from repro_torch.data import MarkovLM
-    from repro_torch.train.steps import init_train_state, make_train_step
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         shard_train_state)
     from repro_torch.utils import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if device is None else device)
     cfg = _config(args).with_xpeft(max_profiles=max(args.profiles, 2))
     state = init_train_state(cfg, args.mode, seed=args.seed, device=device)
-    step = make_train_step(cfg, args.mode, lr=args.lr)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
+    step = make_train_step(cfg, args.mode, lr=args.lr, mesh=mesh)
     source = MarkovLM(cfg.vocab_size, args.profiles, seed=args.seed)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     return cfg, state, step, source, gen
 
 
-def run(args, observe=None, preemption=None):
+def run(args, observe=None, preemption=None, device=None, mesh=None):
     """The plain training loop through ``Trainer``: ``args.steps`` steps
     over ``ShardedLoader(MarkovLM, batch, seq)`` (after a resume,
     ``args.steps`` more). ``observe(i, state)``, if given, returns a
     context manager entered around step i, given the state before it
     (timers, profilers); ``preemption`` a ``PreemptionHandler`` (the
-    command line installs one). Returns dict(cfg, state, step, source,
+    command line installs one); ``mesh`` a mesh the process group already
+    holds (``setup_mesh``). Returns dict(cfg, state, step, source,
     generator, history, trainer), the history one record of host floats
     per step."""
     from repro_torch import obs as OBS
     from repro_torch.data import ShardedLoader
+    from repro_torch.train.steps import _batch_share
     from repro_torch.train.trainer import Trainer
 
-    cfg, state, step, source, gen = build(args)
+    cfg, state, step, source, gen = build(args, device, mesh)
+    host, hosts, _ = (0, 1, ()) if mesh is None else _batch_share(mesh)
+    if args.batch % hosts:
+        raise ValueError(f"--batch {args.batch} does not split over "
+                         f"{hosts} data ranks")
     obs = OBS.from_cli_args(args)
     observe = observe or (lambda i, state: contextlib.nullcontext())
     holder = {}
@@ -127,23 +173,26 @@ def run(args, observe=None, preemption=None):
             return step(state, batch, rng)
 
     trainer = Trainer(observed, state,
-                      ShardedLoader(source, args.batch, args.seq),
+                      ShardedLoader(source, args.batch, args.seq,
+                                    host_id=host, num_hosts=hosts),
                       ckpt_dir=args.ckpt_dir or None,
                       ckpt_every=args.ckpt_every,
-                      preemption=preemption, rng=gen, obs=obs)
+                      preemption=preemption, rng=gen, obs=obs, mesh=mesh)
     holder["trainer"] = trainer
     if args.resume and trainer.try_resume():
-        print(f"resumed from step {trainer.step}")
+        _say(mesh)(f"resumed from step {trainer.step}")
     hist = trainer.run(args.steps)
-    _report_obs(obs, args)
+    if trainer.lead:
+        _report_obs(obs, args)
     return dict(cfg=cfg, state=trainer.state, step=step, source=source,
                 generator=trainer.rng, history=hist, trainer=trainer)
 
 
-def run_onboarding(args):
+def run_onboarding(args, device=None, mesh=None):
     """--onboard: stream P >> S profiles through an S-slot roster and
     graduate converged profiles into a ProfileStore (the train -> serve
-    loop). Returns the trainer."""
+    loop); on a mesh the roster's slots over "data". Returns the
+    trainer."""
     from repro_torch import obs as OBS
     from repro_torch.data import MarkovLM, ProfileClassification
     from repro_torch.distributed.fault import PreemptionHandler
@@ -166,26 +215,29 @@ def run_onboarding(args):
     trainer, _ = build_onboarding_run(
         cfg, source, range(args.profiles), slots=args.roster_slots,
         per_slot=args.per_slot_batch, seq_len=args.seq, policy=policy,
-        lr=args.lr, seed=args.seed, device=args.device,
+        lr=args.lr, seed=args.seed,
+        device=args.device if device is None else device, mesh=mesh,
         store_path=args.store_out or None,
         ckpt_dir=args.ckpt_dir or None, ckpt_every=args.ckpt_every,
         preemption=PreemptionHandler(), log_every=args.log_every, obs=obs)
     scheduler, store = trainer.scheduler, trainer.scheduler.store
+    say = _say(mesh)
     if args.resume and trainer.try_resume():
-        print(f"resumed onboarding from step {trainer.step}: "
-              f"{scheduler.stats()}")
+        say(f"resumed onboarding from step {trainer.step}: "
+            f"{scheduler.stats()}")
     trainer.run_until_drained(max_steps=args.steps)
     st = scheduler.stats()
-    print(f"onboarding done at step {trainer.step}: "
+    say(f"onboarding done at step {trainer.step}: "
           f"{st['graduated']} graduated, {st['evicted']} evicted, "
-          f"{st['quarantined']} quarantined, {st['in_training']} in "
-          f"training, {st['pending']} pending, host syncs/step "
-          f"{trainer.host_syncs / max(trainer.step, 1):.3f}")
-    if args.store_out:
+        f"{st['quarantined']} quarantined, {st['in_training']} in "
+        f"training, {st['pending']} pending, host syncs/step "
+        f"{trainer.host_syncs / max(trainer.step, 1):.3f}")
+    if args.store_out and trainer.lead:
         store.save(args.store_out)
-        print(f"wrote {args.store_out}: {len(store.profile_ids())} profiles, "
-              f"{store.bytes_per_profile()} B/profile (masks)")
-    _report_obs(obs, args)
+        say(f"wrote {args.store_out}: {len(store.profile_ids())} profiles, "
+            f"{store.bytes_per_profile()} B/profile (masks)")
+    if trainer.lead:
+        _report_obs(obs, args)
     if st["graduated"] == 0:
         raise SystemExit("onboarding graduated zero profiles")
     if not scheduler.finished():
@@ -202,17 +254,25 @@ def run_onboarding(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.onboard:
-        return run_onboarding(args)
-    from repro_torch.distributed.fault import PreemptionHandler
+    device, mesh = setup_mesh(args)
+    try:
+        if args.onboard:
+            return run_onboarding(args, device, mesh)
+        from repro_torch.distributed.fault import PreemptionHandler
 
-    out = run(args, preemption=PreemptionHandler())
-    hist = out["history"]
-    if hist:
-        print(f"final loss {hist[-1]['loss']:.4f} after step "
-              f"{hist[-1]['step']} (grad norm {hist[-1]['grad_norm']:.4f}; "
-              f"stragglers {out['trainer'].watchdog.slow_steps})")
-    return out
+        out = run(args, preemption=PreemptionHandler(), device=device,
+                  mesh=mesh)
+        hist = out["history"]
+        if hist:
+            _say(mesh)(f"final loss {hist[-1]['loss']:.4f} after step "
+                       f"{hist[-1]['step']} (grad norm "
+                       f"{hist[-1]['grad_norm']:.4f}; stragglers "
+                       f"{out['trainer'].watchdog.slow_steps})")
+        return out
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ layouts, layers stacked on a leading L axis; the ``lax.scan`` over layers
 becomes a Python loop over that axis. A serving mesh holds its
 model-sharded leaves as ``distributed.sharding.Sharded`` blocks: the loop
 gathers each layer's whole before use (the embedding looks its rows up
-on the rank that holds them), so every layer runs its one-device code.
+on the rank that holds them), so every layer runs its one-device code;
+under autograd each such layer is a checkpoint, gathered again in the
+backward. A MoE layer under JAX's expert-parallel condition
+(``models/moe.py``'s ``ep_mesh``) keeps its experts as this rank's blocks.
 With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
 attention + MLP + adapter (``_decode_fused_route``, as JAX decides it).
@@ -47,9 +50,11 @@ engine's resident leaves reach its pool only that way.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank, init_hetero_bank
+from repro_torch.distributed import ctx as CTX
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import attention as ATT
@@ -424,12 +429,23 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
                                       T)
     meta = layer_meta(cfg)
     recurrent = cfg.block_pattern != "attn"
-    auxs = []
-    for l in range(cfg.num_layers):
-        # a mesh engine's model-sharded leaves (``SH.Sharded``) are
-        # gathered whole here, one layer at a time, so the layer code and
-        # its kernels run as on one device
-        block = {name: {k: SH.layer(v, l) for k, v in sub.items()}
+    # JAX's condition for the expert-parallel MoE path: its experts stay
+    # this rank's blocks, every other sharded leaf is gathered whole
+    ep = MOE.ep_mesh(cfg) is not None
+    # the mesh context, for a layer recomputed on an autograd thread
+    mesh_ctx = CTX.current()
+
+    def run_layer(x, l):
+        """Layer l on x: (x, the layer's MoE aux or None)."""
+        with CTX.restored(mesh_ctx):
+            return layer_body(x, l)
+
+    def layer_body(x, l):
+        # a mesh's model-sharded leaves (``SH.Sharded``) are gathered
+        # whole here, one layer at a time, so the layer code and its
+        # kernels run as on one device
+        block = {name: {k: SH.layer_block(v, l) if ep and name == "moe"
+                        else SH.layer(v, l) for k, v in sub.items()}
                  for name, sub in blocks.items()}
         cache_l = None if cache is None else \
             {k: v[l] for k, v in cache.items()
@@ -455,13 +471,13 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
                     cache_l=None if cache is None else
                     {"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
                     cache_pos=cache_pos)
-            continue
+            return x, None
         if fused_route is not None:
             # the block and the adapter in one launch: no _xpeft_apply
-            x = _decode_fused_apply(block, x, masks_l, cfg,
-                                    positions=positions, cache_l=cache_l,
-                                    cache_pos=cache_pos, route=fused_route)
-            continue
+            return _decode_fused_apply(block, x, masks_l, cfg,
+                                       positions=positions, cache_l=cache_l,
+                                       cache_pos=cache_pos,
+                                       route=fused_route), None
         front_skip = extra_kv = None
         if cache is not None and masks_l is not None \
                 and "prefix_skip" in masks_l:
@@ -478,9 +494,21 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
                                    cache_l=cache_l, cache_pos=cache_pos,
                                    is_global=meta[l], front_skip=front_skip,
                                    extra_kv=extra_kv)
+        return _xpeft_apply(x, bank_l, masks_l, cfg), aux
+
+    # Under autograd, a layer holding sharded leaves runs as a checkpoint:
+    # the backward gathers its weights again instead of keeping every
+    # gathered layer alive, so a rank's peak holds one whole layer
+    leaves = [v for sub in blocks.values() for v in sub.values()] \
+        + list((bank or {}).values())
+    regather = torch.is_grad_enabled() and cache is None and any(
+        isinstance(v, SH.Sharded) for v in leaves)
+    auxs = []
+    for l in range(cfg.num_layers):
+        x, aux = checkpoint(run_layer, x, l, use_reentrant=False) \
+            if regather else run_layer(x, l)
         if aux is not None:
             auxs.append(aux)
-        x = _xpeft_apply(x, bank_l, masks_l, cfg)
     x = norm_apply(x, params["final_norm"], cfg.norm)
     # JAX's jnp.mean over the layers' aux (0 for a dense block)
     aux = torch.stack(auxs).mean() if auxs else \

@@ -1,9 +1,22 @@
 """Mixture-of-Experts with sort-based capacity dispatch.
 
-The port of ``repro.models.moe``'s local path (``_moe_local``); its
-expert-parallel ``shard_map`` path is multi-device (ROADMAP queue 1, item
-11). Layouts are JAX's: ``router [d, E]`` in fp32, ``ew_g``/``ew_u
-[E, d, ff]``, ``ew_d [E, ff, d]``.
+The port of ``repro.models.moe``: the local path (``_moe_local``) and the
+expert-parallel path (``_moe_shard_map``), taken under JAX's condition
+(``ep_mesh``: an active mesh with a "model" axis dividing the experts,
+``moe_impl="sort"``). Layouts are JAX's: ``router [d, E]`` in fp32,
+``ew_g``/``ew_u [E, d, ff]``, ``ew_d [E, ff, d]``.
+
+Expert parallelism, as JAX's: the tokens are the rank's batch rows,
+whole over "model", and each "model" peer holds E / model experts (a
+block, or its slice of whole weights). Every peer routes all its tokens
+(the capacity from its own token count), dispatches onto its own
+experts, combines their outputs in the fixed order below, and one sum
+over "model" (gathered, added in rank order) combines the peers; under
+autograd the aux is averaged over the batch axes. For the gradient the
+tokens enter the experts, and the route weights the combine, through
+Megatron's f (identity forward, the gradient summed over "model"
+backward), and the peer sum's backward is the identity: every peer then
+holds the whole gradient of x and of the router, and its experts' own.
 
 Routing follows ``moe.py:55-95`` op for op: fp32 router logits, softmax,
 ``top_k``, the weights renormalised by their sum; with
@@ -34,6 +47,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import ctx as CTX
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import activation, dense_init
 
 
@@ -79,8 +94,27 @@ def ranks(topi, C: int, E: int):
     return pos, pos < C
 
 
+def ep_mesh(cfg):
+    """The active mesh where JAX's ``moe_apply`` takes the expert-parallel
+    path (a "model" axis dividing the experts, ``moe_impl="sort"``), else
+    None."""
+    mesh = CTX.active_mesh()
+    if mesh is None or cfg.moe_impl != "sort" or not cfg.num_experts:
+        return None
+    m = SH.axis_sizes(mesh).get("model")
+    return mesh if m and cfg.num_experts % m == 0 else None
+
+
 def moe_apply(params, x, cfg):
-    """x [B, T, d] -> ([B, T, d], aux)."""
+    """x [B, T, d] -> ([B, T, d], aux): the expert-parallel path under
+    ``ep_mesh``, else the local path."""
+    mesh = ep_mesh(cfg)
+    if mesh is not None:
+        return _moe_ep(params, x, cfg, mesh)
+    return _moe_local(params, x, cfg)
+
+
+def _moe_local(params, x, cfg):
     B, T, d = x.shape
     n, E, k = B * T, cfg.num_experts, cfg.top_k
     x2 = x.reshape(n, d)
@@ -99,15 +133,29 @@ def moe_apply(params, x, cfg):
 
     C = capacity(n, cfg)
     pos, keep = ranks(topi, C, E)
-    # kept routes' buffer rows; dropped ones go to the scratch row E * C
-    dest = torch.where(keep, topi * C + pos, E * C)
+    out = _dispatch(x2, topw, topi, pos, keep, params, C, 0, E, act)
+    return out.reshape(B, T, d), aux_loss(probs, topi, E)
+
+
+def _dispatch(x2, topw, topi, pos, keep, experts, C: int, lo: int,
+              n_exp: int, act):
+    """The sort dispatch onto experts [lo, lo + n_exp) (``experts``' leaves
+    hold exactly those), their GEMMs and the combine of their routes:
+    [n, d], zero rows for tokens routed elsewhere."""
+    n, k = topi.shape
+    d = x2.shape[1]
+    # kept routes' buffer rows; dropped and foreign ones go to the scratch
+    # row n_exp * C
+    mine = keep & (topi >= lo) & (topi < lo + n_exp)
+    dest = torch.where(mine, (topi - lo) * C + pos, n_exp * C)
     rows = x2[:, None, :].expand(n, k, d).reshape(n * k, d)
-    buf = x2.new_zeros((E * C + 1, d)).index_put((dest.reshape(-1),), rows)
-    buf = buf[:E * C].view(E, C, d)
-    g = torch.bmm(buf, params["ew_g"])
-    u = torch.bmm(buf, params["ew_u"])
-    y = torch.bmm(act(g) * u, params["ew_d"])
-    y = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+    buf = x2.new_zeros((n_exp * C + 1, d)).index_put((dest.reshape(-1),),
+                                                      rows)
+    buf = buf[:n_exp * C].view(n_exp, C, d)
+    g = torch.bmm(buf, experts["ew_g"])
+    u = torch.bmm(buf, experts["ew_u"])
+    y = torch.bmm(act(g) * u, experts["ew_d"])
+    y = torch.cat([y.reshape(n_exp * C, d), y.new_zeros((1, d))])
 
     # each token's routes in ascending expert id, summed one at a time
     perm = torch.argsort(topi, dim=1)
@@ -122,7 +170,84 @@ def moe_apply(params, x, cfg):
     out = torch.zeros((n, d), dtype=y.dtype, device=y.device)
     for j in range(k):
         out = out + contrib[:, j]
-    return out.reshape(B, T, d), aux_loss(probs, topi, E)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f over "model": the identity forward, the gradient
+    summed over the "model" peers (in rank order) backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return SH.rank_sum(g.contiguous(), ctx.mesh, "model"), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Megatron's g over "model": the peers' partial outputs summed in
+    rank order forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return SH.rank_sum(x, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOverBatch(torch.autograd.Function):
+    """A scalar averaged over the batch axes forward (JAX's ``pmean``), the
+    identity backward: each rank's loss then carries its own rows' aux
+    gradient, which the train step's gradient mean averages."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        sizes = SH.axis_sizes(mesh)
+        for a in SH.batch_axes(mesh):
+            if sizes[a] > 1:
+                x = SH.rank_sum(x, mesh, a) / sizes[a]
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _expert_slice(w, lo: int, n_exp: int):
+    """A peer's experts of an expert leaf: the leaf itself where it is
+    the peer's block, else its rows [lo, lo + n_exp)."""
+    return w if w.shape[0] == n_exp else w[lo:lo + n_exp]
+
+
+def _moe_ep(params, x, cfg, mesh):
+    """JAX's ``_moe_shard_map`` on this rank's tokens and its "model"
+    peer's experts."""
+    B, T, d = x.shape
+    n, E, k = B * T, cfg.num_experts, cfg.top_k
+    n_exp = E // SH.axis_sizes(mesh)["model"]
+    lo = mesh.get_local_rank("model") * n_exp
+    experts = {key: _expert_slice(params[key], lo, n_exp)
+               for key in ("ew_g", "ew_u", "ew_d")}
+    x2 = x.reshape(n, d)
+    _, probs, topw, topi = route(params["router"], x2, k)
+    C = capacity(n, cfg)
+    pos, keep = ranks(topi, C, E)
+    out = _dispatch(_CopyToModel.apply(x2, mesh),
+                    _CopyToModel.apply(topw, mesh), topi, pos, keep,
+                    experts, C, lo, n_exp, activation(cfg.act))
+    out = _SumOverModel.apply(out, mesh)
+    aux = aux_loss(probs, topi, E)
+    if torch.is_grad_enabled():
+        # training: every rank steps in lockstep. Serving drops the aux,
+        # and its data ranks' forwards do not run in step (each admits its
+        # own slots), so it makes no collective across them
+        aux = _MeanOverBatch.apply(aux, mesh)
+    return out.reshape(B, T, d), aux
 
 
 def aux_loss(probs, topi, E: int):

@@ -146,18 +146,20 @@ class FaultPlan:
     def poisons_gang(self) -> bool:
         return bool(self.poison_slots)
 
-    def gang_poison_mask(self, slot_step, capacity: int):
-        """[S] bool tensor: slots whose grads this step poisons, decided
-        from the device-resident per-slot step counter ``slot_step`` [S]
-        (on its device, no host sync), so the injection is deterministic
-        across resumes."""
+    def gang_poison_mask(self, slot_step, capacity: int, first: int = 0):
+        """Bool tensor of ``slot_step``'s shape: slots whose grads this step
+        poisons, decided from the device-resident per-slot step counter
+        ``slot_step`` (on its device, no host sync), so the injection is
+        deterministic across resumes. ``slot_step`` covers the global
+        slots ``[first, first + len)`` of a roster of ``capacity`` (a mesh
+        rank's rows; all of them off a mesh)."""
         import torch
 
         # built on the device from scalars: a host -> device copy would
         # synchronize the stream every step
-        ar = torch.arange(capacity, device=slot_step.device)
-        sel = torch.zeros((capacity,), dtype=torch.bool,
-                          device=slot_step.device)
+        n = slot_step.shape[0]
+        ar = torch.arange(first, first + n, device=slot_step.device)
+        sel = torch.zeros((n,), dtype=torch.bool, device=slot_step.device)
         for s in self.poison_slots:
             if 0 <= int(s) < capacity:
                 sel = sel | (ar == int(s))

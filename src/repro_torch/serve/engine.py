@@ -69,14 +69,20 @@ Multi-device (``mesh=``, a ``torch.distributed`` ``DeviceMesh`` with a
 requests, so the scheduler, allocators, profile cache and host mirrors
 stay identical, and the device state is laid out as follows.
 
-- Params and a quantized bank take JAX's ``param_specs(fsdp=False)`` and
+- Params and a quantized bank take JAX's ``param_specs(fsdp=False)``,
+  the experts' ff dim kept off "data" (JAX pins it there; each data rank
+  runs its own forwards, so a layer's gathers span "model" alone), and
   are held as this rank's blocks at rest (``distributed.sharding.place``);
   the model gathers a layer's whole weights before it runs the layer
   (JAX instead lets GSPMD split its matmuls over "model"), so every
   kernel runs its one-device code and the tokens equal the one-device
-  engine's bitwise. Where this differs from JAX's specs: an int4 bank's
-  ``bank_b_q``/``bank_b_scale`` stay whole on every rank (planar packing
-  pairs element i with i + d/2, so a byte slice is no d-slice).
+  engine's bitwise. Every forward runs under the mesh's
+  ``mesh_context``: a MoE layer on a "model" axis dividing its experts
+  then takes the expert-parallel path (``models/moe.py``), its experts
+  kept as this rank's blocks. Where this differs from JAX's specs: an
+  int4 bank's ``bank_b_q``/``bank_b_scale`` stay whole on every rank
+  (planar packing pairs element i with i + d/2, so a byte slice is no
+  d-slice).
 - Admission aggregates each missing profile on the rank's d-slice of the
   bank (aggregation is elementwise in d, so each slice is bitwise the
   whole bank's) and gathers the aggregated entries over "model"; a
@@ -104,6 +110,7 @@ stay identical, and the device state is laid out as follows.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional
 
@@ -114,6 +121,7 @@ import torch.distributed as dist
 from repro_torch import obs as OBS
 from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
+from repro_torch.distributed import ctx as CTX
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as MDL
 from repro_torch.obs import trace as TR
@@ -266,8 +274,12 @@ class ServeEngine:
                 for v in self.qbank.values()) // (L_ * N_)
         self._mesh_setup(mesh, max_slots)
         if mesh is not None:
-            # JAX's param_specs(fsdp=False), held as this rank's blocks
-            self._specs["params"] = SH.param_specs(params, mesh, fsdp=False)
+            # JAX's param_specs(fsdp=False), held as this rank's blocks;
+            # no leaf over "data" (JAX pins the experts' ff dim there):
+            # data ranks run their own forwards, out of step, so a
+            # forward's gathers may span "model" alone
+            self._specs["params"] = SH.param_specs(
+                params, mesh, fsdp=False, logical_map={"mlp_fsdp": None})
             params = SH.place(params, self._specs["params"], mesh)
             if self.qbank is not None:
                 specs = SH.param_specs(self.qbank, mesh, fsdp=False)
@@ -582,9 +594,24 @@ class ServeEngine:
                     device=dev)
                 for key in self._entry_keys if key in shapes}
 
+    def _mesh_ctx(self):
+        """The mesh context every forward of a mesh engine runs under (a
+        MoE layer then takes the expert-parallel path, as JAX's does under
+        ``mesh_context``)."""
+        return CTX.mesh_context(self.mesh) if self.mesh is not None \
+            else contextlib.nullcontext()
+
     def _decode_fn(self):
         """The model half of the slot step, for this engine's mode (see
-        ``SlotState``)."""
+        ``SlotState``), under the engine's mesh context."""
+        fn = self._mode_decode_fn()
+
+        def decode_fn(*args):
+            with self._mesh_ctx():
+                return fn(*args)
+        return decode_fn if self.mesh is not None else fn
+
+    def _mode_decode_fn(self):
         cfg, ps = self.cfg, self.page_size
         if not self.continuous:
             def decode_fn(params, cache, last_tok, lengths, masks, active):
@@ -670,9 +697,10 @@ class ServeEngine:
                 mini[key][:, :, :n] = rows.reshape(
                     rows.shape[:3] + (KV, hd)).transpose(0, 1).to(
                         mini[key].dtype)
-        hidden, mini, _ = MDL.forward(
-            self.params, tokens, self.cfg, profile_masks=masks, cache=mini,
-            cache_pos=0 if cache_pos is None else cache_pos)
+        with self._mesh_ctx():
+            hidden, mini, _ = MDL.forward(
+                self.params, tokens, self.cfg, profile_masks=masks,
+                cache=mini, cache_pos=0 if cache_pos is None else cache_pos)
         idx = torch.clamp(lengths.long() - 1, 0, P - 1)
         last_h = hidden[torch.arange(B, device=hidden.device), idx][:, None]
         return MDL.lm_logits(self.params, last_h, self.cfg)[:, -1], mini

@@ -19,6 +19,11 @@ hydrates from), so a graduated profile is immediately admittable by
 ``ServeEngine`` with bit-identical k-sparse masks, and an engine serving
 from the same store drops its cached aggregate of a re-graduated profile
 (the store's change notification).
+
+On a mesh (``build_onboarding_run(mesh=)``) the roster's slots go over
+"data" (each rank trains its slots), the frozen PLM is whole on every
+rank, and the store is held identically on every rank (every rank
+graduates the same broadcast rows) and written by the mesh's rank 0.
 """
 from __future__ import annotations
 
@@ -316,7 +321,7 @@ class OnboardingTrainer(Trainer):
             self.scheduler.store.merge_from(ProfileStore.load(self.store_path))
 
     def checkpoint(self, blocking=True):
-        if self.mgr and self.store_path:
+        if self.mgr and self.store_path and self.lead:
             self.scheduler.store.save(self.store_path)
         super().checkpoint(blocking=blocking)
 
@@ -345,29 +350,30 @@ def build_onboarding_run(cfg, source, pending, *, slots: int = 4,
     (``seed + 1``, unless ``rng`` is given). Pass an existing ``store`` to
     graduate into it, the re-training flow: profiles already being served
     re-graduate in place, and every ServeEngine holding that store drops
-    their cached aggregates. ``device``: the card unless "cpu". A
-    ``mesh`` is ROADMAP queue 1, item 11."""
+    their cached aggregates. ``device``: the card unless "cpu".
+
+    A ``mesh`` shards the gang step: the roster's slot axis (and each
+    step's [S, m, ...] batch rows) over "data" while the frozen PLM stays
+    whole on every rank, so per-slot training is rank-local and the
+    graduated store is bit-identical to a one-device run."""
     from repro_torch.models import init_lm
     from repro_torch.train.roster import init_roster_state
     from repro_torch.train.steps import make_gang_step
     from repro_torch.utils import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("build_onboarding_run(mesh=): the sharded "
-                                  "roster is not ported (ROADMAP queue 1, "
-                                  "item 11)")
     device = resolve_device(device)
     if frozen is None:
         frozen = init_lm(cfg, seed=seed, device=device)
-    roster = Roster(cfg, seed + 2, slots, device=device)
-    rstate = init_roster_state(cfg, slots, seed=seed + 3, device=device)
+    roster = Roster(cfg, seed + 2, slots, device=device, mesh=mesh)
+    rstate = roster.place(init_roster_state(cfg, slots, seed=seed + 3,
+                                            device=device))
     state = {"frozen": frozen, "roster": rstate}
     # the step's EMA decay and the policy's debias decay must agree
     policy = policy or GraduationPolicy(ema_decay=ema_decay)
     # one FaultPlan governs the whole run: gradient poisoning here,
     # checkpoint truncation through the trainer's CheckpointManager
     gang = make_gang_step(cfg, lr=lr, ema_decay=policy.ema_decay,
-                          fault_plan=fault_plan)
+                          mesh=mesh, fault_plan=fault_plan)
     batcher = RosterBatcher(source, slots, per_slot, seq_len)
     xp = cfg.xpeft
     if store is None:
@@ -384,6 +390,6 @@ def build_onboarding_run(cfg, source, pending, *, slots: int = 4,
         "rng", torch.Generator(device=device).manual_seed(seed + 1))
     if fault_plan is not None:
         trainer_kw.setdefault("fault_plan", fault_plan)
-    trainer = OnboardingTrainer(gang, state, batcher, scheduler,
+    trainer = OnboardingTrainer(gang, state, batcher, scheduler, mesh=mesh,
                                 **trainer_kw)
     return trainer, gang

@@ -23,6 +23,14 @@ Invariants the onboarding layer relies on:
 - convergence signals (loss/accuracy EMAs, per-slot step counts) live on
   the device and cross to the host in ONE transfer at ``metrics()``,
   called at the trainer's sync cadence, never per step.
+
+With a ``mesh`` the state's leaves are ``distributed.sharding.Sharded``
+rows over "data" (``SH.constrain_leading``): each rank holds its slots'
+rows, and the host bookkeeping runs identically on every rank. ``admit``
+and ``evict`` write the slot's row on the rank that holds it,
+``metrics()`` gathers the six slot vectors once before its one transfer,
+and ``slot_params`` broadcasts the slot's row from its rank, so every
+rank packs the same record.
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import masks as M
+from repro_torch.distributed import sharding as SH
 from repro_torch.optim import adamw_init_rows
 from repro_torch.utils import resolve_device
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -101,13 +111,30 @@ class Roster:
 
     The state itself is owned by the caller (the trainer checkpoints it as
     part of the train state); this class holds the config, the base seed
-    fresh rows are drawn from, and the in-place admit/evict writes."""
+    fresh rows are drawn from, and the in-place admit/evict writes (on a
+    ``mesh``, the writes of the rank holding the slot)."""
 
-    def __init__(self, cfg, base_seed: int, capacity: int, *, device=None):
+    def __init__(self, cfg, base_seed: int, capacity: int, *, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.capacity = capacity
         self.base_seed = int(base_seed)
         self.device = resolve_device(device)
+        self.mesh = mesh
+
+    def place(self, state: dict) -> dict:
+        """The whole roster state held as each rank's slot rows over "data"
+        (itself without a mesh)."""
+        return SH.constrain_leading(state, self.mesh)
+
+    @staticmethod
+    def _own(state: dict, slot: int):
+        """(the state's local tensors, ``slot``'s row in them) on the rank
+        holding ``slot``, else (None, None)."""
+        lo, n = SH.row_range(state["active"])
+        if not lo <= slot < lo + n:
+            return None, None
+        return SH.local_tree(state), slot - lo
 
     # ------------------------------------------------------------- lifecycle
     def fresh(self, pid: int) -> dict:
@@ -123,24 +150,29 @@ class Roster:
         """Admit profile ``pid`` into ``slot``: its fresh row (``fresh``,
         else ``self.fresh(pid)``), zeroed moments, Adam step and EMAs,
         written in place. Returns ``state``."""
+        loc, i = self._own(state, slot)
+        if loc is None:
+            return state
         row = self.fresh(pid) if fresh is None else fresh
-        tree_map(lambda t, r: t[slot].copy_(torch.as_tensor(r)),
-                 state["trainable"], row)
-        for t in tree_leaves(state["opt"]["m"]) + \
-                tree_leaves(state["opt"]["v"]):
-            t[slot].zero_()
-        state["opt"]["step"][slot] = 0
-        state["active"][slot] = True
+        tree_map(lambda t, r: t[i].copy_(torch.as_tensor(r)),
+                 loc["trainable"], row)
+        for t in tree_leaves(loc["opt"]["m"]) + \
+                tree_leaves(loc["opt"]["v"]):
+            t[i].zero_()
+        loc["opt"]["step"][i] = 0
+        loc["active"][i] = True
         for key in ("slot_step", "ema_loss", "ema_acc", "ema_count",
                     "nonfinite"):
-            state[key][slot] = 0
+            loc[key][i] = 0
         return state
 
     @torch.no_grad()
     def evict(self, state: dict, slot: int) -> dict:
         """Deactivate ``slot``; parked rows stay in place until
         re-admission. Returns ``state``."""
-        state["active"][slot] = False
+        loc, i = self._own(state, slot)
+        if loc is not None:
+            loc["active"][i] = False
         return state
 
     # ------------------------------------------------------------ host views
@@ -148,9 +180,13 @@ class Roster:
         """ONE device -> host transfer of the convergence signals (the six
         [S] vectors stacked as fp32, exact for these counts). EMAs are
         debiased by their update count (an EMA starts at 0 on
-        admission)."""
-        host = torch.stack([state[k].float() for k in _METRIC_KEYS]).cpu() \
-            .numpy()
+        admission). On a mesh the [6, S / n] blocks are gathered first."""
+        act = state["active"]
+        host = torch.stack([SH.local(state[k]).float()
+                            for k in _METRIC_KEYS])
+        if isinstance(act, SH.Sharded):
+            host = SH.gather(host, SH.P(None, act.spec[0]), act.mesh)
+        host = host.cpu().numpy()
         v = dict(zip(_METRIC_KEYS, host))
         cnt = v["ema_count"].astype(np.int32)
         debias = 1.0 - np.power(ema_decay, np.maximum(cnt, 1))
@@ -164,15 +200,29 @@ class Roster:
     def slot_params(self, state: dict, slot: int) -> dict:
         """Host copy of one slot's trainables in ONE transfer, flattened to
         the record ``ProfileStore.add_profile`` takes (mA/mB/ln_* [+
-        head_w/head_b])."""
+        head_w/head_b]). On a mesh the rank holding the slot broadcasts
+        the row over "data" first."""
         row = state["trainable"]
-        flat = {k: v[slot] for k, v in row["table"].items()}
+        leaves = dict(row["table"])
         if "heads" in row:
-            flat.update({k: v[slot] for k, v in row["heads"].items()})
-        keys = sorted(flat)
-        sizes = [flat[k].numel() for k in keys]
-        host = torch.cat([flat[k].reshape(-1).float() for k in keys]).cpu()
-        out = {}
-        for k, part in zip(keys, torch.split(host, sizes)):
-            out[k] = part.reshape(flat[k].shape).numpy()
-        return out
+            leaves.update(row["heads"])
+        keys = sorted(leaves)
+        shapes = [tuple(leaves[k].shape[1:]) for k in keys]
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        loc, i = self._own(state, slot)
+        if loc is not None:
+            vec = torch.cat([SH.local(leaves[k])[i].reshape(-1).float()
+                             for k in keys])
+        else:
+            vec = torch.empty(sum(sizes), dtype=torch.float32,
+                              device=SH.local(state["active"]).device)
+        act = state["active"]
+        if isinstance(act, SH.Sharded):
+            group = act.mesh.get_group(act.spec[0])
+            owner = slot // SH.local(act).shape[0]
+            dist.broadcast(vec, src=dist.get_global_rank(group, owner),
+                           group=group)
+        host = vec.cpu()
+        return {k: part.reshape(sh).numpy()
+                for k, sh, part in zip(keys, shapes,
+                                       torch.split(host, sizes))}

@@ -27,8 +27,28 @@ input that requires grad.
 ``make_gang_step`` is the slot-packed step of the profile lifecycle: one
 update trains every active roster slot on its own micro-batch
 (``train/roster.py``, ``train/onboarding.py``).
+
+On a mesh (``mesh=``, a ``torch.distributed`` ``DeviceMesh``; the port
+has no GSPMD, so every tensor is placed explicitly):
+
+- the gang step takes the roster as "data" rows (``Roster.place``) with
+  the frozen PLM whole on every rank; each rank runs its slots'
+  micro-batches, row clips, row AdamW and EMAs, so nothing of a slot
+  crosses ranks and the update is bitwise the one-device update. Every
+  rank draws the step's whole Gumbel noise from its generator (the same
+  state on every rank) and keeps its slots' rows. Only the metric sums
+  are gathered.
+- the plain step takes the frozen tree as ``Sharded`` blocks
+  (``shard_train_state``: ``param_specs`` without FSDP), gathered a layer at a time in the forward and again in
+  the backward (``models/model.py``), the batch's rows over the batch
+  axes, the noise drawn whole and sliced. The trainables' gradients and
+  the metrics are the mean of the ranks' local means, gathered and summed
+  in rank order; clipping and AdamW then run identically on every rank.
+  Within tolerance of one device: the mean of means rounds otherwise.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -37,12 +57,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import masks as M
 from repro_torch.core import xpeft as XP
 from repro_torch.core.adapters import init_adapter_bank
+from repro_torch.distributed import ctx as CTX
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as MDL
 from repro_torch.optim import (adamw_init, adamw_update, adamw_update_rows,
                                clip_by_global_norm, clip_by_row_norm)
 from repro_torch.optim.adamw import _bcast_rows
 from repro_torch.utils import resolve_device
-from repro_torch.utils.tree import merge_trees, tree_leaves, tree_map
+from repro_torch.utils.tree import map_with_path, merge_trees, tree_leaves, \
+    tree_map, tree_paths
 
 MODES = ("xpeft", "adapter", "head_only", "full")
 
@@ -126,6 +149,16 @@ def init_train_state(cfg, mode: str = "xpeft", *, seed: int = 0,
     trainable = init_trainable(cfg, mode, seed=seed + 1, device=device)
     return {"frozen": frozen, "trainable": trainable,
             "opt": adamw_init(trainable)}
+
+
+def shard_train_state(state: dict, mesh) -> dict:
+    """A plain train state for ``make_train_step(mesh=)``: the frozen tree
+    held as this rank's ``Sharded`` blocks under ``param_specs`` with FSDP
+    off (JAX's rules: "model" blocks, and the experts' ff dim over
+    "data"), the trainables and moments whole on every rank."""
+    frozen = state["frozen"]
+    specs = SH.param_specs(frozen, mesh, fsdp=False)
+    return dict(state, frozen=SH.place(frozen, specs, mesh))
 
 
 # ----------------------------------------------------------------------------
@@ -314,6 +347,21 @@ def gang_loss_and_grads(frozen, rstate, batch, cfg, rng):
     return grads, slot_loss.detach(), slot_acc.detach()
 
 
+def _draws(rng, cfg, rows: int, dev):
+    """The step's Gumbel noise as a (noise_a, noise_b) pair of [rows, L, N]:
+    a generator draws it as the one-device forward would (A's then B's,
+    and nothing where the masks take no noise), a given pair is used as
+    it is, None stays None."""
+    xp = cfg.xpeft
+    if isinstance(rng, torch.Generator):
+        if xp.mask_type != "hard" or xp.nu <= 0:
+            return None
+        shape = (rows, cfg.num_layers, xp.num_adapters)
+        return tuple(M.gumbel(shape, generator=rng, device=dev)
+                     for _ in range(2))
+    return rng
+
+
 def make_gang_step(cfg, *, lr=1e-3, weight_decay=0.0, clip_norm: float = 1.0,
                    ema_decay: float = 0.9, mesh=None, fault_plan=None):
     """Slot-packed gang step for the onboarding roster.
@@ -332,7 +380,8 @@ def make_gang_step(cfg, *, lr=1e-3, weight_decay=0.0, clip_norm: float = 1.0,
     its EMAs and ``slot_step`` freeze and its ``nonfinite`` counter
     increments (the onboarding strike counter). A ``fault_plan`` with
     ``poison_slots`` overwrites the selected slots' loss and grads with
-    NaN AFTER the gradient, the seam that proves the guard.
+    NaN AFTER the gradient, the seam that proves the guard (by global
+    slot id on a mesh).
 
     Everything stays on the device: the EMAs update there, and the
     metrics come back as device tensors (no host sync inside the step).
@@ -342,37 +391,53 @@ def make_gang_step(cfg, *, lr=1e-3, weight_decay=0.0, clip_norm: float = 1.0,
     ``rng``: a ``torch.Generator`` that draws the step's Gumbel noise of
     shape [S * m, L, N] (A's then B's), a (noise_a, noise_b) pair of such
     draws, or None (no noise). Returns ``step({"frozen", "roster"},
-    batch, rng) -> (state, metrics)``. A ``mesh`` (the slot axis sharded
-    over devices) is ROADMAP queue 1, item 11."""
-    if mesh is not None:
-        raise NotImplementedError("make_gang_step(mesh=): the sharded gang "
-                                  "step is not ported (ROADMAP queue 1, "
-                                  "item 11)")
+    batch, rng) -> (state, metrics)``.
+
+    With a ``mesh`` the roster is held as its "data" rows (``Roster.place``
+    on that mesh): each rank takes its slots' rows of the batch and of the
+    whole noise, and only the metric sums cross ranks (gathered, summed in
+    rank order); a roster whose slots do not split stays whole and every
+    rank steps all of it."""
 
     def step(state, batch, rng):
         frozen, rstate = state["frozen"], state["roster"]
-        dev = rstate["active"].device
+        if mesh is not None and SH.sharding_of(rstate["active"]) is None \
+                and SH.leading_axis_specs(rstate["active"], mesh)[0]:
+            raise ValueError("make_gang_step(mesh=): the roster's slots "
+                             "split over the mesh; hold it there first "
+                             "(Roster.place)")
+        loc = SH.local_tree(rstate)
+        dev = loc["active"].device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        S = batch["tokens"].shape[0]
-        active = rstate["active"]
+        S, m = batch["tokens"].shape[:2]
+        lo, n = SH.row_range(rstate["active"])
+        if n != S:
+            # this rank's slots: their rows of the batch and of the noise
+            # every rank draws whole
+            batch = {k: v[lo:lo + n] for k, v in batch.items()}
+            rng = _draws(rng, cfg, S * m, dev)
+            if rng is not None:
+                rng = tuple(r[lo * m:(lo + n) * m] for r in rng)
+        active = loc["active"]
         grads, slot_loss, slot_acc = gang_loss_and_grads(
-            frozen, rstate, batch, cfg, rng)
+            frozen, loc, batch, cfg, rng)
         with torch.no_grad():
             if fault_plan is not None and fault_plan.poisons_gang():
                 # the seam, AFTER the gradient: healthy slots' gradient
                 # computation is unchanged by the injection
-                pmask = fault_plan.gang_poison_mask(rstate["slot_step"], S)
+                pmask = fault_plan.gang_poison_mask(loc["slot_step"], S,
+                                                    first=lo)
                 grads = tree_map(lambda g: torch.where(
                     _bcast_rows(pmask, g), torch.nan, g), grads)
                 slot_loss = torch.where(pmask, torch.nan, slot_loss)
             # the finite guard: a poisoned slot is treated as a parked one
             finite = torch.isfinite(slot_loss)
             for g in tree_leaves(grads):
-                finite = finite & torch.isfinite(g).reshape(S, -1).all(dim=1)
+                finite = finite & torch.isfinite(g).reshape(n, -1).all(dim=1)
             ok = active & finite
             grads, gnorm = clip_by_row_norm(grads, clip_norm)
             new_params, new_opt = adamw_update_rows(
-                grads, rstate["opt"], rstate["trainable"], ok, lr=lr,
+                grads, loc["opt"], loc["trainable"], ok, lr=lr,
                 weight_decay=weight_decay)
             d = ema_decay
 
@@ -381,22 +446,26 @@ def make_gang_step(cfg, *, lr=1e-3, weight_decay=0.0, clip_norm: float = 1.0,
             okf = ok.float()
             bad = (active & ~finite)
             new = {"trainable": new_params, "opt": new_opt,
-                   "slot_step": rstate["slot_step"] + ok.to(torch.int32),
-                   "ema_loss": ema(rstate["ema_loss"], slot_loss),
-                   "ema_acc": ema(rstate["ema_acc"], slot_acc),
-                   "ema_count": rstate["ema_count"] + ok.to(torch.int32),
-                   "nonfinite": rstate["nonfinite"] + bad.to(torch.int32)}
+                   "slot_step": loc["slot_step"] + ok.to(torch.int32),
+                   "ema_loss": ema(loc["ema_loss"], slot_loss),
+                   "ema_acc": ema(loc["ema_acc"], slot_acc),
+                   "ema_count": loc["ema_count"] + ok.to(torch.int32),
+                   "nonfinite": loc["nonfinite"] + bad.to(torch.int32)}
             tree_map(lambda t, n: t.copy_(n),
-                     {k: rstate[k] for k in new}, new)
-            n_ok = torch.clamp(okf.sum(), min=1.0)
-            metrics = {
-                "loss": torch.where(ok, slot_loss, 0.0).sum() / n_ok,
-                "grad_norm": torch.where(ok, gnorm, 0.0).sum() / n_ok,
-                "active_slots": active.float().sum(),
-                "nonfinite_slots": bad.float().sum()}
+                     {k: loc[k] for k in new}, new)
+            sums = torch.stack([
+                torch.where(ok, slot_loss, 0.0).sum(),
+                torch.where(ok, gnorm, 0.0).sum(),
+                torch.where(ok, slot_acc, 0.0).sum(),
+                okf.sum(), active.float().sum(), bad.float().sum()])
+            if n != S:
+                act = rstate["active"]
+                sums = SH.rank_sum(sums, act.mesh, act.spec[0])
+            n_ok = torch.clamp(sums[3], min=1.0)
+            metrics = {"loss": sums[0] / n_ok, "grad_norm": sums[1] / n_ok,
+                       "active_slots": sums[4], "nonfinite_slots": sums[5]}
             if cfg.num_labels:
-                metrics["accuracy"] = \
-                    torch.where(ok, slot_acc, 0.0).sum() / n_ok
+                metrics["accuracy"] = sums[2] / n_ok
         return state, metrics
 
     return step
@@ -417,8 +486,20 @@ def grads_for_batch(frozen, trainable, batch, cfg, mode, rng):
     return grads, {k: v.detach() for k, v in metrics.items()}
 
 
+def _batch_share(mesh):
+    """(this rank's index, the rank count, the axes) of the batch axes
+    (pod, data) with more than one rank: how ``batch_specs`` lays a
+    batch's leading dim out."""
+    sizes = SH.axis_sizes(mesh)
+    axes = tuple(a for a in SH.batch_axes(mesh) if sizes[a] > 1)
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + mesh.get_local_rank(a), n * sizes[a]
+    return idx, n, axes
+
+
 def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
-                    clip_norm: float = 1.0, accum: int = 1):
+                    clip_norm: float = 1.0, accum: int = 1, mesh=None):
     """Returns ``step(state, batch, rng) -> (state, metrics)``.
 
     ``batch``: {"tokens" [B, T], "labels" ([B, T] next tokens, or [B]
@@ -432,40 +513,59 @@ def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
     its leading axis, and each micro-batch sees the SAME noise (JAX passes
     one rng to every micro-batch); gradients sum in fp32 and are divided
     by ``accum`` (metrics, accuracy included, likewise). Clipping is
-    global, after accumulation."""
+    global, after accumulation.
+
+    With a ``mesh`` (the state from ``shard_train_state``) ``batch`` is
+    this rank's rows of the global batch (its block over the batch axes,
+    as a ``ShardedLoader`` with ``host_id`` the rank's batch index gives
+    it), global row r taking noise row r mod (B / accum) of the whole
+    draw, in ``accum`` micro-batches of its own; its gradients and
+    metrics (local means) are averaged over the batch axes in rank order,
+    so every rank clips and updates identically. The forward runs under
+    ``mesh_context`` (a MoE layer takes the expert-parallel path)."""
     _check_mode(mode)
-    xp = cfg.xpeft
 
     def step(state, batch, rng):
         frozen, trainable = state["frozen"], state["trainable"]
         dev = tree_leaves(trainable)[0].device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        B = batch["tokens"].shape[0]
-        if isinstance(rng, torch.Generator) and mode == "xpeft" \
-                and xp.mask_type == "hard" and xp.nu > 0:
+        n = batch["tokens"].shape[0]
+        idx, ranks, axes = (0, 1, ()) if mesh is None else _batch_share(mesh)
+        B, mb = n * ranks, n // accum
+        if isinstance(rng, torch.Generator) and mode == "xpeft":
             # one draw per step, shared by every micro-batch
-            shape = (B // accum, cfg.num_layers, xp.num_adapters)
-            rng = tuple(M.gumbel(shape, generator=rng, device=dev)
-                        for _ in range(2))
-        if accum > 1:
-            mb = B // accum
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device),
-                             trainable)
-            metrics = None
-            for i in range(accum):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                g, m = grads_for_batch(frozen, trainable, part, cfg, mode, rng)
-                grads = tree_map(torch.add, grads, g)
-                metrics = m if metrics is None else \
-                    {k: metrics[k] + m[k] for k in m}
-            grads = tree_map(lambda g: g / accum, grads)
-            metrics = {k: v / accum for k, v in metrics.items()}
-        else:
-            grads, metrics = grads_for_batch(frozen, trainable, batch, cfg,
-                                             mode, rng)
+            rng = _draws(rng, cfg, B // accum, dev)
+
+        def part_rng(i):
+            if not axes or rng is None or isinstance(rng, torch.Generator):
+                return rng
+            # this micro-batch's global rows, each with its noise row
+            rows = (idx * n + i * mb + torch.arange(mb, device=dev)) \
+                % (B // accum)
+            return tuple(torch.as_tensor(r).to(dev)[rows] for r in rng)
+
+        with CTX.mesh_context(mesh) if mesh is not None \
+                else contextlib.nullcontext():
+            if accum > 1 or axes:
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), trainable)
+                metrics = None
+                for i in range(accum):
+                    part = {k: v[i * mb:(i + 1) * mb]
+                            for k, v in batch.items()}
+                    g, m = grads_for_batch(frozen, trainable, part, cfg,
+                                           mode, part_rng(i))
+                    grads = tree_map(torch.add, grads, g)
+                    metrics = m if metrics is None else \
+                        {k: metrics[k] + m[k] for k in m}
+                grads = tree_map(lambda g: g / accum, grads)
+                metrics = {k: v / accum for k, v in metrics.items()}
+            else:
+                grads, metrics = grads_for_batch(frozen, trainable, batch,
+                                                 cfg, mode, rng)
         with torch.no_grad():
+            if axes:
+                grads, metrics = _mean_over(grads, metrics, mesh, axes)
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             new_params, new_opt = adamw_update(
                 grads, state["opt"], trainable, lr=lr,
@@ -475,3 +575,20 @@ def make_train_step(cfg, mode: str = "xpeft", *, lr=1e-3, weight_decay=0.0,
                 "opt": new_opt}, metrics
 
     return step
+
+
+def _mean_over(grads, metrics, mesh, axes):
+    """The ranks' local means of the gradients and metrics averaged over
+    ``axes`` (one gather a batch axis of them all as one fp32 vector,
+    summed in rank order): identical on every rank."""
+    leaves = tree_leaves(grads)
+    keys = sorted(metrics)
+    flat = torch.cat([g.reshape(-1).float() for g in leaves]
+                     + [metrics[k].reshape(1).float() for k in keys])
+    for a in axes:
+        flat = SH.rank_sum(flat, mesh, a) / SH.axis_sizes(mesh)[a]
+    parts = torch.split(flat, [g.numel() for g in leaves] + [1] * len(keys))
+    by_path = dict(zip(tree_paths(grads), parts))
+    grads = map_with_path(
+        lambda p, g: by_path[p].view(g.shape).to(g.dtype), grads)
+    return grads, {k: v.view(()) for k, v in zip(keys, parts[len(leaves):])}

@@ -23,6 +23,13 @@ will be a captured CUDA graph's re-capture count (ROADMAP queue 1, item
 - ``should_stop()``     early-exit check (the onboarding queue drained)
 - ``extra_state()`` / ``restore_extra()``  manifest payload for exact
   resume
+
+On a mesh (``mesh=``) every rank runs this loop in lockstep on the same
+host state: the same batches, the same generator state, the same sync
+and checkpoint steps. Checkpoints go through the mesh's
+``CheckpointManager`` (gathered whole, written by the mesh's rank 0);
+``try_resume`` restores onto the state's own placement; only rank 0
+prints (``self.lead``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch import obs as OBS
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.fault import PreemptionHandler, StepWatchdog
 from repro_torch.obs import trace as TR
 from repro_torch.resilience.integrity import CheckpointCorruptError
@@ -57,14 +65,17 @@ class Trainer:
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 100,
                  keep_last: int = 3, watchdog: Optional[StepWatchdog] = None,
                  preemption: Optional[PreemptionHandler] = None,
-                 log_every: int = 10, rng=None, fault_plan=None, obs=None):
+                 log_every: int = 10, rng=None, fault_plan=None, obs=None,
+                 mesh=None):
         self.step_fn = step_fn
         self.state = state
         self.loader = loader
         self.step = 0
         self.ckpt_every = ckpt_every
+        # the rank that prints (and, through the manager, writes)
+        self.lead = mesh is None or SH.is_lead(mesh)
         self.mgr = CheckpointManager(ckpt_dir, keep_last,
-                                     fault_plan=fault_plan) \
+                                     fault_plan=fault_plan, mesh=mesh) \
             if ckpt_dir else None
         # the straggler watchdog is the train-side metric source: wired to
         # the bundle's registry it gives p50/p99 step time
@@ -90,12 +101,15 @@ class Trainer:
     def try_resume(self) -> bool:
         """Resume from the newest checkpoint that verifies: a torn or
         corrupt latest checkpoint falls back to the one before it (and so
-        on), never fails the run."""
+        on), never fails the run. On a mesh each rank keeps its block of
+        every leaf the state holds as one (``SH.shardings_of``)."""
         if not self.mgr:
             return False
         for latest in reversed(self.mgr.all_steps()):
             try:
-                state = self.mgr.restore(latest, self.state)
+                state = self.mgr.restore(
+                    latest, self.state,
+                    shardings=SH.shardings_of(self.state))
             except (CheckpointCorruptError, OSError, ValueError,
                     zipfile.BadZipFile):
                 continue  # torn/corrupt payload: walk back one checkpoint
@@ -195,7 +209,7 @@ class Trainer:
             self._pending.append((self.step, metrics))
             if self.step % self.log_every == 0:
                 recs = self.sync()
-                if recs:
+                if recs and self.lead:
                     rec = recs[-1]
                     print(f"step {self.step} " +
                           " ".join(f"{k}={v:.4f}" for k, v in rec.items()

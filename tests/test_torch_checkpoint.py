@@ -58,8 +58,9 @@ def test_save_restore_bitwise(tmp_path):
     with np.load(tmp_path / "step_0000000003" / "state.npz") as z:
         assert sorted(z.files) == sorted(
             k.replace("/", "__") for k in tree_paths(st))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.restore(3, st, shardings={})
+    # explicit shardings, every leaf whole: the same tree
+    assert _equal(mgr.restore(3, tree_map(torch.zeros_like, st),
+                              shardings=tree_map(lambda _: None, st)), st)
 
 
 def test_bf16_roundtrip_without_ml_dtypes(tmp_path, monkeypatch):
@@ -282,10 +283,39 @@ def test_preemption_chains_previous_handler():
         signal.signal(sig, original)
 
 
-def test_elastic_names_refuse_naming_item_11():
+def test_elastic_names_refuse_naming_item_11(tmp_path):
+    """The elastic names, ported: ``surviving_mesh``'s axes and sizes
+    against JAX's (a ``{axis: size}`` mapping where no process group
+    exists), then ``surviving_mesh`` and ``reshard_state`` on a world-1
+    gloo group, the moved tree bitwise."""
+    import jax  # noqa: F401
+    import torch.distributed as dist
+
+    from repro.distributed.fault import surviving_mesh as jsurviving
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+
     assert FT.StepWatchdog is __import__(
         "repro_torch.obs.metrics", fromlist=["StepWatchdog"]).StepWatchdog
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FT.reshard_state({}, {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FT.surviving_mesh(("data",), (2,), "data", 1)
+    for args in ((("data",), (4,), "data", 1),
+                 (("data", "model"), (2, 1), "data", 1),
+                 (("data", "model"), (1, 4), "model", 1)):
+        got, want = FT.surviving_mesh(*args), jsurviving(*args)
+        assert list(got.items()) == list(dict(want.shape).items())
+        assert tuple(got) == tuple(want.axis_names)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        new = FT.surviving_mesh(("data", "model"), (2, 1), "data", 1, "cpu")
+        assert new.mesh_dim_names == ("data", "model")
+        assert tuple(new.shape) == (1, 1)
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            FT.surviving_mesh(("data",), (4,), "data", 2, "cpu")
+        st = _state(2)
+        old = make_mesh((1, 1), ("data", "model"), "cpu")
+        held = SH.place(st, SH.leading_axis_specs(st, old), old)
+        moved = FT.reshard_state(held, SH.to_shardings(
+            SH.leading_axis_specs(st, new), new))
+        assert _equal(moved, st)
+    finally:
+        dist.destroy_process_group()

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.configs import reduce_for_smoke as treduce
 from repro_torch.core.profiles import ProfileStore as TStore
 from repro_torch.train import steps as TST
+from repro_torch.utils.tree import tree_leaves
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCH = "qwen1.5-0.5b"
@@ -119,7 +120,7 @@ def test_three_steps_pack_byte_equal_records():
     assert not torch.equal(ttab["mA"], m0)
 
 
-def test_generator_noise_and_refusals():
+def test_generator_noise_and_refusals(tmp_path):
     _, tcfg = _cfgs()
     state = TST.init_train_state(tcfg, "xpeft", seed=0, device="cpu")
     step = TST.make_train_step(tcfg, "xpeft", accum=2)
@@ -141,9 +142,36 @@ def test_generator_noise_and_refusals():
     assert np.isfinite(float(cm["loss"])) and 0 <= float(cm["accuracy"]) <= 1
     assert not torch.equal(cnew["trainable"]["heads"]["head_w"],
                            cstate["trainable"]["heads"]["head_w"])
-    # the sharded gang step is the mesh's (ROADMAP queue 1, item 11)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TST.make_gang_step(tcfg, mesh=object())
+    # the gang step on a mesh: a world-1 gloo group's 1x1 mesh keeps the
+    # roster whole and steps bitwise as with no mesh
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_lm
+    from repro_torch.train.roster import Roster, init_roster_state
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        frozen = init_lm(tcfg, seed=0, device="cpu")
+        toks = np.random.default_rng(0).integers(0, tcfg.vocab_size,
+                                                 (2, 2, 9))
+        gbatch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        out = []
+        for mm in (mesh, None):
+            roster = Roster(tcfg, 2, 2, device="cpu", mesh=mm)
+            rstate = roster.place(init_roster_state(tcfg, 2, device="cpu"))
+            for slot in range(2):
+                roster.admit(rstate, slot, slot)
+            _, gm = TST.make_gang_step(tcfg, mesh=mm)(
+                {"frozen": frozen, "roster": rstate}, gbatch,
+                torch.Generator().manual_seed(5))
+            out.append((rstate, float(gm["loss"])))
+    finally:
+        dist.destroy_process_group()
+    (a, la), (b, lb) = out
+    assert la == lb and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 def test_launcher_smoke_on_cpu():
@@ -158,7 +186,9 @@ def test_launcher_smoke_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
          "--device", "cpu", "--steps", "1", "--mesh", "2x1:data,model"],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "item 11" in out.stderr
+    # --mesh joins the process group torchrun describes: without torchrun
+    # its environment is missing
+    assert out.returncode != 0 and "RANK" in out.stderr
 
 
 @pytest.fixture
