@@ -62,14 +62,14 @@ Phases, in order; any failed check exits non-zero:
              run, and the same profile of a decode step.
 5. serve from a quantized bank — the same workload with bank_quant int8
              and int4, each on the composed path and with decode_fused=True,
-             on the first QUANT_LAYERS (12) of the 24 layers (for the
+             on the first QUANT_LAYERS (6) of the 24 layers (for the
              call's time): the engine quantizes the bank and drops
              it from its params; profiles 0 and 1 carry quantized
              aggregated store records, so the first wave admits through
              quant_mixed. The quantized aggregation launches twice per
-             aggregating wave, the dequantizing adapter 12 times per decode
+             aggregating wave, the dequantizing adapter 6 times per decode
              step and prefill batch (composed) or per prefill batch
-             (fused), the megakernel's int8/int4 route 12 times per decode
+             (fused), the megakernel's int8/int4 route 6 times per decode
              step (fused); the bf16
              kernels not at all. Each path is held to its kernel_impl="ref"
              run as above (a reading over the adapters'-share bound is
@@ -190,7 +190,8 @@ Phases, in order; any failed check exits non-zero:
              their kernel_impl="ref" run; (b) per-step serving over the
              prefix-free spec 115 / 115 / 26, hard and soft profiles,
              windowed and continuous at one admission wave: tokens equal,
-             no hand-written kernel launched, a step profiled; (c) a fault
+             no hand-written kernel launched, a step profiled; (c) and
+             (d) on the first 6 layers (``OPS_LAYERS``): (c) a fault
              plan (a persistent, a transient and a corrupt profile of 6)
              on bf16 composed, decode_fused, int8 composed, hetero
              composed and continuous composed on 10 pages: the degraded
@@ -204,7 +205,8 @@ Phases, in order; any failed check exits non-zero:
              taken out, obs off and obs on. Its numbers are the kernels
              line's ``resilience`` key.
 11. lifecycle — ``tools/lifecycle_phase.py``: the profile lifecycle on
-             qwen1.5-0.5b at full depth and width, bf16, MarkovLM over 8
+             qwen1.5-0.5b at full width and CUT_LAYERS layers (phase 4's
+             weights cut to them), bf16, MarkovLM over 8
              profiles: (a) onboarding through 4 roster slots (4 examples
              per slot, T=32, lr 1e-3, graduation at 10-20 steps, a fault
              plan poisoning slot 3): the graduated, quarantined and
@@ -229,10 +231,10 @@ Phases, in order; any failed check exits non-zero:
              one xpeft step on the card against the CPU (2 layers, float32,
              the aux loss too) under phase 7's bounds, ten full-depth steps
              timed and profiled, the trained table packed, saved and
-             reloaded byte-equal; on phase 4's workload and the first 16
-             of the 48 layers (for the call's time; (f) serves all 48),
+             reloaded byte-equal; on phase 4's workload and the first 8
+             of the 48 layers (``SERVE_LAYERS``, for the call's time),
              (a) composed windowed serving (#1 twice per aggregating
-             wave, #2 16 times per decode step and prefill batch) held to
+             wave, #2 8 times per decode step and prefill batch) held to
              its kernel_impl="ref" run with every layer's routing recorded:
              each request's first routing flip on a reference router-
              logit gap of at most twice its max |d router logit|, and,
@@ -256,7 +258,8 @@ Phases, in order; any failed check exits non-zero:
              step (2 layers, float32), ten full-depth steps, then composed,
              decode_fused (#8 18 times a step), int8 and int4 serving each
              held to its kernel_impl="ref" run, continuous bitwise the
-             windowed run, spec gamma 3 against continuous; (b)
+             windowed run, spec gamma 3 against continuous (these four on
+             its first 9 layers, ``GEMMA_CUT``); (b)
              gemma3-27b at full width and 12 of its 62 layers, prompts of
              1,000-1,100 tokens at max_seq 2,048 (chunked prefill, decode
              past the 1,024 window): composed and int8 held to their ref
@@ -278,7 +281,7 @@ Phases, in order; any failed check exits non-zero:
              zamba2-1.2b's shapes (T=1,024, chunk 128), strong decay, the
              decode step after a chunked prefix, the refusal at T=20; (b)
              rwkv6-7b at full width: a card-vs-CPU train step (2 layers,
-             float32, and its float64 twin), composed on 16 of its 32
+             float32, and its float64 twin), composed on 8 of its 32
              layers held to its ref run, a
              decode step split by op class, four 1,024-token prompts in one
              exact-length prefill batch, then on its first 8 layers int8
@@ -297,7 +300,7 @@ Phases, in order; any failed check exits non-zero:
              decode_fused, continuous and int8 bitwise their mesh=None
              runs, #1, #2, #5, #6 and #8 launched on the mesh runs; (b)
              two processes on the one card over gloo (its collectives
-             checked on CUDA tensors first), meshes 2x1 and 1x2, the
+             checked on CUDA tensors first), the mesh 2x1, the
              composed tokens bitwise (a)'s mesh=None run, #1 and #2
              launched on each rank, resident bytes per device against
              one device, a decode step's host ms, device ms and bytes
@@ -307,7 +310,7 @@ Phases, in order; any failed check exits non-zero:
 
 16. mesh train — ``tools/mesh_train_phase.py``: multi-device training.
              (a) a world-1 NCCL mesh 1x1:data,model, qwen1.5-0.5b at full
-             width and CUT_LAYERS layers: a gang step and a plain xpeft
+             width and MESH_TRAIN_LAYERS layers: a gang step and a plain xpeft
              step bitwise their mesh=None steps; then two processes on
              the one card over gloo: (b) JAX's elastic drill at 2x1 (an
              unfailed run, a run checkpointed at 4 and stopped at 6, one
@@ -338,10 +341,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # Tolerances, stated before any run:
 # - mask aggregation: the kernel and its plain version do the same rounded
@@ -393,6 +392,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 AGG_ATOL = 1e-6
 DEC_STEPS = 4
 DEC_POS = [3, 0, 77, 130, 127, 1, 50, 128]  # per slot; S = 128
+# 16 slots (two launches of the 8-slot instantiation): DEC_POS, then eight
+# more with one past the cache's end
+DEC_POS16 = DEC_POS + [64, 100, 2, 126, 129, 31, 90, 15]
 DEC_LONG_S, DEC_LONG_POS = 2048, [2047, 0, 1000, 1500]  # the long cache
 FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
 FA_F32_RTOL, FA_F32_ATOL = 1e-4, 1e-5
@@ -414,15 +416,21 @@ TRAIN_GRAD_REL_L2 = 1e-3
 #   from float64 over float32's 6e-8, up to 7e4) is ~1e-11 (rwkv6-7b read
 #   1.7e-11 to 2.5e-11 on an H100)
 TRAIN_F64_REL = 1e-9
-# phases 9 and 10 drive their paths at this depth of qwen1.5-0.5b (24
+# phases 9, 10 and 11 drive their paths at this depth of qwen1.5-0.5b (24
 # layers) and full width, so that the whole script, phase 12's 48-layer
 # model included, stays well inside its time limit: their serving and
 # training steps are host-bound, so their time follows the layer count
 CUT_LAYERS = 12
+# phase 16 (mesh training) runs qwen1.5-0.5b at full width on this depth:
+# its checks are bitwise on one-process meshes or in phase 7's relative
+# bounds, and its gloo gathers pass through the host, so its time follows
+# the layer count (84.4 s at CUT_LAYERS in a whole run of 1,145.0 s on an
+# H100 host with slow CPUs)
+MESH_TRAIN_LAYERS = 6
 # phase 5 serves its four quantized paths on the first QUANT_LAYERS of
-# qwen1.5-0.5b's 24 layers (full width), for the whole call's time with
-# phase 14
-QUANT_LAYERS = 12
+# qwen1.5-0.5b's 24 layers (full width), for the whole call's time (its
+# adapters'-share readings are reported, not asserted)
+QUANT_LAYERS = 6
 # - the encoder (phase 8): its card-vs-CPU step under phase 7's two bounds
 #   for every mode, with the accuracy equal (fp32 logits of 15 classes);
 #   its kernel route against the same route's kernel_impl="ref" run under
@@ -528,7 +536,11 @@ def rotating(fn, arg_sets):
 
 
 def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    """(ms, what binds) of the least time the card could take for a call
+    that moves ``nbytes`` and does ``flops`` of ``dtype``, on the H100's
+    constants in ``repro_torch.analysis.roofline``."""
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    t_bytes = nbytes / HBM_BW
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -989,6 +1001,48 @@ def phase_decode_block(torch, KD, ref, cfg, QS):
                             eager_ms=host_ms))
         del sets
         torch.cuda.empty_cache()
+    # 16 slots: two launches of the 8-slot instantiation on the slots'
+    # halves, into outputs allocated once; each half bitwise the 8-slot
+    # call on its slots alone
+    for route in ("bf16", "int8", "int4"):
+        quant = (QS, route, cfg.xpeft.quant_group) if route != "bf16" \
+            else None
+        sets = dec_inputs(torch, gen, cfg, cfg.num_kv_heads, B=16,
+                          quant=quant, pos=DEC_POS16)
+        rkw = dict(kw, adapter=route)
+        label = f"B=16 KV={cfg.num_kv_heads} route={route}"
+        err = check_dec(torch, KD, ref, sets[0], rkw, label)
+        n0 = KD.decode_block_fused.launches
+        whole = KD.decode_block_fused(*sets[0], **rkw)
+        per_call = KD.decode_block_fused.launches - n0
+        assert per_call == len(KD.slot_groups(16)) == 2, per_call
+        x, pos, block, kc, vc, masks_l = sets[0]
+        for g in KD.slot_groups(16):
+            part = KD.decode_block_fused(
+                x[g], pos[g], block, kc[g], vc[g],
+                {k: v[g] for k, v in masks_l.items()}, **rkw)
+            assert all(torch.equal(a[g], b) for a, b in zip(whole, part)), \
+                (label, g)
+        ms = device_ms(torch, rotating(
+            lambda *a: KD.decode_block_fused(*a, **rkw), sets),
+            calls=len(sets))
+        plain_ms = device_ms(torch, rotating(
+            lambda *a: ref.decode_block_ref(*a, **rkw), sets),
+            calls=len(sets))
+        nbytes = dec_bytes(sets[0], route)
+        bound_ms, bound_by = bound(nbytes, dec_flops(sets[0], route),
+                                   "bfloat16")
+        log(f"decode_block_fused B=16 S=128 d={cfg.d_model} route={route}: "
+            f"{per_call} launches a call, each 8-slot half bitwise the "
+            f"8-slot call on its slots | ms {ms:.5f} (cold) | plain "
+            f"{plain_ms:.5f} (cold) | bound {bound_ms:.5f} ({bound_by}: "
+            f"{nbytes / 1e6:.2f} MB, the layer's weights read once)")
+        results.append(dict(shape=label, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None,
+                            launches_per_call=per_call))
+        del sets, whole
+        torch.cuda.empty_cache()
     # the instantiation for 5 to 8 slots (an engine with max_slots 8),
     # checked only: the serve path runs 4
     for route in ("bf16", "int8", "int4"):
@@ -1178,6 +1232,17 @@ def phase_fused_adapter_quant(torch, KFQ, ref, QS):
         assert cs == 16, (scheme, dw, T, cs)
         check_faq(torch, KFQ, ref, args, scheme, FA_BF16_RTOL, FA_BF16_ATOL,
                   f"{scheme} bf16 d={dw} T={T}, clusters of {cs}")
+    # the int4 tile in two passes (gemma3-27b's d=5376, forms (b)) against
+    # the one-pass tile where both fit: the same products in the same
+    # order, bitwise
+    for T, dtype in ((1, bf16), (16, bf16), (16, f32)):
+        args = inputs("int4", 32, T, dtype)
+        one, two = (KFQ._launch(*args, scheme="int4", activation="gelu",
+                                passes=n) for n in (1, 2))
+        torch.cuda.synchronize()
+        log(f"  check int4 T={T} {dtype}: two passes over the tile bitwise "
+            f"one pass {torch.equal(one, two)}")
+        assert torch.equal(one, two), T
 
     results = []
     for scheme, group in QUANT_CASES:
@@ -1208,6 +1273,47 @@ def phase_fused_adapter_quant(torch, KFQ, ref, QS):
                                 bound_by=bound_by, library_ms=None))
             del sets
     return results
+
+
+def faq_slice_rows(torch, KFQ, ref, QS, gen, name, scheme, d, nb, L, Ts,
+                   B=4):
+    """#6 at bf16 x on layer slices of [B, 3, ...] quantized records at
+    each T of ``Ts``: checked within #2's bounds, two calls bitwise equal,
+    timed as cold CUDA-graph replays rotating over L sets, beside the
+    plain version and the bound of one call's bytes."""
+    rows = []
+    for T in Ts:
+        sets = [fa_quant_inputs(torch, gen, QS, scheme, 32, B, T, d, nb,
+                                torch.bfloat16, L=3) for _ in range(L)]
+        tag = f"{name} {scheme} B={B} T={T} d={d} b={nb}"
+        groups = KFQ._check(*sets[0], scheme, "gelu")[1]
+        cs_, passes = KFQ.launch_plan(d, nb, T, 2, scheme, *groups)
+        err = check_faq(torch, KFQ, ref, sets[0], scheme, FA_BF16_RTOL,
+                        FA_BF16_ATOL, f"{tag}, clusters of {cs_}, "
+                        f"{passes} pass(es) over the tile")
+        first = KFQ.fused_adapter_quant_batched(*sets[0], scheme=scheme)
+        second = KFQ.fused_adapter_quant_batched(*sets[0], scheme=scheme)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), tag
+        fn = lambda *a: KFQ.fused_adapter_quant_batched(  # noqa: E731
+            *a, scheme=scheme)
+        plain = lambda *a: ref.fused_adapter_quant_batched_ref(  # noqa
+            *a, scheme=scheme)
+        ms = device_ms(torch, rotating(fn, sets), calls=len(sets))
+        plain_ms = device_ms(torch, rotating(plain, sets), calls=len(sets))
+        x = sets[0][0]
+        nbytes = 2 * x.numel() * x.element_size() + sum(
+            t[0].numel() * t.element_size() * B for t in sets[0][1:])
+        bound_ms, bound_by = bound(nbytes, 4 * B * T * d * nb, "bfloat16")
+        log(f"fused_adapter_quant_batched {tag}: ms {ms:.5f} (cold) | "
+            f"plain {plain_ms:.5f} (cold) | bound {bound_ms:.5f} "
+            f"({bound_by}: {nbytes / 1e6:.3f} MB); two calls bitwise")
+        rows.append(dict(shape=tag, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None,
+                         cluster=cs_, passes=passes))
+        del sets, first, second
+    return rows
 
 
 # ----------------------------------------------------------------------------
@@ -1767,9 +1873,9 @@ def phase_serve_quant(torch, KAQ, KFQ, KD, KA, KF, ctx, scheme, fused):
     int4): the engine quantizes the bank at construction and drops it from
     its params. Profiles 0 and 1 graduate with aggregated records (the bf16
     engine's admission aggregates, quantized on write), so the first wave
-    admits through quant_mixed. On the first QUANT_LAYERS (12) of the 24
-    layers: composed, #6 runs 12 times per decode step and per prefill
-    batch; ``decode_fused``: #8's int8/int4 route 12 times per decode step
+    admits through quant_mixed. On the first QUANT_LAYERS (6) of the 24
+    layers: composed, #6 runs 6 times per decode step and per prefill
+    batch; ``decode_fused``: #8's int8/int4 route 6 times per decode step
     and #6 per prefill batch only. The bf16 kernels must not launch. Held
     to its kernel_impl="ref" run as the bf16 paths are."""
     from repro_torch.core.profiles import ProfileStore
@@ -2594,8 +2700,6 @@ def phase_train_full(torch, argv=TRAIN_ARGV):
     per step."""
     import contextlib
 
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.launch import train as LT
 
     args = LT.parse_args(argv)
@@ -2637,12 +2741,15 @@ def phase_train_full(torch, argv=TRAIN_ARGV):
     state, step, src, gen = out["state"], out["step"], out["source"], \
         out["generator"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(args.steps, args.steps + 3):
-            state, _ = step(state, src.sample(i, args.batch, args.seq), gen)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    box = dict(state=state, i=args.steps)
+
+    def steps():
+        for _ in range(3):
+            box["state"], _ = step(box["state"], src.sample(
+                box["i"], args.batch, args.seq), gen)
+            box["i"] += 1
+
+    rows = trace_card(torch, steps, "train (b)")
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 3
     n_kernels = sum(e.count for e in rows) / 3
     cfg = out["cfg"]
@@ -2915,8 +3022,6 @@ def phase_encoder_train(torch, counters):
     Then 3 steps each of xpeft with soft masks, adapter and head_only,
     losses and grad norms finite. No hand-written kernel may launch: the
     launch counters stay at 0 from the first step to the last."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.train import steps as ST
 
     cfg, data, B, T = enc_setup()
@@ -2951,12 +3056,14 @@ def phase_encoder_train(torch, counters):
                 .item() for k in ("mA", "mB"))
     ms = statistics.median(ev[2:])
     wall = statistics.median(walls[2:])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    box = dict(state=state)
+
+    def steps():
         for i in range(ENC_STEPS, ENC_STEPS + 3):
-            state, _ = step(state, batches[i], gen)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            box["state"], _ = step(box["state"], batches[i], gen)
+
+    rows = trace_card(torch, steps, "encoder (b)")
+    state = box["state"]
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 3
     n_kernels = sum(e.count for e in rows) / 3
     tokens = B * T
@@ -3387,7 +3494,6 @@ def cb_profile(torch, run, label):
     (``dense_view``) and the one-position writeback on this engine's
     pool, as CUDA-graph replays."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request
     from repro_torch.serve import pages as PG
@@ -3409,16 +3515,15 @@ def cb_profile(torch, run, label):
     eng.sync()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / 4 * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def steps():
         for _ in range(2):
             eng.step()
         eng.sync()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    rows = trace_card(torch, steps, f"phase 9 step {label}")
     dev = sum(e.self_device_time_total for e in rows) / 1e3 / 2
     n_kernels = sum(e.count for e in rows) / 2
-    assert dev > 0 and n_kernels > 0, "the profiler traced no kernel"
     out = dict(step_wall_ms=wall, step_device_ms=dev,
                step_kernels=n_kernels, busy_share=dev / wall)
     if run["continuous"]:
@@ -3602,6 +3707,7 @@ def phase_continuous(torch, cfg=None):
             reference_device_steps=rst["device_steps"],
             reference_stranded_slot_steps=rst["stranded_slot_steps"],
             spec=spec or None)
+    results["c16"] = cb_sixteen(torch, cfg, params, store, counters)
     t_profile = time.perf_counter()
     for name in ("a", "c", "d", "e", "f"):
         results[name].update(cb_profile(torch, runs[name], f"({name})"))
@@ -3630,43 +3736,131 @@ def phase_continuous(torch, cfg=None):
     return results
 
 
+def cb_sixteen(torch, cfg, params, store, counters):
+    """Phase 9 (c16): ``decode_fused`` on a windowed engine of 16 slots
+    (#8 launched once per group of at most 8 slots a layer), 16 of phase
+    9's requests, against the composed engine of as many slots.
+    Every decode step must run the megakernel (#8 L x groups times a
+    step; #2 only in prefill, L times a batch: no composed decode step
+    ran); the tokens are held to the composed run's under the flip rule
+    (``cb_explain``)."""
+    from repro_torch.kernels.decode_fused import slot_groups
+
+    slots = 16
+    L, groups = cfg.num_layers, len(slot_groups(slots))
+    kw = dict(max_slots=slots)
+
+    def run(c):
+        return dict(cfg=c, params=params, store=store, continuous=False,
+                    long_new=40, kw=kw, n=16)
+    fused, composed = run(cfg.with_(decode_fused=True)), run(cfg)
+    for r in (fused, composed):
+        cb_drain(torch, dict(r, n=slots, long_new=4), counters)  # warm-up
+    out, ref = (cb_drain(torch, r, counters) for r in (fused, composed))
+    n, st = out["launches"], out["stats"]
+    steps, batches = st["device_steps"], st["prefill_batches"]
+    sparse = sum(w["path"] == "sparse" for w in out["waves"])
+    assert n["decode_block_fused"] == L * groups * steps > 0, n
+    assert n["fused_adapter_batched"] == L * batches, n
+    assert n["mask_aggregate_batched"] == 2 * sparse > 0, n
+    assert not any(v for k, v in n.items() if k not in (
+        "decode_block_fused", "fused_adapter_batched",
+        "mask_aggregate_batched")), n
+    rn, rst = ref["launches"], ref["stats"]
+    assert rn["decode_block_fused"] == 0, rn
+    assert rn["fused_adapter_batched"] == \
+        L * (rst["device_steps"] + rst["prefill_batches"]) > 0, rn
+    agreement = cb_explain(torch, out, ref)
+    toks = sum(len(q.generated) for q in out["reqs"])
+    log(f"phase 9 (c16) decode_fused at {slots} slots ({groups} launches of "
+        f"#8 a layer) vs composed at {slots}: tokens agree "
+        f"{agreement['agree']}/{agreement['total']} "
+        f"({len(agreement['flips'])} requests part); {toks} tokens in "
+        f"{steps} device steps, {out['dt']:.3f}s = {out['tok_s']:.1f} tok/s "
+        f"(composed {ref['tok_s']:.1f}); launches {n}")
+    return dict(reference="composed windowed, 16 slots", slots=slots,
+                launches=n, reference_launches=rn, tok_s=out["tok_s"],
+                reference_tok_s=ref["tok_s"], device_steps=steps,
+                prefill_batches=batches, **agreement)
+
+
+TRACE_TRIES = 3
+
+
+def trace_card(torch, run, label, again=None, tries=TRACE_TRIES):
+    """The card's rows of ``key_averages()`` for one call of ``run`` (which
+    does the work to trace) under torch.profiler tracing the card only.
+    CUPTI has handed back an empty trace for one session of a whole run
+    on an H100 (phase 10 (d)) where other runs of the same code traced
+    every session, so an empty trace is taken again under a new profiler,
+    after ``again()`` (re-arms the state ``run`` consumes, outside the
+    trace) where given, up to ``tries`` times; each empty try is logged.
+    It fails when no try traced a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(tries):
+        if i and again is not None:
+            again()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in rows) > 0 and \
+                sum(e.self_device_time_total for e in rows) > 0:
+            return rows
+        log(f"{label}: the profiler traced no kernel (try {i + 1} of "
+            f"{tries})")
+    raise AssertionError(f"{label}: the profiler traced no kernel in "
+                         f"{tries} tries")
+
+
 def profile_decode(torch, ServeEngine, Request, cfg, params, store, label,
                    eng_kw=None, steps=(3, 4, 8), profiles=4, reqs=None):
     """Where a decode step's time goes (B=4 slots, T=1): after
     ``steps[0]`` warm-up steps, ``steps[1]`` steps timed on the host clock
     without the profiler, then ``steps[2]`` steps (one window's sync
     included) under torch.profiler tracing the card only (host op events
-    would cost seconds a step) for the device time by kernel. ``eng_kw``
-    may override the engine's shape (4 slots, max_seq 128, sync_every
-    8); ``reqs``: the 4 requests (default ``make_requests``')."""
-    from torch.profiler import ProfilerActivity, profile
+    would cost seconds a step) for the device time by kernel
+    (``trace_card``: an empty trace is retaken on a new engine brought to
+    the same step). ``eng_kw`` may override the engine's shape (4 slots,
+    max_seq 128, sync_every 8); ``reqs``: the 4 requests (default
+    ``make_requests``')."""
+    import copy
 
     warm, timed, traced = steps
-    eng = ServeEngine(cfg, params, store, **{
-        **dict(max_slots=4, max_seq=128, sync_every=8), **(eng_kw or {})})
-    eng.submit(reqs or make_requests(Request, cfg.vocab_size, n=4,
-                                     profiles=profiles))
-    eng.admit_many(eng.scheduler.next_batch(4))
-    for _ in range(warm):
-        eng.step()
-    eng.sync()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(timed):
-        eng.step()
-    eng.sync()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) / timed * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(traced):
+    box, given = {}, copy.deepcopy(reqs)
+
+    def ready():
+        """A new engine with unused copies of the 4 requests, ``warm +
+        timed`` steps in; the host ms of its timed steps."""
+        eng = ServeEngine(cfg, params, store, **{
+            **dict(max_slots=4, max_seq=128, sync_every=8),
+            **(eng_kw or {})})
+        eng.submit(copy.deepcopy(given) or make_requests(
+            Request, cfg.vocab_size, n=4, profiles=profiles))
+        eng.admit_many(eng.scheduler.next_batch(4))
+        for _ in range(warm):
             eng.step()
         eng.sync()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        t = time.perf_counter()
+        for _ in range(timed):
+            eng.step()
+        eng.sync()
+        torch.cuda.synchronize()
+        box["eng"] = eng
+        return (time.perf_counter() - t) / timed * 1e3
+
+    def run():
+        for _ in range(traced):
+            box["eng"].step()
+        box["eng"].sync()
+
+    wall = ready()
+    rows = trace_card(torch, run, f"decode step {label}", again=ready)
     dev = sum(e.self_device_time_total for e in rows) / 1e3 / traced
     n_kernels = sum(e.count for e in rows) / traced
-    assert dev > 0 and n_kernels > 0, "the profiler traced no kernel"
     log(f"decode step {label} (B=4, T=1): host wall {wall:.3f} ms/step "
         f"without the profiler; device {dev:.4f} ms/step in "
         f"{n_kernels:.0f} kernels -> "
@@ -3792,7 +3986,8 @@ def main():
     # and resume, the gang step against the CPU, the graduated store served
     torch.cuda.empty_cache()
     import lifecycle_phase
-    lifecycle = lifecycle_phase.phase_lifecycle(torch, base=base)
+    lifecycle = lifecycle_phase.phase_lifecycle(torch, base=base,
+                                                layers=CUT_LAYERS)
     del base
     lap("11 lifecycle")
     # 12. mixture-of-experts blocks: qwen3-moe-30b-a3b at full width and
@@ -3853,8 +4048,7 @@ def main():
             # the path's own shape first: route bf16 at qwen's KV heads;
             # routes int8/int4 (launched on the quantized decode_fused
             # paths) among the other shapes
-            ("decode_block_fused", [dec[1], dec[0], dec[2], dec[3],
-                                    dec[4], dec[5]],
+            ("decode_block_fused", [dec[1], dec[0]] + dec[2:],
              "src/repro_torch/csrc/decode_fused.cu",
              "src/repro/kernels/decode_fused.py:219",
              fused_launches["decode_block_fused"]),
@@ -3925,7 +4119,12 @@ def main():
     for row in kernels:
         row["launches_continuous"] = {
             run: continuous[run]["launches"][row["name"]]
-            for run in ("a", "b", "c", "d", "e", "f", "f_starved")}
+            for run in ("a", "b", "c", "d", "e", "f", "f_starved", "c16")}
+    # #8's 16-slot rows: launches on phase 9's 16-slot decode_fused drain
+    for row in kernels[4]["other_shapes"]:
+        if row["shape"].startswith("B=16"):
+            row["launches"] = continuous["c16"]["launches"][
+                "decode_block_fused"]
     for row in kernels[1]["other_shapes"]:
         if row["shape"].startswith("verify"):
             row["launches_continuous"] = {
@@ -3958,7 +4157,7 @@ def main():
     for row in kernels:
         row["launches_forms"] = {run: n.get(row["name"], 0)
                                  for run, n in forms["runs"].items()}
-    for i, key in ((0, "agg"), (1, "fa"), (4, "dec")):
+    for i, key in ((0, "agg"), (1, "fa"), (4, "dec"), (6, "faq")):
         for row in forms["kernel_rows"][key]:
             row["launches_forms"] = kernels[i]["launches_forms"]
         kernels[i]["other_shapes"] += forms["kernel_rows"][key]

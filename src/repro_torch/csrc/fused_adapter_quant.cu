@@ -74,6 +74,19 @@
 // is whole 16-byte vectors and the shared memory fits (the fp32 tile is
 // the bulk: 32 KB at d = 1024, b = 64, CS = 8); it raises on a shape
 // neither fits and never falls back to the plain version.
+//
+// Tile in two passes (NP = 2, int4 only). Where neither cluster fits
+// whole -- gemma3-27b's d = 5376 in int4: at CS = 8 the fp32 tile alone
+// is 168 KB and the block 244 KB (T = 1), at CS = 16 each pair-part is 168
+// columns, 10.5 vectors of B_q bytes -- the planner takes CS = 8 with a
+// tile of ONE pair-part [ds/2, b]: phase 1 dequantizes the rows of part 0,
+// accumulates, then those of part 1, each thread carrying its sums across
+// the parts in the same row order; phase 3 dequantizes B's low nibbles
+// and writes the columns of part 0, then the high nibbles and part 1.
+// Every product, sum and their order are those of the whole tile, so the
+// outputs are bitwise those of NP = 1 wherever both fit; the cost is the
+// second dequantization's barrier and half the threads idle in phase 3's
+// decode loop. Every shape that fits whole keeps NP = 1 and its cluster.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -210,14 +223,15 @@ __host__ __device__ inline int up16(int n) { return (n + 15) & ~15; }
 // Shared-memory layout of one block, in bytes; the same formula lives in
 // kernels/fused_adapter_quant.py's smem_bytes. ds columns a block, nb the
 // bottleneck, tt tokens a tile, esz x's element size, a_groups / b_groups
-// scales per A_q / B_q row.
+// scales per A_q / B_q row, np the passes over the fp32 tile (it holds
+// ds / np of the block's columns).
 struct Layout {
   int x, aq, as, bq, bs, w, part, h, ln, red, total;
 };
 
 __host__ __device__ inline Layout layout(int ds, int nb, int tt, int esz,
                                          int int4, int a_groups,
-                                         int b_groups) {
+                                         int b_groups, int np) {
   Layout l;
   l.x = 0;
   l.aq = up16(tt * ds * esz);
@@ -225,7 +239,7 @@ __host__ __device__ inline Layout layout(int ds, int nb, int tt, int esz,
   l.bq = l.as + up16(ds * a_groups * 2);
   l.bs = l.bq + up16(nb * (int4 ? ds / 2 : ds));
   l.w = l.bs + up16(nb * b_groups * 2);  // B_q's whole scale block
-  l.part = l.w + ds * nb * 4;             // fp32 A_hat, then B_hat, tile
+  l.part = l.w + ds / np * nb * 4;        // fp32 A_hat, then B_hat, tile
   l.h = l.part + tt * nb * 4;
   l.ln = l.h + tt * nb * 4;
   l.red = l.ln + 2 * nb * 4;
@@ -248,7 +262,7 @@ inline bool ranges_whole(int d, int nb, int int4, int cs) {
   return d % parts == 0 && nb % 8 == 0 && (d / parts) % 16 == 0;
 }
 
-template <typename Scalar, int TT>
+template <typename Scalar, int TT, int NP>
 __global__ void __launch_bounds__(kThreads)
     fused_adapter_quant_kernel(const Scalar* __restrict__ x,
                                const uint8_t* __restrict__ aq,
@@ -277,8 +291,9 @@ __global__ void __launch_bounds__(kThreads)
   const int qb = int4 ? w : ds;          // bytes per B_q row, this block's
   const int ga = nb / a_groups;          // columns per A / B scale group
   const int gb = d / b_groups;
+  const int tw = ds / NP;                // the tile's columns of the block
   const Layout L = layout(ds, nb, TT, sizeof(Scalar), int4, a_groups,
-                          b_groups);
+                          b_groups, NP);
   Scalar* s_x = reinterpret_cast<Scalar*>(smem + L.x);
   uint8_t* s_aq = smem + L.aq;
   __half* s_as = reinterpret_cast<__half*>(smem + L.as);
@@ -343,48 +358,62 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<1>();
   __syncthreads();
 
-  // A_hat [ds, nb] fp32, each value dequantized once. int4: byte m of a
-  // row holds columns m and m + nb/2.
-  for (WordWalk it(tid, qa); it.row < ds; it.next()) {
-    const int j = it.row, m = it.col;
-    const uint32_t word =
-        *reinterpret_cast<const uint32_t*>(s_aq + j * qa + m);
-    const __half* sr = s_as + j * a_groups;
-    float* wr = s_w + j * nb;
-    float sc[4];
-    if (int4) {
-      scales4(sr, m, ga, sc);
-      *reinterpret_cast<float4*>(wr + m) = dequant4(word, 1, 0, sc);
-      scales4(sr, qa + m, ga, sc);
-      *reinterpret_cast<float4*>(wr + qa + m) = dequant4(word, 1, 4, sc);
-    } else {
-      sc[0] = sc[1] = sc[2] = sc[3] = __half2float(sr[0]);
-      *reinterpret_cast<float4*>(wr + m) = dequant4(word, 0, 0, sc);
+  // A_hat rows [r0, r0 + n) of the block into the fp32 tile [n, nb], each
+  // value dequantized once. int4: byte m of a row holds columns m and
+  // m + nb/2.
+  auto dequant_a = [&](int r0, int n) {
+    for (WordWalk it(tid, qa); it.row < n; it.next()) {
+      const int j = r0 + it.row, m = it.col;
+      const uint32_t word =
+          *reinterpret_cast<const uint32_t*>(s_aq + j * qa + m);
+      const __half* sr = s_as + j * a_groups;
+      float* wr = s_w + it.row * nb;
+      float sc[4];
+      if (int4) {
+        scales4(sr, m, ga, sc);
+        *reinterpret_cast<float4*>(wr + m) = dequant4(word, 1, 0, sc);
+        scales4(sr, qa + m, ga, sc);
+        *reinterpret_cast<float4*>(wr + qa + m) = dequant4(word, 1, 4, sc);
+      } else {
+        sc[0] = sc[1] = sc[2] = sc[3] = __half2float(sr[0]);
+        *reinterpret_cast<float4*>(wr + m) = dequant4(word, 0, 0, sc);
+      }
     }
-  }
-  __syncthreads();
+  };
 
   // 1. partial h over this block's columns -> s_part [TT][nb]: thread
-  // (s, c) sums sub-slice s of column c for every token of the tile; the
-  // S sub-slices are then added in order
+  // (s, c) sums sub-slice s of column c for every token of the tile, over
+  // the tile's rows of each pass in row order; the S sub-slices are then
+  // added in order
   const int S = kThreads / nb;
-  if (tid < S * nb) {
-    const int c = tid % nb;
-    const int s = tid / nb;
-    const int per = (ds + S - 1) / S;
-    const int i0 = s * per;
-    const int i1 = min(ds, i0 + per);
-    float acc[TT];
+  const int c_ = tid % nb;
+  const int s_ = tid / nb;
+  const int per_ = (ds + S - 1) / S;
+  const int i0 = s_ * per_;
+  const int i1 = min(ds, i0 + per_);
+  float hacc[TT];
 #pragma unroll
-    for (int t = 0; t < TT; ++t) acc[t] = 0.0f;
-    for (int i = i0; i < i1; ++i) {
-      const float a_ = s_w[i * nb + c];
+  for (int t = 0; t < TT; ++t) hacc[t] = 0.0f;
+  for (int p = 0; p < NP; ++p) {
+    if (p) __syncthreads();  // every read of the previous part is done
+    dequant_a(p * tw, tw);
+    __syncthreads();
+    if (tid < S * nb) {
+      // NP = 1: the whole sub-slice, bounds known at compile time
+      const int lo = p * tw;
+      const int i_lo = NP == 1 ? i0 : max(i0, lo);
+      const int i_hi = NP == 1 ? i1 : min(i1, lo + tw);
+      for (int i = i_lo; i < i_hi; ++i) {
+        const float a_ = s_w[(i - lo) * nb + c_];
 #pragma unroll
-      for (int t = 0; t < TT; ++t)
-        acc[t] = fmaf(to_float(s_x[t * ds + i]), a_, acc[t]);
+        for (int t = 0; t < TT; ++t)
+          hacc[t] = fmaf(to_float(s_x[t * ds + i]), a_, hacc[t]);
+      }
     }
+  }
+  if (tid < S * nb) {
 #pragma unroll
-    for (int t = 0; t < TT; ++t) s_red[(s * TT + t) * nb + c] = acc[t];
+    for (int t = 0; t < TT; ++t) s_red[(s_ * TT + t) * nb + c_] = hacc[t];
   }
   __syncthreads();  // also: every read of the A_hat tile is done
   for (int o = tid; o < TT * nb; o += kThreads) {
@@ -393,28 +422,39 @@ __global__ void __launch_bounds__(kThreads)
     s_part[o] = h;
   }
 
-  // 2. publish the partial; dequantize B_hat [nb, ds] into the tile while
-  // the peers catch up; then sum the cluster's partials in rank order
+  // B_hat [nb, tw] of pass p into the tile: int8 the block's slice; int4
+  // both nibbles of its bytes (NP = 1: local columns k and w + k), or
+  // nibble p alone (NP = 2: the columns of pair-part p)
+  auto dequant_b = [&](int p) {
+    for (WordWalk it(tid, qb); it.row < nb; it.next()) {
+      const int c = it.row, k = it.col;
+      const uint32_t word =
+          *reinterpret_cast<const uint32_t*>(s_bq + c * qb + k);
+      const __half* sr = s_bs + c * b_groups;
+      float* wr = s_w + c * tw;
+      float sc[4];
+      if (int4 && NP == 2) {
+        scales4(sr, (p ? c1 : c0) + k, gb, sc);
+        *reinterpret_cast<float4*>(wr + k) = dequant4(word, 1, 4 * p, sc);
+      } else if (int4) {
+        scales4(sr, c0 + k, gb, sc);
+        *reinterpret_cast<float4*>(wr + k) = dequant4(word, 1, 0, sc);
+        scales4(sr, c1 + k, gb, sc);
+        *reinterpret_cast<float4*>(wr + w + k) = dequant4(word, 1, 4, sc);
+      } else {
+        sc[0] = sc[1] = sc[2] = sc[3] = __half2float(sr[0]);
+        *reinterpret_cast<float4*>(wr + k) = dequant4(word, 0, 0, sc);
+      }
+    }
+  };
+
+  // 2. publish the partial; dequantize B_hat (pass 0's columns) into the
+  // tile while the peers catch up; then sum the cluster's partials in rank
+  // order
   cluster_arrive();
   cp_async_wait<0>();
   __syncthreads();
-  for (WordWalk it(tid, qb); it.row < nb; it.next()) {
-    const int c = it.row, k = it.col;
-    const uint32_t word =
-        *reinterpret_cast<const uint32_t*>(s_bq + c * qb + k);
-    const __half* sr = s_bs + c * b_groups;
-    float* wr = s_w + c * ds;
-    float sc[4];
-    if (int4) {
-      scales4(sr, c0 + k, gb, sc);
-      *reinterpret_cast<float4*>(wr + k) = dequant4(word, 1, 0, sc);
-      scales4(sr, c1 + k, gb, sc);
-      *reinterpret_cast<float4*>(wr + w + k) = dequant4(word, 1, 4, sc);
-    } else {
-      sc[0] = sc[1] = sc[2] = sc[3] = __half2float(sr[0]);
-      *reinterpret_cast<float4*>(wr + k) = dequant4(word, 0, 0, sc);
-    }
-  }
+  dequant_b(0);
   cg::cluster_group cluster = cg::this_cluster();
   cluster_wait();
   // every remote load issued before the first add: one distributed-
@@ -466,13 +506,15 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<uint4*>(outr + static_cast<long long>(t) * d +
                               col(j)) = pack(acc, Scalar());
   };
-  // local columns j..j+VEC of row t over bottleneck rows [c_lo, c_hi)
-  auto up = [&](int t, int j, int c_lo, int c_hi, float* acc) {
+  // local columns j..j+VEC (in pass p's part) of row t over bottleneck
+  // rows [c_lo, c_hi)
+  auto up = [&](int t, int j, int p, int c_lo, int c_hi, float* acc) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
     for (int c = c_lo; c < c_hi; ++c) {
       const float hc = s_h[t * nb + c];
-      const float4* bw = reinterpret_cast<const float4*>(s_w + c * ds + j);
+      const float4* bw =
+          reinterpret_cast<const float4*>(s_w + c * tw + j - p * tw);
 #pragma unroll
       for (int q = 0; q < VEC / 4; ++q) {
         const float4 b4 = bw[q];
@@ -483,22 +525,36 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   };
-  const int ov = ds / VEC;  // output vectors per token
+  const int ov = ds / VEC;   // output vectors per token
+  const int ovp = ov / NP;   // ... per pass
+  // pass p > 0: every read of the tile done, then its B_hat columns
+  auto next_part = [&](int p) {
+    if (p) {
+      __syncthreads();
+      dequant_b(p);
+      __syncthreads();
+    }
+  };
   if constexpr (TT == 1) {
     // decode: one thread per vector would leave most of the block idle
     // over a depth of b, so thread (g, v) sums group g of the bottleneck
     // rows for vector v, and the G groups are then added in order
     const int G = ov < kThreads ? kThreads / ov : 1;
     const int per = (nb + G - 1) / G;
-    for (int it = tid; it < G * ov; it += kThreads) {
-      const int g = it / ov, j = (it % ov) * VEC;
-      float acc[VEC];
-      up(0, j, min(nb, g * per), min(nb, g * per + per), acc);
-      if (G == 1) {
-        finish(0, j, acc);
-      } else {
+    for (int p = 0; p < NP; ++p) {
+      next_part(p);
+      for (int it = tid; it < G * ovp; it += kThreads) {
+        const int g = it / ovp, v = p * ovp + it % ovp, j = v * VEC;
+        float acc[VEC];
+        up(0, j, p, min(nb, g * per), min(nb, g * per + per), acc);
+        if (G == 1) {
+          finish(0, j, acc);
+        } else {
+          // entry (g, v) of the G x ov partials; it itself when NP = 1
+          const int e = NP == 1 ? it : g * ov + v;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) s_red[it * VEC + i] = acc[i];
+          for (int i = 0; i < VEC; ++i) s_red[e * VEC + i] = acc[i];
+        }
       }
     }
     if (G > 1) {
@@ -516,11 +572,14 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   } else {
-    for (int v = tid; v < nt * ov; v += kThreads) {
-      const int t = v / ov, j = (v % ov) * VEC;
-      float acc[VEC];
-      up(t, j, 0, nb, acc);
-      finish(t, j, acc);
+    for (int p = 0; p < NP; ++p) {
+      next_part(p);
+      for (int v = tid; v < nt * ovp; v += kThreads) {
+        const int t = v / ovp, j = (p * ovp + v % ovp) * VEC;
+        float acc[VEC];
+        up(t, j, p, 0, nb, acc);
+        finish(t, j, acc);
+      }
     }
   }
 
@@ -528,7 +587,7 @@ __global__ void __launch_bounds__(kThreads)
   cluster_wait();
 }
 
-template <typename Scalar, int TT>
+template <typename Scalar, int TT, int NP>
 cudaError_t launch_tile(const void* x, const uint8_t* aq, const __half* as,
                         const uint8_t* bq, const __half* bs, const float* ls,
                         const float* lb, void* out, int B, int T, int d,
@@ -536,9 +595,9 @@ cudaError_t launch_tile(const void* x, const uint8_t* aq, const __half* as,
                         long long as_bs, long long bq_bs, long long bs_bs,
                         long long ln_bs, int int4, int act, int cs,
                         cudaStream_t stream) {
-  auto kernel = fused_adapter_quant_kernel<Scalar, TT>;
+  auto kernel = fused_adapter_quant_kernel<Scalar, TT, NP>;
   const Layout l = layout(d / cs, nb, TT, sizeof(Scalar), int4, a_groups,
-                          b_groups);
+                          b_groups, NP);
   if (l.total > kMaxSmem) return cudaErrorInvalidValue;
   // set once per instantiation: the opt-ins to > 48 KB and to 16 blocks
   static int smem_set = 0;
@@ -578,25 +637,44 @@ cudaError_t launch_tile(const void* x, const uint8_t* aq, const __half* as,
   return cudaGetLastError();
 }
 
+template <typename Scalar, int TT>
+cudaError_t launch_passes(const void* x, const uint8_t* aq, const __half* as,
+                          const uint8_t* bq, const __half* bs,
+                          const float* ls, const float* lb, void* out, int B,
+                          int T, int d, int nb, int a_groups, int b_groups,
+                          long long aq_bs, long long as_bs, long long bq_bs,
+                          long long bs_bs, long long ln_bs, int int4, int act,
+                          int cs, int passes, cudaStream_t stream) {
+  if (passes == 2)
+    return launch_tile<Scalar, TT, 2>(x, aq, as, bq, bs, ls, lb, out, B, T,
+                                      d, nb, a_groups, b_groups, aq_bs,
+                                      as_bs, bq_bs, bs_bs, ln_bs, int4, act,
+                                      cs, stream);
+  return launch_tile<Scalar, TT, 1>(x, aq, as, bq, bs, ls, lb, out, B, T, d,
+                                    nb, a_groups, b_groups, aq_bs, as_bs,
+                                    bq_bs, bs_bs, ln_bs, int4, act, cs,
+                                    stream);
+}
+
 template <typename Scalar>
 cudaError_t launch(const void* x, const uint8_t* aq, const __half* as,
                    const uint8_t* bq, const __half* bs, const float* ls,
                    const float* lb, void* out, int B, int T, int d, int nb,
                    int a_groups, int b_groups, long long aq_bs,
                    long long as_bs, long long bq_bs, long long bs_bs,
-                   long long ln_bs, int int4, int act, int cs,
+                   long long ln_bs, int int4, int act, int cs, int passes,
                    cudaStream_t stream) {
   if (!ranges_whole(d, nb, int4, cs))
     return cudaErrorInvalidValue;
   if (T == 1)
-    return launch_tile<Scalar, 1>(x, aq, as, bq, bs, ls, lb, out, B, T, d,
-                                  nb, a_groups, b_groups, aq_bs, as_bs,
-                                  bq_bs, bs_bs, ln_bs, int4, act, cs,
-                                  stream);
-  return launch_tile<Scalar, kTileT>(x, aq, as, bq, bs, ls, lb, out, B, T,
-                                     d, nb, a_groups, b_groups, aq_bs, as_bs,
-                                     bq_bs, bs_bs, ln_bs, int4, act, cs,
-                                     stream);
+    return launch_passes<Scalar, 1>(x, aq, as, bq, bs, ls, lb, out, B, T, d,
+                                    nb, a_groups, b_groups, aq_bs, as_bs,
+                                    bq_bs, bs_bs, ln_bs, int4, act, cs,
+                                    passes, stream);
+  return launch_passes<Scalar, kTileT>(x, aq, as, bq, bs, ls, lb, out, B, T,
+                                       d, nb, a_groups, b_groups, aq_bs,
+                                       as_bs, bq_bs, bs_bs, ln_bs, int4, act,
+                                       cs, passes, stream);
 }
 
 }  // namespace
@@ -609,16 +687,18 @@ cudaError_t launch(const void* x, const uint8_t* aq, const __half* as,
 // T-tile (8 or 16, the sizes the wrapper's planner chooses between); each
 // copied range must be whole 16-byte vectors (ranges_whole) and x, the
 // quantized rows, their scales, out and the batch strides 16-byte aligned.
-// Returns the launch's cudaError_t.
+// passes: 1 (the fp32 tile holds the block's columns) or, int4 only, 2 (it
+// holds one pair-part at a time). Returns the launch's cudaError_t.
 extern "C" int xpeft_fused_adapter_quant_batched(
     const void* x, const void* a_q, const void* a_s, const void* b_q,
     const void* b_s, const void* ls, const void* lb, void* out, int B, int T,
     int d, int nb, int a_groups, int b_groups, long long aq_bs,
     long long as_bs, long long bq_bs, long long bs_bs, long long ln_bs,
-    int dtype, int int4, int act, int cluster, void* stream) {
+    int dtype, int int4, int act, int cluster, int passes, void* stream) {
   if (B < 1 || B > 65535 || T < 1 || d < 1 || nb < 1 || nb > kMaxB ||
       a_groups < 1 || b_groups < 1 || nb % a_groups || d % b_groups ||
       (cluster != 8 && cluster != kMaxCluster) ||
+      (passes != 1 && !(passes == 2 && int4)) ||
       (T + kTileT - 1) / kTileT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* aq = static_cast<const uint8_t*>(a_q);
@@ -632,11 +712,12 @@ extern "C" int xpeft_fused_adapter_quant_batched(
   if (dtype == 1)
     err = launch<__nv_bfloat16>(x, aq, as, bq, bs, lsp, lbp, out, B, T, d,
                                 nb, a_groups, b_groups, aq_bs, as_bs, bq_bs,
-                                bs_bs, ln_bs, int4, act, cluster, s);
+                                bs_bs, ln_bs, int4, act, cluster, passes,
+                                s);
   else if (dtype == 0)
     err = launch<float>(x, aq, as, bq, bs, lsp, lbp, out, B, T, d, nb,
                         a_groups, b_groups, aq_bs, as_bs, bq_bs, bs_bs,
-                        ln_bs, int4, act, cluster, s);
+                        ln_bs, int4, act, cluster, passes, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

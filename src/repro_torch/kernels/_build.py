@@ -42,7 +42,7 @@ SIGNATURES = {
     "xpeft_hetero_adapter_batched":
         [_P] * 9 + [_I] * 5 + [_LL] * 6 + [_I] * 4 + [_P],
     "xpeft_fused_adapter_quant_batched":
-        [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 4 + [_P],
+        [_P] * 8 + [_I] * 6 + [_LL] * 5 + [_I] * 5 + [_P],
     "xpeft_ia3_apply_batched":
         [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
     "xpeft_decode_block_config": [_I] * 5 + [ctypes.POINTER(_I)],

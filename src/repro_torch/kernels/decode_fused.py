@@ -36,9 +36,23 @@ and dequantize each value once (the shared ``csrc/dequant.cuh``); their
 adapter stays fp32 from x2 to one rounding of x2 + y, as
 ``decode_block_row``'s quantized branch does.
 
+The kernel is instantiated for 1 to ``MAX_SLOTS`` slots (one block holds
+a phase's input rows of every slot). A call with more slots launches it
+once per group of at most ``MAX_SLOTS`` consecutive slots
+(``slot_groups``), each launch on views of x, pos, the caches and the
+adapter operands (they take a batch stride) and writing its rows of y and
+the K/V rows into outputs allocated once; each group reads the layer's
+weights once. A group's launch is the launch a call on its slots alone
+makes (the same instantiation, plan and grid, and a slot's sums do not
+depend on the other slots), so a slot's outputs at B=16 are bitwise those
+of the same slot in an 8-slot call on its group; against a call of
+another width they may differ where ``in_width`` differs (4 against 8
+rows: the wide-row builds window the inputs by the instantiation).
+
 On a CPU tensor the wrapper computes the plain version
 (``kernels/ref.py`` ``decode_block_ref``); on a CUDA tensor it launches
-the kernel or raises. ``decode_block_fused.launches`` counts launches.
+the kernel or raises. ``decode_block_fused.launches`` counts launches
+(one per slot group).
 """
 from __future__ import annotations
 
@@ -56,6 +70,20 @@ MAX_SLOTS = 8
 _ROUTES = {"none": 0, "bf16": 1, "int8": 2, "int4": 3}
 _ADAPTER_ACTS = {"identity": 0, "gelu": 1}
 _MLP_ACTS = {"silu": 0, "gelu": 1}
+
+
+def slot_groups(B: int) -> list:
+    """The consecutive slot ranges one call launches the kernel over: in
+    order, each of at most ``MAX_SLOTS`` slots, covering 0..B-1 once."""
+    if B < 1:
+        raise ValueError(f"decode megakernel: {B} slots")
+    return [slice(s, min(s + MAX_SLOTS, B)) for s in range(0, B, MAX_SLOTS)]
+
+
+# the leaves of one layer's adapter entry that ``_adapter_operands`` reads,
+# each per slot [B, ...]
+_ADAPTER_LEAVES = ("a_hat", "b_hat", "ln_scale", "ln_bias", "a_q",
+                   "a_scale", "b_q", "b_scale")
 
 
 def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
@@ -287,10 +315,7 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     if x.ndim != 3 or x.shape[1] != 1:
         raise ValueError(f"x must be [B, 1, d], got {tuple(x.shape)}")
     B, _, d = x.shape
-    if not 1 <= B <= MAX_SLOTS:
-        raise NotImplementedError(
-            f"decode megakernel: {B} slots; instantiations are built for "
-            f"1 to {MAX_SLOTS}")
+    groups = slot_groups(B)
     _, S, KV, hd = k_cache.shape
     attn, mlp = block["attn"], block["mlp"]
     H = attn["wq"].shape[1]
@@ -318,39 +343,45 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
             f"ff={ff}: needs H % KV == 0, hd a power of two in [16, 256] "
             "and widths that are multiples of 16")
 
-    ad = _adapter_operands(masks_l, adapter, x)
-
-    nb = ad["nb"]
-    grid, sc, words = _launch_plan(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        B, d, H, KV, hd, ff, S, nb, adapter, tuple(ad["groups"]))
-    scratch = torch.empty(words, dtype=f32, device=dev)
+    # every group's operands checked before anything launches
+    ads = [_adapter_operands({k: v[g] for k, v in (masks_l or {}).items()
+                              if k in _ADAPTER_LEAVES}, adapter, x[g])
+           for g in groups]
     y = torch.empty_like(x)
     k_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
     v_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
     freqs = _inv_freq(hd, float(theta), dev)
     lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.xpeft_decode_block(
-            x.data_ptr(), pos.data_ptr(), n1.data_ptr(), n2.data_ptr(),
-            attn["wq"].data_ptr(), attn["wk"].data_ptr(),
-            attn["wv"].data_ptr(), attn["wo"].data_ptr(),
-            *(t.data_ptr() for t in biases),
-            mlp["wg"].data_ptr(), mlp["wu"].data_ptr(), mlp["wd"].data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(),
-            *(t.data_ptr() for t in ad["bf16"]), *ad["bf16_strides"],
-            freqs.data_ptr(), y.data_ptr(), k_rows.data_ptr(),
-            v_rows.data_ptr(), scratch.data_ptr(), B, d, H, KV, hd, ff, S,
-            nb, int(qkv_bias), _ROUTES[adapter],
-            _ADAPTER_ACTS.get(adapter_act, 0), _MLP_ACTS[act_name],
-            float(cap or 0.0),
-            ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
-            *ad["quant_strides"], *ad["groups"], sc, grid, stream)
-    if err:
-        raise RuntimeError(f"decode_block_fused launch failed: CUDA error "
-                           f"{err}")
-    decode_block_fused.launches += 1
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    for g, ad in zip(groups, ads):
+        n = g.stop - g.start
+        nb = ad["nb"]
+        grid, sc, words = _launch_plan(index, n, d, H, KV, hd, ff, S, nb,
+                                       adapter, tuple(ad["groups"]))
+        scratch = torch.empty(words, dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.xpeft_decode_block(
+                x[g].data_ptr(), pos[g].data_ptr(), n1.data_ptr(),
+                n2.data_ptr(), attn["wq"].data_ptr(), attn["wk"].data_ptr(),
+                attn["wv"].data_ptr(), attn["wo"].data_ptr(),
+                *(t.data_ptr() for t in biases),
+                mlp["wg"].data_ptr(), mlp["wu"].data_ptr(),
+                mlp["wd"].data_ptr(), k_cache[g].data_ptr(),
+                v_cache[g].data_ptr(),
+                *(t.data_ptr() for t in ad["bf16"]), *ad["bf16_strides"],
+                freqs.data_ptr(), y[g].data_ptr(), k_rows[g].data_ptr(),
+                v_rows[g].data_ptr(), scratch.data_ptr(), n, d, H, KV, hd,
+                ff, S, nb, int(qkv_bias), _ROUTES[adapter],
+                _ADAPTER_ACTS.get(adapter_act, 0), _MLP_ACTS[act_name],
+                float(cap or 0.0),
+                ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
+                *ad["quant_strides"], *ad["groups"], sc, grid, stream)
+        if err:
+            raise RuntimeError(f"decode_block_fused launch failed: CUDA "
+                               f"error {err}")
+        decode_block_fused.launches += 1
     return y, k_rows, v_rows
 
 

@@ -17,7 +17,11 @@ block summed in rank order through distributed shared memory, LN and the
 activation in every block, then that block's columns of h·B̂ and the
 residual. Products stay on CUDA cores in fp32 (a dequantized value is
 exact in neither bf16 nor TF32); fp32 inside and one rounding to x's
-dtype, as the plain version. Every operand takes a batch stride, so one
+dtype, as the plain version. Where no cluster fits with the whole tile
+(int4 at gemma3-27b's d=5376), ``launch_plan`` takes 8 blocks whose fp32
+tile holds one int4 pair-part at a time (two passes over it, the same
+products in the same order: bitwise the one-pass outputs wherever both
+fit). Every operand takes a batch stride, so one
 layer of the engine's [B, L, ...] quantized slot buffers needs no copy.
 
 On a CPU tensor the wrapper computes the plain version
@@ -39,7 +43,10 @@ _ACTS = {"identity": 0, "gelu": 1}
 MAX_B = 256
 THREADS = 256                  # per block
 TILE_T = 16                    # tokens per block at T > 1
-CLUSTERS = (8, 16)             # blocks per cluster, in order of preference
+CLUSTERS = (8, 16)             # blocks per cluster
+# (blocks per cluster, passes over the fp32 tile), in order of preference;
+# two passes (one int4 pair-part at a time) only where neither fits whole
+PLANS = ((8, 1), (16, 1), (8, 2))
 MAX_SMEM = 232448              # shared memory one block may opt in to
 
 
@@ -47,11 +54,12 @@ def _up16(n):
     return (n + 15) // 16 * 16
 
 
-def smem_bytes(ds, nb, tt, itemsize, int4, a_groups, b_groups):
+def smem_bytes(ds, nb, tt, itemsize, int4, a_groups, b_groups, passes=1):
     """Shared memory of one block (``csrc/fused_adapter_quant.cu``'s
     ``layout``): the x tile [tt, ds]; the block's Â rows [ds, nb] as
     bytes and their scales; its B̂ bytes [nb, ds] and B̂'s whole scale
-    block [nb, b_groups]; one fp32 tile [ds, nb] that holds Â, then B̂;
+    block [nb, b_groups]; one fp32 tile [ds / passes, nb] that holds Â,
+    then B̂ (each pass's part);
     the partial and full h [tt, nb] and the LN affines [2, nb] fp32; the
     sub-slice partials [THREADS // nb, tt, nb] fp32, at T = 1 at least
     THREADS vectors of fp32 (the up-projection's bottleneck-group
@@ -62,7 +70,8 @@ def smem_bytes(ds, nb, tt, itemsize, int4, a_groups, b_groups):
         red = max(red, THREADS * (16 // itemsize))
     return (_up16(tt * ds * itemsize) + _up16(ds * qa)
             + _up16(ds * a_groups * 2) + _up16(nb * qb)
-            + _up16(nb * b_groups * 2) + 4 * ds * nb + 2 * 4 * tt * nb
+            + _up16(nb * b_groups * 2) + 4 * (ds // passes) * nb
+            + 2 * 4 * tt * nb
             + 2 * 4 * nb + 4 * red)
 
 
@@ -78,25 +87,32 @@ def ranges_whole(d, nb, int4, cs):
     return d % parts == 0 and nb % 8 == 0 and (d // parts) % 16 == 0
 
 
-def plan(d, nb, T, itemsize, scheme, a_groups=1, b_groups=1):
-    """Blocks per cluster (each takes d / cluster columns): the first of
-    ``CLUSTERS`` whose ranges are whole 16-byte vectors (``ranges_whole``)
-    and whose shared memory fits in a block. B̂'s scale rows are copied
-    whole, so a block's columns need not be whole scale groups. Raises
-    ValueError when no cluster size fits."""
+def launch_plan(d, nb, T, itemsize, scheme, a_groups=1, b_groups=1):
+    """(blocks per cluster, passes over the fp32 tile): the first of
+    ``PLANS`` whose ranges are whole 16-byte vectors (``ranges_whole``)
+    and whose shared memory fits in a block; two passes only in int4,
+    where the pair-set's two ranges are the passes' parts. Each block
+    takes d / cluster columns. B̂'s scale rows are copied whole, so a
+    block's columns need not be whole scale groups. Raises ValueError
+    when no plan fits."""
     int4 = scheme == "int4"
     tt = 1 if T == 1 else TILE_T
-    for cs in CLUSTERS:
-        if ranges_whole(d, nb, int4, cs) \
+    for cs, passes in PLANS:
+        if (passes == 1 or int4) and ranges_whole(d, nb, int4, cs) \
                 and smem_bytes(d // cs, nb, tt, itemsize, int4, a_groups,
-                               b_groups) <= MAX_SMEM:
-            return cs
+                               b_groups, passes) <= MAX_SMEM:
+            return cs, passes
     raise ValueError(f"no cluster of {CLUSTERS} blocks fits {scheme} d={d}, "
                      f"b={nb} ({a_groups}/{b_groups} scales per Â/B̂ row) "
                      f"at {itemsize}-byte x: each block's column ranges "
                      "must be whole 16-byte vectors of x, of the quantized "
                      "bytes and of their scales, b a multiple of 8, and "
                      f"the block's shared memory at most {MAX_SMEM} bytes")
+
+
+def plan(d, nb, T, itemsize, scheme, a_groups=1, b_groups=1):
+    """Blocks per cluster of ``launch_plan``."""
+    return launch_plan(d, nb, T, itemsize, scheme, a_groups, b_groups)[0]
 
 
 def _per_row(t, inner, B, name):
@@ -125,13 +141,16 @@ def fused_adapter_quant_batched(x, a_q, a_scale, b_q, b_scale, ln_scale,
 
 
 def _launch(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *, scheme,
-            activation):
+            activation, passes=None):
+    """One launch; ``passes`` (1 or 2) overrides the plan's, for checking
+    the two-pass tile against the one-pass one where both fit."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     nb, groups, strides = _check(x, a_q, a_scale, b_q, b_scale, ln_scale,
                                  ln_bias, scheme, activation)
     B, T, d = x.shape
-    cs = plan(d, nb, T, x.element_size(), scheme, *groups)
+    cs, planned = launch_plan(d, nb, T, x.element_size(), scheme, *groups)
+    passes = planned if passes is None else passes
     out = torch.empty_like(x)
     lib = load_library()
     with torch.cuda.device(x.device):
@@ -141,7 +160,7 @@ def _launch(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, *, scheme,
             b_q.data_ptr(), b_scale.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), out.data_ptr(), B, T, d, nb, *groups,
             *strides, _DTYPES[x.dtype], int(scheme == "int4"),
-            _ACTS[activation], cs, stream)
+            _ACTS[activation], cs, passes, stream)
     if err:
         raise RuntimeError(f"fused_adapter_quant launch failed: CUDA error "
                            f"{err}")

@@ -119,6 +119,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs as OBS
+from repro_torch.analysis.bytes import bank_slice_bytes
 from repro_torch.core import xpeft as XP
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.distributed import ctx as CTX
@@ -377,7 +378,6 @@ class ServeEngine:
         store.subscribe(self.invalidate_profile)
         # continuous mode: the mask records live in an ENTRY POOL (one
         # entry = one request's record, one entry per slot) addressed
-        # through a per-slot table
         # through a per-slot table; on a mesh the entries split over
         # "data" as the slots do (one entry per slot on each shard)
         self.n_mask_entries = max_slots
@@ -892,7 +892,8 @@ class ServeEngine:
         else:
             d, b = bank["bank_a"].shape[2:]
             # Â + B̂ bytes of one (layer, adapter) row
-            slice_bytes = 2 * d * b * bank["bank_a"].element_size()
+            slice_bytes = bank_slice_bytes(
+                d, b, itemsize=bank["bank_a"].element_size())
         aggregated = bank_bytes = 0
         path = "cached"
         if missing and self.store.mask_type == "soft":

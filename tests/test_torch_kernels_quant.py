@@ -475,12 +475,20 @@ def test_fused_adapter_quant_plan_refusals():
                  (1000, 64, 1, 2, "int8"),            # d/8, d/16 not whole
                  (1040, 64, 1, 2, "int4", 2, 65),     # pair-sets of 65, 32.5
                  (1024, 36, 1, 2, "int4", 1, 32),     # ... in int4 too
-                 (5376, 64, 1, 2, "int4", 2, 168),    # 16: ranges of 168;
-                 (5376, 64, 16, 4, "int4", 2, 168),   # 8: smem overflows
                  (16384, 64, 1, 2, "int8"),           # no slice fits smem
                  (7168, 256, 16, 4, "int8")):
         with pytest.raises(ValueError):
             KFQ.plan(*args)
+    # gemma3-27b int4 (d=5376): at 16 blocks ranges of 168 columns are
+    # not whole vectors of B̂ bytes, and 8 blocks overflow shared memory
+    # with the whole fp32 tile, so 8 blocks hold it one pair-part at a
+    # time
+    for T, itemsize in ((1, 2), (16, 4)):
+        assert KFQ.launch_plan(5376, 64, T, itemsize, "int4", 2, 168) \
+            == (8, 2)
+    # ... the two passes' tile [336, 64] fp32 in place of [672, 64]
+    assert KFQ.smem_bytes(672, 64, 1, 2, True, 2, 168) \
+        - KFQ.smem_bytes(672, 64, 1, 2, True, 2, 168, 2) == 4 * 336 * 64
     # musicgen-medium int4: ranges of 96 columns, three groups of 32 each
     # -- and bert-base's 48, one and a half groups
     assert KFQ.plan(1536, 64, 1, 2, "int4", 2, 48) == 8

@@ -30,18 +30,20 @@ k=50, in this order (each model freed before the next).
     against continuous, every flip explained.
 (b) gemma3-27b at full width and 12 of its 62 layers (two periods of 5
     local : 1 global; the full 62 layers and their 21.8 GB bank do not fit
-    beside the run's other memory): #1 at its bank and #2 at d=5376, T=1
-    and 16, timed; 8 requests of 1,000-1,100 prompt tokens, 32 new, 4
-    slots, max_seq 2,048, so decode positions pass 1,024 and the window
-    masks keys, and the prefills (T 1,024 or 2,048, S 2,048) take the
-    chunked online softmax. Composed and int8 each held to its ref run
+    beside the run's other memory): #1 at its bank, #2 at d=5376, T=1
+    and 16, and #6 from int4 records there (the two-pass tile), timed; 8
+    requests of 1,000-1,100 prompt tokens, 32 new, 4 slots, max_seq
+    2,048, so decode positions pass 1,024 and the window masks keys, and
+    the prefills (T 1,024 or 2,048, S 2,048) take the chunked online
+    softmax. Composed, int8 and int4 (#5 and #6) each held to its ref run
     (recorded logits: prefill and teacher-forced decode logits under
     phase 4's bounds, every flip explained); continuous bitwise the
     windowed run; ``decode_fused=True`` launches #8 0 times (sliding
     layers keep the composed route, as JAX decides it) with tokens
     bitwise the composed run's.
-(c) musicgen-medium at full width and depth (48 layers, d=1536, 24 x 64
-    heads, d_ff 6,144, vocab 2,048) with 64 conditioning frames:
+(c) musicgen-medium at full width and MUSIC_LAYERS = 24 of its 48 layers
+    (d=1536, 24 x 64 heads, d_ff 6,144, vocab 2,048; the call's time)
+    with 64 conditioning frames:
     ``make_prefill_step`` with random ``prefix_embeds`` [B, 64, 1536],
     then 16 greedy tokens through ``make_decode_step`` at cache_pos = T +
     P, composed (4 slots) and with ``decode_fused`` at 8 slots (the
@@ -83,6 +85,9 @@ DEC_SHAPES = ((GEMMA, 4), (GEMMA, 8), (MUSICGEN, 8), ("deepseek-7b", 8),
               ("llava-next-34b", 4), ("llava-next-34b", 8))
 DEC_LONG_POS = [2047, 0, 1000, 1500, 77, 1, 2048, 512]
 MUSIC_T, MUSIC_NEW = 16, 16
+# musicgen-medium's depth in (c): 24 of its 48 layers (full width), for
+# the call's time
+MUSIC_LAYERS = 24
 # the device the models of (a)-(c) live on (a CPU rehearsal sets "cpu")
 DEV = "cuda"
 
@@ -370,12 +375,15 @@ def phase_gemma(torch, counters):
 def gemma3_kernel_rows(torch):
     """#1 over the 12 layers' bank [12 x 256, 5376, 64] and its B side (P
     = 4 profiles x 12 layers, k=50); #2 on layer slices at d=5376, T=1
-    and T=16, B=4."""
+    and T=16, B=4; #6 from int4 records there (8 blocks a cluster, the
+    fp32 tile in two passes), T=1 and 16, B=4."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_adapter_batched as KF
+    from repro_torch.kernels import fused_adapter_quant as KFQ
     from repro_torch.kernels import mask_aggregate as KA
     from repro_torch.kernels import ref
+    from repro_torch.quant import schemes as QS
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     d, nb, L = 5376, 64, GEMMA3_LAYERS
@@ -387,7 +395,10 @@ def gemma3_kernel_rows(torch):
         torch.cuda.empty_cache()
     fa = cs.fa_slice_rows(torch, KF, ref, gen, "gemma3", d, nb, L,
                           ((4, 1, torch.bfloat16), (4, 16, torch.bfloat16)))
-    return dict(agg=agg, fa=fa)
+    faq = cs.faq_slice_rows(torch, KFQ, ref, QS, gen, "gemma3", "int4", d,
+                            nb, L, (1, 16))
+    assert all((r["cluster"], r["passes"]) == (8, 2) for r in faq), faq
+    return dict(agg=agg, fa=fa, faq=faq)
 
 
 def phase_gemma3(torch, counters):
@@ -451,13 +462,16 @@ def phase_gemma3(torch, counters):
     out["runs"]["decode_fused"] = f["launches"]
     del c, f, run_a
     gc.collect()
-    q, _ = held(torch, "gemma3 int8 composed",
-                cfg.with_xpeft(bank_quant="int8"), params,
-                store_for(cfg, quant="int8", quant_group=xp.quant_group),
-                counters, make, LONG, launch_check(L, quant=True),
-                report_share=True)
-    out["int8"] = q
-    out["runs"]["int8"] = q["launches"]
+    # the quantized banks, composed: #5 at admission, #6 in every layer
+    for scheme in ("int8", "int4"):
+        q, _ = held(torch, f"gemma3 {scheme} composed",
+                    cfg.with_xpeft(bank_quant=scheme), params,
+                    store_for(cfg, quant=scheme, quant_group=xp.quant_group),
+                    counters, make, LONG, launch_check(L, quant=True),
+                    report_share=True)
+        out[scheme] = q
+        out["runs"][scheme] = q["launches"]
+        gc.collect()
     del params
     return out
 
@@ -475,8 +489,6 @@ def music_run(torch, cfg, params, store, counters, toks, prefix,
     logits [B, V], decode logits [B, n-1, V], launches, host ms a step,
     and with ``profiled`` (device ms, kernels) of 4 more decode steps under
     torch.profiler tracing the card only)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import xpeft as XP
     from repro_torch.models import model as MDL
     from repro_torch.serve import steps as SS
@@ -517,15 +529,14 @@ def music_run(torch, cfg, params, store, counters, toks, prefix,
         feed = tok[:, None].to(torch.int32)
         decode(params, feed, cache, T + P + MUSIC_NEW - 1, masks)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+
+        def steps():
             for s in range(4):
                 decode(params, feed, cache, T + P + MUSIC_NEW + s, masks)
-            torch.cuda.synchronize()
-        rows = [e for e in pr.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        rows = cs.trace_card(torch, steps, "musicgen decode step")
         prof = (sum(e.self_device_time_total for e in rows) / 1e3 / 4,
                 sum(e.count for e in rows) / 4)
-        assert prof[0] > 0 and prof[1] > 0, "the profiler traced no kernel"
     return (torch.stack(out, 1), pre, torch.stack(dec, 1), launches, ms,
             prof)
 
@@ -715,7 +726,7 @@ def music_path(torch, label, cfg, params, store, counters, B, check):
     meet twice the ref run's own distance from float32 (``e2e_check``'s
     ``witness``): musicgen's largest prefill logit, ~3.7 over a
     vocabulary of 2,048, makes four bf16 steps of it 0.0625, under the
-    ~0.12 that its 48 layers of bf16 roundings move the ref run's own
+    ~0.12 that 48 layers of bf16 roundings moved the ref run's own
     logits. A decode step profiled."""
     from types import SimpleNamespace
 
@@ -818,12 +829,13 @@ def phase_music(torch, counters):
         torch, cfg=get_config(MUSICGEN).with_(num_layers=2, dtype="float32")
         .with_xpeft(max_profiles=8), prepare=with_prefix,
         label="forms (c) train, prefix_embeds")
-    cfg = get_config(MUSICGEN)
+    cfg = get_config(MUSICGEN).with_(num_layers=MUSIC_LAYERS)
     L = cfg.num_layers
     params = init_lm(cfg, seed=0, device=DEV)
     n_w = tree_bytes({k: v for k, v in params.items() if k != "xpeft_bank"})
     n_bank = tree_bytes(params["xpeft_bank"])
-    cs.log(f"forms (c): {cfg.name} L={L} d={cfg.d_model} H={cfg.num_heads} "
+    cs.log(f"forms (c): {cfg.name} L={L} of 48 d={cfg.d_model} "
+           f"H={cfg.num_heads} "
            f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} P={P}: "
            f"{n_w / 1e9:.2f} GB of weights + {n_bank / 1e9:.2f} GB of bank")
     store = store_for(cfg)
@@ -875,7 +887,7 @@ def phase_forms(torch, parts="dabc"):
     cs.log(f"phase 13 starts with {torch.cuda.memory_allocated() / 2**30:.3f}"
            " GiB allocated")
     counters = cs.kernel_counters()
-    out = dict(runs={}, kernel_rows=dict(agg=[], fa=[], dec=[]))
+    out = dict(runs={}, kernel_rows=dict(agg=[], fa=[], dec=[], faq=[]))
     for part, name, prefix, fn in (
             ("d", "decode_rows", None, lambda: dec_rows(torch, KD, ref, QS)),
             ("a", "gemma", "gemma-2b", lambda: phase_gemma(torch, counters)),

@@ -5,8 +5,9 @@ alone:
 
 Builds the kernels, turns TF32 off as ``chip_smoke.py`` does and runs
 ``phase_lifecycle`` on qwen1.5-0.5b at full depth and width (24 layers,
-d=1024, bank N=256, b=64, k=50), bf16, random weights from seed 0, on
-``MarkovLM`` over 8 profiles:
+d=1024, bank N=256, b=64, k=50; ``chip_smoke.py`` runs it on CUT_LAYERS
+of them), bf16, random weights from seed 0, on ``MarkovLM`` over 8
+profiles:
 
 (a) onboarding through ``build_onboarding_run``: 4 roster slots, 4
     examples per slot, T=32, lr 1e-3, ``GraduationPolicy(min_steps=10,
@@ -38,8 +39,8 @@ d=1024, bank N=256, b=64, k=50), bf16, random weights from seed 0, on
     and poisoned rows' params and moments bitwise unchanged.
 (d) (a)'s graduated store, loaded from disk, served by the windowed
     composed engine (8 requests over the graduated profiles, 16 new
-    tokens, 4 slots) through #1 (twice per aggregating wave) and #2 (24
-    times per decode step and prefill batch), held to its
+    tokens, 4 slots) through #1 (twice per aggregating wave) and #2 (once
+    per layer a decode step and prefill batch), held to its
     ``kernel_impl="ref"`` run under phase 4's ``e2e_check`` bounds.
 
 Every failed check raises. Prints one JSON line of its numbers last.
@@ -226,20 +227,21 @@ def profile_gang(torch, gang, state, batches, gen):
     torch.profiler tracing the card only: device ms and kernels per step,
     and no scatter-add / index-add kernel (the kernel list goes to
     ``chiprun_out/gang_step_kernels.txt``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     n = len(batches)
     state, _ = gang(state, batches[0], gen)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    box = dict(state=state)
+
+    def steps():
+        box["t"] = time.perf_counter()
         for b in batches:
-            state, met = gang(state, b, gen)
+            box["state"], box["met"] = gang(box["state"], b, gen)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) / n * 1e3
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+        box["wall"] = (time.perf_counter() - box["t"]) / n * 1e3
+
+    rows = sorted(cs.trace_card(torch, steps, "phase 11 gang step"),
                   key=lambda e: -e.self_device_time_total)
+    wall, met = box["wall"], box["met"]
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / n
     n_kernels = sum(e.count for e in rows) / n
     bad = sorted({e.key for e in rows
@@ -516,13 +518,15 @@ def serve_graduated(torch, cfg, frozen, trainer):
     return stats
 
 
-def phase_lifecycle(torch, base=None, cfg=None, device="cuda"):
+def phase_lifecycle(torch, base=None, cfg=None, device="cuda", layers=None):
     """Phase 11: (a)-(d) above; ``base`` may carry phase 4's weights
     (``init_lm(seed=0)`` of the same config), else they are drawn.
-    ``cfg`` (default qwen1.5-0.5b) and ``device`` serve a rehearsal at a
-    small size."""
+    ``layers`` runs the first that many layers (full width; ``base``'s
+    blocks and bank cut to them). ``cfg`` (default qwen1.5-0.5b) and
+    ``device`` serve a rehearsal at a small size."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
+    from repro_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
     secs, lap = {}, [t0]
@@ -534,8 +538,14 @@ def phase_lifecycle(torch, base=None, cfg=None, device="cuda"):
 
     small = cfg is not None
     cfg = cfg or get_config("qwen1.5-0.5b")
-    frozen = (base or {}).get("params") or init_lm(cfg, seed=0,
-                                                   device=device)
+    frozen = (base or {}).get("params")
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
+        if frozen is not None:
+            frozen = dict(frozen, **{
+                k: tree_map(lambda t: t[:layers], frozen[k])
+                for k in ("blocks", "xpeft_bank")})
+    frozen = frozen or init_lm(cfg, seed=0, device=device)
     out = {}
     trainer, out["onboard"] = onboard(torch, cfg, frozen, device)
     done("a")

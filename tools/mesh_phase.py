@@ -16,19 +16,19 @@ max_seq 128, sync_every 8):
     mesh run's tokens bitwise the ``mesh=None`` run's; #1 and #2 launched
     on the composed and continuous mesh runs, #8 on ``decode_fused``'s, #5
     and #6 on int8's. The group is destroyed afterwards.
-(b) two processes on the one card over gloo (NCCL refuses two ranks on
-    one device), meshes ``2x1:data,model`` and then ``1x2:data,model`` in
-    one spawn: first gloo's ``all_gather`` and ``all_reduce`` run on CUDA
-    tensors and their results are checked (a build that refuses them
-    fails the phase); then the composed drain of the first wave's 4
-    requests (a windowed wave decodes alone, so its tokens are those
-    requests' in (a)), every kernel counter set to 0 just before it,
-    whose tokens must equal (a)'s ``mesh=None`` composed run bitwise on
-    both ranks and which must launch #1 and #2 on each rank, and a
-    decode step measured: host ms (host clock, synchronised),
-    device ms and kernels (torch.profiler, the card only) and the bytes
-    each rank received in gathers, per step; the resident bytes per
-    device against one device's.
+(b) two processes on the one card over gloo (NCCL refuses two ranks on one
+    device), the mesh ``2x1:data,model`` (``B_MESHES``; its 1x2 drain left out
+    for the call's time: gloo's gathers through the host made it ~30 s; phase
+    16 (c) still runs the 1x2 mesh): first gloo's ``all_gather`` and
+    ``all_reduce`` run on CUDA tensors and their results are checked (a build
+    that refuses them fails the phase); then the composed drain of the first
+    wave's 4 requests (a windowed wave decodes alone, so its tokens are those
+    requests' in (a)), every kernel counter set to 0 just before it, whose
+    tokens must equal (a)'s ``mesh=None`` composed run bitwise on both ranks
+    and which must launch #1 and #2 on each rank, and a decode step measured:
+    host ms (host clock, synchronised), device ms and kernels (torch.profiler,
+    the card only) and the bytes each rank received in gathers, per step; the
+    resident bytes per device against one device's.
 
 Every failed check raises. Prints one JSON line of its numbers last.
 Without a card it exits non-zero.
@@ -52,7 +52,7 @@ MUST_LAUNCH = {
     "continuous": ("mask_aggregate_batched", "fused_adapter_batched"),
     "int8": ("mask_aggregate_quant_batched", "fused_adapter_quant_batched"),
 }
-B_MESHES = ((2, 1), (1, 2))
+B_MESHES = ((2, 1),)
 B_TIMEOUT_S = 300
 
 
@@ -206,7 +206,7 @@ def step_numbers(torch, eng, requests, dev, steps=4):
 
 
 def worker(rank, port, dev, cfg, ref_tokens, one_bytes, out_path):
-    """One rank of (b): gloo over 2 processes, meshes 2x1 then 1x2."""
+    """One rank of (b): gloo over 2 processes, each mesh of B_MESHES."""
     import torch
     import torch.distributed as dist
 

@@ -7,7 +7,7 @@ Builds the kernels, turns TF32 off as ``chip_smoke.py`` does and runs
 ``phase_mesh_train``: bf16, random weights from seed 0, bank N=256, b=64,
 k=50.
 
-(a) qwen1.5-0.5b at full width and ``chip_smoke.CUT_LAYERS`` layers on a
+(a) qwen1.5-0.5b at full width and ``chip_smoke.MESH_TRAIN_LAYERS`` layers on a
     world-1 NCCL group in this process, mesh ``1x1:data,model``: one gang
     step (4 slots x 4 examples x T=32) and one plain xpeft step (B=8,
     T=64), each BITWISE its ``mesh=None`` step (the roster, the new
@@ -80,7 +80,7 @@ OUT = os.path.join(HERE, "build", "mesh_train")
 
 def qwen_cfg():
     from repro_torch.configs import get_config
-    return get_config("qwen1.5-0.5b").with_(num_layers=cs.CUT_LAYERS) \
+    return get_config("qwen1.5-0.5b").with_(num_layers=cs.MESH_TRAIN_LAYERS) \
         .with_xpeft(max_profiles=8)
 
 

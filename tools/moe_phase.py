@@ -24,10 +24,10 @@ max_seq 128, sync_every 8) throughout.
     through ``launch/train.py``'s loop (8 profiles, B=8, T=64), timed and
     profiled as phase 7's; the trained table packed into a hard store,
     saved and loaded back byte-equal. The run's frozen weights serve (a)
-    to (d) and (f) at their first SERVE_LAYERS = 16 layers (the call's
+    to (d) and (f) at their first SERVE_LAYERS = 8 layers (the call's
     time).
 (a) composed windowed serving of 4 random profiles: #1 twice per wave
-    that aggregates, #2 16 times per decode step and prefill batch. Held
+    that aggregates, #2 8 times per decode step and prefill batch. Held
     to its ``kernel_impl="ref"`` run, with every layer's routing recorded
     in both (``Routing``). The routing rule (``routing_diff``): for each
     request whose routing parts before its tokens do, the first (layer,
@@ -41,7 +41,7 @@ max_seq 128, sync_every 8) throughout.
     that run that parts from the ref's, in any layer, meets the routing
     rule (``replay_check``). A decode step timed and profiled, the
     expert GEMMs' share of its device time (their three batched GEMMs
-    timed apart over the 16 layers' weights) and its byte bound.
+    timed apart over the 8 layers' weights) and its byte bound.
 (b) ``decode_fused=True``: MoE blocks stay composed, so #8 launches 0
     times and the tokens are (a)'s bitwise.
 (c) continuous serving (pages of 16) against (a)'s windowed run, by the
@@ -50,7 +50,7 @@ max_seq 128, sync_every 8) throughout.
     self-speculation (gamma 3) against the continuous run, reported with
     its acceptance and routing divergences, not asserted equal (the
     verify's gamma + 1 tokens a slot change the capacity, as in JAX).
-(d) the int8 bank, composed: #5 twice per aggregating wave, #6 16 times
+(d) the int8 bank, composed: #5 twice per aggregating wave, #6 8 times
     per decode step and prefill batch, #1 and #2 never; held to its ref
     run as (a).
 (f) (e)'s trained profiles, repacked as a hard store on the first
@@ -80,9 +80,9 @@ TRAIN_ARGV = ["--arch", ARCH, "--mode", "xpeft", "--steps", "10", "--batch",
 # the token's max |d router logit|: for an expert a the reference keeps
 # and b it does not, g_a - g_b <= |d g_a| + |d g_b| once the run swaps them
 ROUTE_GAP_FACTOR = 2.0
-# the depth (a)-(d) and (f) serve at: the first 16 of the 48 trained
+# the depth (a)-(d) and (f) serve at: the first 8 of the 48 trained
 # layers (the call's time); (e) trains all 48
-SERVE_LAYERS = 16
+SERVE_LAYERS = 8
 
 
 # ----------------------------------------------------------------------------
@@ -631,6 +631,8 @@ def step_budget(torch, cfg, params, step):
     it reads once (all blocks, the final norm, the LM head), the 4 slots'
     Â/B̂ and LN rows, the K/V cache, over the card's memory rate."""
     import torch.nn.functional as F
+
+    from repro_torch.analysis.roofline import HBM_BW
     moe = params["blocks"]["moe"]
     E, d, L = cfg.num_experts, cfg.d_model, cfg.num_layers
     C = 8  # capacity(4 tokens): max(top_k, min(4, 4 * 8 * 1.25 / 128))
@@ -655,12 +657,12 @@ def step_budget(torch, cfg, params, step):
     kv_bytes = 2 * L * 4 * S * cfg.num_kv_heads * cfg.head_dim * 2
     nbytes = block_bytes + tree_bytes(head) \
         + tree_bytes(params["final_norm"]) + adapter_bytes + kv_bytes
-    bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+    bound_ms = nbytes / HBM_BW * 1e3
     expert_ms = ms_layer * L
     share = expert_ms / step["decode_device_ms"]
     cs.log(f"  decode step budget: expert GEMMs {ms_layer:.4f} ms/layer "
            f"x {L} = {expert_ms:.3f} ms ({expert_bytes / 1e9:.2f} GB, "
-           f"bound {expert_bytes / cs.HBM_BYTES_PER_S * 1e3:.3f} ms) = "
+           f"bound {expert_bytes / HBM_BW * 1e3:.3f} ms) = "
            f"{share:.3f} of the step's {step['decode_device_ms']:.3f} ms of "
            f"device time; the step's byte bound {bound_ms:.3f} ms "
            f"({nbytes / 1e9:.3f} GB: blocks {block_bytes / 1e9:.3f}, head "
@@ -746,35 +748,8 @@ def kernel_rows(torch, name="moe", d=2048, L=48, fa_ts=None, seed=12):
                                 bound_by=bound_by, library_ms=None))
         del q, sc
         torch.cuda.empty_cache()
-    for T in (1, 16):
-        sets = [cs.fa_quant_inputs(torch, gen, QS, "int8", 32, 4, T, d, nb,
-                                   bf16, L=3) for _ in range(L)]
-        tag = f"{name} int8 B=4 T={T} d={d} b={nb}"
-        err = cs.check_faq(torch, KFQ, ref, sets[0], "int8",
-                           cs.FA_BF16_RTOL, cs.FA_BF16_ATOL, tag)
-        first = KFQ.fused_adapter_quant_batched(*sets[0], scheme="int8")
-        second = KFQ.fused_adapter_quant_batched(*sets[0], scheme="int8")
-        torch.cuda.synchronize()
-        assert torch.equal(first, second), tag
-        fn = lambda *a: KFQ.fused_adapter_quant_batched(  # noqa: E731
-            *a, scheme="int8")
-        plain = lambda *a: ref.fused_adapter_quant_batched_ref(  # noqa
-            *a, scheme="int8")
-        ms = cs.device_ms(torch, cs.rotating(fn, sets), calls=len(sets))
-        plain_ms = cs.device_ms(torch, cs.rotating(plain, sets),
-                                calls=len(sets))
-        x = sets[0][0]
-        nbytes = 2 * x.numel() * x.element_size() + sum(
-            t[0].numel() * t.element_size() * 4 for t in sets[0][1:])
-        bound_ms, bound_by = cs.bound(nbytes, 4 * 4 * T * d * nb,
-                                      "bfloat16")
-        cs.log(f"fused_adapter_quant_batched {tag}: ms {ms:.5f} (cold) | "
-               f"plain {plain_ms:.5f} (cold) | bound {bound_ms:.5f} "
-               f"({bound_by}: {nbytes / 1e6:.3f} MB); two calls bitwise")
-        out["faq"].append(dict(shape=tag, max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=None))
-        del sets, first, second
+    out["faq"] = cs.faq_slice_rows(torch, KFQ, ref, QS, gen, name, "int8",
+                                   d, nb, L, (1, 16))
     return out
 
 

@@ -29,7 +29,7 @@ k=50, in this order (each model freed before the next).
     under RWKV_GRAD_REL_L2 (the model's own float32 noise floor is above
     phase 7's), and the same step in float64 on both devices, the card's
     loss and gradients within chip_smoke's TRAIN_F64_REL of the CPU's;
-    then on its first RWKV_LAYERS = 16 of 32 layers (the call's time)
+    then on its first RWKV_LAYERS = 8 of 32 layers (the call's time)
     phase 4's workload composed through
     ``chip_smoke.drive_path`` (held to its ``kernel_impl="ref"`` run under
     phase 4's bounds, a decode step profiled and split by op class:
@@ -77,7 +77,7 @@ RWKV, ZAMBA = "rwkv6-7b", "zamba2-1.2b"
 # rwkv6-7b's depth on the card (of 32): its composed run and 1,024-token
 # batch; its int8, hetero, continuous and decode_fused runs take the first
 # RWKV_CUT. zamba2-1.2b's serving depth (of 38). All for the call's time.
-RWKV_LAYERS = 16
+RWKV_LAYERS = 8
 RWKV_CUT = 8
 ZAMBA_LAYERS = 14
 HETERO_SPEC = (("bottleneck", 115), ("lora", 115), ("ia3", 26))
@@ -314,8 +314,6 @@ def step_split(torch, cfg, params, store, label, steps=8):
     card: device ms by op class (projections, adapter kernels, the rest:
     GLA, token shift, norms, gates and other elementwise work), host wall
     ms without the profiler, busy share and tok/s."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve import Request, ServeEngine
     eng = ServeEngine(cfg, params, store, **cs.CB_ENGINE)
     eng.submit(cs.make_requests(Request, cfg.vocab_size, n=4, max_new=64))
@@ -330,13 +328,13 @@ def step_split(torch, cfg, params, store, label, steps=8):
     eng.sync()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(steps):
             eng.step()
         eng.sync()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    rows = cs.trace_card(torch, run, f"decode step {label}")
     split = {}
     for e in rows:
         name = e.key.lower()
@@ -429,13 +427,13 @@ def fp32_witness(torch, cfg, params):
 
 def drive(torch, label, cfg, params, store, counters, check, out, runs):
     """``chip_smoke.drive_path`` with a profile cache that holds all 4
-    profiles' entries (16.8 MB each at rwkv6-7b's 16 layers, d=4096; the
-    engine's default 64 MB holds one), as the path's checks read them; the
-    prefill logits those of the runs' own exact-length admission waves
-    (``own_prefill``: one padded bucket takes another chunk, whose
-    rounding the model amplifies); the logits held under twice the
-    float32 witness (``fp32_witness``); phase 4's adapters'-share bound
-    asserted as it is."""
+    profiles' entries (1.05 MB a layer each at rwkv6-7b's d=4096; the
+    engine's default 64 MB holds one at 32 layers), as the path's checks
+    read them; the prefill logits those of the runs' own exact-length
+    admission waves (``own_prefill``: one padded bucket takes another
+    chunk, whose rounding the model amplifies); the logits held under
+    twice the float32 witness (``fp32_witness``); phase 4's
+    adapters'-share bound asserted as it is."""
     t = time.perf_counter()
     _, _, n, stats = cs.drive_path(torch, label, cfg, params, store,
                                    tuple(counters.items()), check,
