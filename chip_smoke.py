@@ -2774,7 +2774,8 @@ def phase_train_full(torch, argv=TRAIN_ARGV):
     assert all(math.isfinite(v) for v in losses + gnorms)
     assert all(v > 0 for v in gnorms) and moved > 0
     stats = dict(steps=args.steps, batch=args.batch, seq=args.seq,
-                 losses=losses, grad_norms=gnorms, ms_per_step=ms,
+                 remat=out["cfg"].remat, losses=losses, grad_norms=gnorms,
+                 ms_per_step=ms,
                  ms_per_step_all=ev, host_wall_ms_per_step=wall,
                  tokens_per_s=tokens / ms * 1e3, peak_memory_bytes=peak,
                  memory_held_before_bytes=held,
@@ -3111,7 +3112,8 @@ def phase_encoder_train(torch, counters):
     launches = {n: fn.launches for n, fn in counters.items()}
     log(f"  hand-written kernel launches during training: {launches}")
     assert not any(launches.values()), launches
-    stats = dict(steps=ENC_STEPS, batch=B, seq=T, lr=ENC_LR, losses=losses,
+    stats = dict(steps=ENC_STEPS, batch=B, seq=T, lr=ENC_LR,
+                 remat=cfg.remat, losses=losses,
                  accuracies=accs, grad_norms=gnorms, ms_per_step=ms,
                  ms_per_step_all=ev, host_wall_ms_per_step=wall,
                  tokens_per_s=tokens / ms * 1e3, peak_memory_bytes=peak,
@@ -4026,6 +4028,14 @@ def main():
     import mesh_train_phase
     mesh_train = mesh_train_phase.phase_mesh_train(torch)
     lap("16 mesh train")
+    # 17. the dry run's resident bytes against the allocator and its
+    # decode step's peak against the card's (the kernels' launches counted
+    # from 0), then cfg.remat none / full / dots on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    import dryrun_phase
+    dryrun = dryrun_phase.phase_dryrun(torch)
+    lap("17 dry run")
 
     kernels = []
     for name, rows, src, tpu, n in (
@@ -4182,6 +4192,8 @@ def main():
         row["launches_mesh_train"] = {
             run: n.get(row["name"], 0)
             for run, n in mesh_train["runs"].items()}
+        # phase 17 (a): the card's decode step beside the dry run's
+        row["launches_dryrun"] = dryrun["a"]["launches"][row["name"]]
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
@@ -4204,6 +4216,7 @@ def main():
                                   if k != "kernel_rows"}}, default=str))
     log(json.dumps({"mesh": mesh}, default=str))
     log(json.dumps({"mesh_train": mesh_train}, default=str))
+    log(json.dumps({"dryrun": dryrun}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

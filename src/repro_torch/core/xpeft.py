@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import adapters as A
 from repro_torch.core import masks as M
+from repro_torch.utils import generator
 
 
 # Entry keys each adapter family contributes to a hydrated (aggregated)
@@ -151,11 +152,15 @@ def init_profile_table(cfg, *, seed: int = 0, device="cpu") -> dict:
     """[max_profiles, ...] table of per-profile trainables, drawn from one
     ``torch.Generator`` seeded with ``seed``."""
     xp = cfg.xpeft
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
+    n = 1 if gen is None else xp.max_profiles   # meta: one row's shapes
     rows = [M.init_profile_params(cfg.num_layers, xp.num_adapters,
                                   xp.bottleneck, generator=gen,
                                   device=device)
-            for _ in range(xp.max_profiles)]
+            for _ in range(n)]
+    if gen is None:
+        return {k: v.expand((xp.max_profiles,) + v.shape).contiguous()
+                for k, v in rows[0].items()}
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 

@@ -65,6 +65,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.fused_adapter_batched import _row_stride
 from repro_torch.kernels.mask_aggregate_quant import check_rows
+from repro_torch.utils import PLAIN_DEVICES
 
 MAX_SLOTS = 8
 _ROUTES = {"none": 0, "bf16": 1, "int8": 2, "int4": 3}
@@ -298,7 +299,7 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
               cap=cap, mlp_type=mlp_type, act_name=act_name,
               adapter=adapter, adapter_act=adapter_act)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.decode_block_ref(x, pos, block, k_cache, v_cache,
                                     masks_l, **kw)
     if x.device.type != "cuda":
@@ -308,6 +309,10 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     if why:
         raise NotImplementedError(f"decode megakernel: {why}")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    if torch.float8_e4m3fn in (k_cache.dtype, v_cache.dtype):
+        raise NotImplementedError(
+            "decode megakernel: a float8_e4m3fn cache is not built "
+            "(ROADMAP queue 2, item 1)")
     if x.dtype != bf16 or k_cache.dtype != bf16 or v_cache.dtype != bf16:
         raise NotImplementedError(
             f"decode megakernel: x/cache dtypes {x.dtype}/{k_cache.dtype}; "

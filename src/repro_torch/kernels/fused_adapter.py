@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_adapter_batched import launch
+from repro_torch.utils import PLAIN_DEVICES
 
 
 def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
@@ -25,7 +26,7 @@ def fused_adapter(x, a_hat, b_hat, ln_scale, ln_bias, *,
     """x [T, d]; a_hat [d, b]; b_hat [b, d] (one dtype with x, bf16 or
     fp32); ln_* [b] fp32, or None with ``use_ln=False`` -> [T, d] in x's
     dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.fused_adapter_ref(x, a_hat, b_hat, ln_scale, ln_bias,
                                      activation=activation, use_ln=use_ln)
     if x.ndim != 2 or a_hat.ndim != 2 or b_hat.ndim != 2 \

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
+from repro_torch.utils import PLAIN_DEVICES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"identity": 0, "gelu": 1}
@@ -125,7 +126,7 @@ def fused_adapter_batched(x, a_hat, b_hat, ln_scale, ln_bias, *,
     """x [B, T, d]; a_hat [B, d, b] or [d, b]; b_hat [B, b, d] or [b, d]
     (x, a_hat and b_hat in one dtype, bf16 or fp32); ln_* [B, b] or [b]
     fp32, or None with ``use_ln=False`` -> [B, T, d] in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.fused_adapter_batched_ref(
             x, a_hat, b_hat, ln_scale, ln_bias, activation=activation,
             use_ln=use_ln)

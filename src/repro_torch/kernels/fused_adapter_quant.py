@@ -37,6 +37,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.fused_adapter_batched import _row_stride
 from repro_torch.kernels.mask_aggregate_quant import check_rows
+from repro_torch.utils import PLAIN_DEVICES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"identity": 0, "gelu": 1}
@@ -132,7 +133,7 @@ def fused_adapter_quant_batched(x, a_q, a_scale, b_q, b_scale, ln_scale,
     [B, b, d/2] with b_scale [B, b] / [B, b, d/g] (fp16 scales); ln_*
     [B, b] fp32 -> [B, T, d] in x's dtype."""
     kw = dict(scheme=scheme, activation=activation)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.fused_adapter_quant_batched_ref(
             x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, **kw)
     out = _launch(x, a_q, a_scale, b_q, b_scale, ln_scale, ln_bias, **kw)

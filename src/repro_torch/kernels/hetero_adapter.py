@@ -30,6 +30,7 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.fused_adapter_batched import (
     _ACTS, _DTYPES, CLUSTERS, MAX_B, MAX_SMEM, THREADS, TILE_T, _check_vectors,
     _ln_layout, _row_stride)
+from repro_torch.utils import PLAIN_DEVICES
 
 
 def _red_floats(nb, tt, vec, mma):
@@ -114,7 +115,7 @@ def hetero_adapter_batched(x, *, bottleneck=None, lora=None, ia3=None,
     [B, d, r] or [d, r], lora_b [B, r, d] or [r, d]); ``ia3`` = s [B, d]
     or [d] (bf16/fp32). Â/B̂ in x's dtype. -> [B, T, d] in x's dtype,
     the stages applied in that order."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.hetero_adapter_batched_ref(
             x, bottleneck=bottleneck, lora=lora, ia3=ia3,
             activation=activation)

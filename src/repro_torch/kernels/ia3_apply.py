@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
+from repro_torch.utils import PLAIN_DEVICES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,7 +28,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def ia3_apply_batched(x, s):
     """x [B, T, d] (bf16/fp32); s [B, d] or shared [d] (bf16/fp32) ->
     x * (1 + s), [B, T, d] in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ref.ia3_apply_batched_ref(x, s)
     out = _launch(x, s)
     ia3_apply_batched.launches += 1

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
+from repro_torch.utils import PLAIN_DEVICES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 1024
@@ -77,7 +78,7 @@ def _check(bank, idx, w):
 def mask_aggregate_batched(bank, idx, w):
     """bank [N, d, b] (bf16/fp32), idx [P, k] int32, w [P, k] fp32 ->
     [P, d, b] fp32: out[p] = Σ_j w[p, j] · bank[idx[p, j]]."""
-    if bank.device.type == "cpu":
+    if bank.device.type in PLAIN_DEVICES:
         return ref.mask_aggregate_batched_ref(bank, idx, w)
     out = _launch(bank, idx, w)
     mask_aggregate_batched.launches += 1
@@ -90,7 +91,7 @@ def mask_aggregate(bank, idx, w):
     bank [N, d, b], idx [k] int32, w [k] fp32 -> [d, b] fp32, the batched
     kernel at P=1 on views of idx/w (no copy).
     ``mask_aggregate.launches`` counts its launches."""
-    if bank.device.type == "cpu":
+    if bank.device.type in PLAIN_DEVICES:
         return ref.mask_aggregate_ref(bank, idx, w)
     if idx.ndim != 1 or w.ndim != 1:
         raise ValueError(f"idx/w must both be [k], got {tuple(idx.shape)} "

@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import load_library
 from repro_torch.quant.schemes import check_scheme
+from repro_torch.utils import PLAIN_DEVICES
 
 MAX_K = 1024
 Q_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
@@ -83,7 +84,7 @@ def mask_aggregate_quant_batched(q, scale, idx, w, *, scheme: str):
     """q [N, d, b] int8 with scale [N, d], or planar int4 q [N, d, b/2]
     uint8 with scale [N, d, b/g] (fp16); idx [P, k] int32, w [P, k] fp32
     -> [P, d, b] fp32: out[p] = Σ_j w[p, j] · dequant(bank[idx[p, j]])."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ref.mask_aggregate_quant_batched_ref(q, scale, idx, w,
                                                     scheme=scheme)
     if q.device.type != "cuda":

@@ -19,7 +19,9 @@ model-sharded leaves as ``distributed.sharding.Sharded`` blocks: the loop
 gathers each layer's whole before use (the embedding looks its rows up
 on the rank that holds them), so every layer runs its one-device code;
 under autograd each such layer is a checkpoint, gathered again in the
-backward. A MoE layer under JAX's expert-parallel condition
+backward. Without a cache, under autograd, every layer follows
+``cfg.remat`` as JAX's ``_remat`` wraps it (``_remat_kw``). A MoE layer
+under JAX's expert-parallel condition
 (``models/moe.py``'s ``ep_mesh``) keeps its experts as this rank's blocks.
 With ``cfg.decode_fused`` a T=1
 cached decode step runs the decode megakernel once per layer in place of
@@ -64,17 +66,23 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RK
 from repro_torch.models.common import dense_init, init_norm, norm_apply, \
     softcap
-from repro_torch.utils import resolve_device
+from repro_torch.utils import generator, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def torch_dtype(name: str) -> torch.dtype:
-    if name not in _DTYPES:
+# a cache may also hold float8 (JAX's ``cache_dtype="float8_e4m3fn"``):
+# rows are rounded to it on write and read back in the compute dtype
+_CACHE_DTYPES = dict(_DTYPES, float8_e4m3fn=torch.float8_e4m3fn)
+
+
+def torch_dtype(name: str, *, cache: bool = False) -> torch.dtype:
+    table = _CACHE_DTYPES if cache else _DTYPES
+    if name not in table:
         raise NotImplementedError(f"dtype {name!r} is not ported "
                                   "(ROADMAP queue 1, item 2)")
-    return _DTYPES[name]
+    return table[name]
 
 
 BLOCK_PATTERNS = ("attn", "rwkv", "mamba", "zamba")
@@ -135,7 +143,8 @@ def _init_blocks(cfg, dtype, gen, device) -> dict:
     as they come: one layer's draw is held beside the stack, never all L
     (qwen3-moe-30b-a3b's experts alone are 58 GB in bf16)."""
     stacked = None
-    for l in range(cfg.num_layers):
+    # on meta (no generator) one layer's shapes stand for every layer's
+    for l in range(cfg.num_layers if gen is not None else 1):
         block = _init_block(cfg, dtype, gen, device)
         if stacked is None:
             stacked = {name: {k: torch.empty((cfg.num_layers,) + v.shape,
@@ -155,7 +164,7 @@ def init_lm(cfg, *, seed: int = 0, device=None) -> dict:
     check_supported(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     kw = dict(generator=gen, device=device)
     params = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), cfg.d_model,
@@ -201,7 +210,7 @@ def init_cache(cfg, batch: int, seq: int, *, device, dtype=None) -> dict:
     zamba's mamba leaves plus ``attn_k``/``attn_v`` [n_inv, B, S, KV, hd],
     one slice per shared-block invocation."""
     check_supported(cfg)
-    dtype = dtype or torch_dtype(cfg.cache_dtype or cfg.dtype)
+    dtype = dtype or torch_dtype(cfg.cache_dtype or cfg.dtype, cache=True)
     L = cfg.num_layers
     if cfg.block_pattern == "rwkv":
         return RK.init_rwkv_state(batch, cfg, dtype, lead=(L,),
@@ -351,6 +360,58 @@ def _recurrent_layer(block, x, cfg, cache_l):
     return x
 
 
+# JAX's ``dots_with_no_batch_dims_saveable``: the outputs of products with
+# no batch dims are kept, everything else is recomputed. ``torch.einsum``
+# lowers a product with no batch dims to a ``bmm`` of batch 1
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def saves_dot(func, args) -> bool:
+    """Whether the ``"dots"`` policy keeps this op's output: a product
+    with no batch dims (``mm``, ``addmm``, or einsum's ``bmm`` of batch
+    1)."""
+    if func in _DOTS:
+        return True
+    if func in _BATCHED_DOTS:
+        a = args[1] if func == torch.ops.aten.baddbmm.default else args[0]
+        return a.shape[0] == 1
+    return False
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    CP = torch.utils.checkpoint.CheckpointPolicy
+    return CP.MUST_SAVE if saves_dot(func, args) else CP.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+def _remat_kw(cfg, blocks, bank):
+    """How a layer runs under autograd without a cache: None (kept whole),
+    or the ``checkpoint`` arguments that recompute it in the backward.
+    ``cfg.remat`` as JAX's ``_remat``: "full" recomputes the whole layer,
+    "dots" keeps the products with no batch dims (``_dots_policy``),
+    "none" keeps everything. A layer holding sharded leaves always runs
+    as a whole checkpoint: the backward gathers its weights again instead
+    of keeping every gathered layer alive, so a rank's peak holds one
+    whole layer."""
+    leaves = [v for sub in blocks.values() for v in sub.values()] \
+        + list((bank or {}).values())
+    # no early stop: the backward recomputes the layer's whole forward,
+    # one more forward a step, the cost the op counter states exactly
+    whole = {"early_stop": False}
+    if any(isinstance(v, SH.Sharded) for v in leaves):
+        return whole
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return dict(whole, context_fn=_dots_context)
+    return whole
+
+
 def embed_tokens(params, tokens, cfg):
     """The token rows [B, T, d], times gemma's embedding scale: sqrt(d) in
     fp32, rounded to the rows' dtype, one product in that dtype (a Python
@@ -496,17 +557,12 @@ def forward(params, tokens, cfg, *, prefix_embeds=None, profile_masks=None,
                                    extra_kv=extra_kv)
         return _xpeft_apply(x, bank_l, masks_l, cfg), aux
 
-    # Under autograd, a layer holding sharded leaves runs as a checkpoint:
-    # the backward gathers its weights again instead of keeping every
-    # gathered layer alive, so a rank's peak holds one whole layer
-    leaves = [v for sub in blocks.values() for v in sub.values()] \
-        + list((bank or {}).values())
-    regather = torch.is_grad_enabled() and cache is None and any(
-        isinstance(v, SH.Sharded) for v in leaves)
+    remat = _remat_kw(cfg, blocks, bank) \
+        if torch.is_grad_enabled() and cache is None else None
     auxs = []
     for l in range(cfg.num_layers):
-        x, aux = checkpoint(run_layer, x, l, use_reentrant=False) \
-            if regather else run_layer(x, l)
+        x, aux = run_layer(x, l) if remat is None else \
+            checkpoint(run_layer, x, l, use_reentrant=False, **remat)
         if aux is not None:
             auxs.append(aux)
     x = norm_apply(x, params["final_norm"], cfg.norm)

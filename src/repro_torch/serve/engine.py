@@ -233,6 +233,15 @@ _ENTRY_SOURCE = {"a_hat": "bank_a", "b_hat": "bank_b", "lora_a": "lora_a",
 _ENTRY_SOURCE_QUANT = {"a_hat": "bank_a_q", "b_hat": "bank_b_q"}
 
 
+
+def serving_param_specs(params, mesh):
+    """The specs a serving mesh holds the params under: JAX's
+    ``param_specs(fsdp=False)``, with no leaf over "data" (JAX pins the
+    experts' ff dim there): data ranks run their own forwards, out of
+    step, so a forward's gathers may span "model" alone."""
+    return SH.param_specs(params, mesh, fsdp=False,
+                          logical_map={"mlp_fsdp": None})
+
 class ServeEngine:
     def __init__(self, cfg, params, store: ProfileStore, *,
                  max_slots: int = 4, max_seq: int = 256,
@@ -275,12 +284,7 @@ class ServeEngine:
                 for v in self.qbank.values()) // (L_ * N_)
         self._mesh_setup(mesh, max_slots)
         if mesh is not None:
-            # JAX's param_specs(fsdp=False), held as this rank's blocks;
-            # no leaf over "data" (JAX pins the experts' ff dim there):
-            # data ranks run their own forwards, out of step, so a
-            # forward's gathers may span "model" alone
-            self._specs["params"] = SH.param_specs(
-                params, mesh, fsdp=False, logical_map={"mlp_fsdp": None})
+            self._specs["params"] = serving_param_specs(params, mesh)
             params = SH.place(params, self._specs["params"], mesh)
             if self.qbank is not None:
                 specs = SH.param_specs(self.qbank, mesh, fsdp=False)

@@ -63,7 +63,7 @@ from repro_torch.models import model as MDL
 from repro_torch.optim import (adamw_init, adamw_update, adamw_update_rows,
                                clip_by_global_norm, clip_by_row_norm)
 from repro_torch.optim.adamw import _bcast_rows
-from repro_torch.utils import resolve_device
+from repro_torch.utils import generator, resolve_device
 from repro_torch.utils.tree import map_with_path, merge_trees, tree_leaves, \
     tree_map, tree_paths
 
@@ -97,7 +97,7 @@ def init_xpeft_trainable(cfg, *, seed: int = 0, device=None) -> dict:
     device = resolve_device(device)
     out = {"table": XP.init_profile_table(cfg, seed=seed, device=device)}
     if cfg.num_labels:
-        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        gen = generator(device, seed + 1)
         out["heads"] = _head(cfg, (cfg.xpeft.max_profiles,), gen, device)
     return out
 
@@ -107,7 +107,7 @@ def init_adapter_trainable(cfg, *, seed: int = 0, device=None) -> dict:
     with ``num_labels`` a head, drawn after the bank."""
     device = resolve_device(device)
     xp = cfg.xpeft
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     shape = (cfg.num_layers, xp.bottleneck)
     out = {
         "bank": init_adapter_bank(cfg.num_layers, 1, cfg.d_model,
@@ -124,7 +124,7 @@ def init_adapter_trainable(cfg, *, seed: int = 0, device=None) -> dict:
 def init_head_trainable(cfg, *, seed: int = 0, device=None) -> dict:
     """head_only baseline: one head [d, num_labels]."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     return {"head": _head(cfg, (), gen, device)}
 
 

@@ -13,3 +13,18 @@ def resolve_device(device=None) -> torch.device:
             "a CUDA device was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the host")
     return dev
+
+
+# devices whose tensors the kernel wrappers hand to their plain versions:
+# the host, and ``meta`` (shapes and dtypes only: the dry run)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def generator(device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on
+    ``meta``, where nothing is drawn (a meta tensor carries a shape and
+    a dtype only)."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)

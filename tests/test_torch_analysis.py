@@ -44,14 +44,13 @@ ARCHS = list_archs()
 SCHEMES = ("none", "int8", "int4")
 
 
-def test_exports_are_jax_minus_collective_bytes():
+def test_exports_are_jax_exports():
     import repro.analysis as JA
     want = {n for n in dir(JA) if not n.startswith("_")
-            and callable(getattr(JA, n))} - {"collective_bytes"}
+            and callable(getattr(JA, n))}
     got = {n for n in dir(TA) if not n.startswith("_")
            and callable(getattr(TA, n))}
     assert got == want
-    assert "collective_bytes" in TA.__doc__
 
 
 # ----------------------------------------------------------------------------
