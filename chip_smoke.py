@@ -161,7 +161,12 @@ Phases, in order; any failed check exits non-zero:
              must be > 0) against the unstarved pool; (c) decode_fused,
              (d) int8 and (e) phase 6's hetero bank, each continuous
              against windowed; (f) self-speculation (gamma 3) against
-             (a)'s continuous run, and on (b)'s starved pool against (b).
+             (a)'s continuous run, and on (b)'s starved pool against (b);
+             (g) (a)'s continuous engine with 2 mask entries for its 4
+             slots (``mask_pages=2``) and ``max_wait_waves=2`` against
+             (a)'s continuous run: at most 2 entries in use, requests
+             refused an entry (OOM events and requeues > 0), as many
+             device steps as (a) or more, both allocators' audits.
              Each drain runs with every counter at 0 just before it and
              must launch what its path launches per decode step (a
              speculation round: gamma drafts and the verify, #2 in every
@@ -175,8 +180,9 @@ Phases, in order; any failed check exits non-zero:
              first flip must lie on a reference top-2 gap of at most
              twice that step's max |d logit|. One step of (a) and
              (c)-(f) is timed and profiled, with the paged gather and
-             writeback on its pool as CUDA-graph replays ((b)'s steps
-             have (a)'s shapes, the starved spec run's (f)'s). Phase 3b checks and times
+             writeback on its pool as CUDA-graph replays ((b)'s and
+             (g)'s steps have (a)'s shapes, the starved spec run's
+             (f)'s; (g) shares (a)'s warm-up). Phase 3b checks and times
              #2 at the verify's shape (B=4, T=4, layer slices).
 10. resilience — ``tools/resilience_phase.py``, at phase 9's depth (12
              layers, full width): (a) training over the typed
@@ -261,11 +267,13 @@ Phases, in order; any failed check exits non-zero:
              windowed run, spec gamma 3 against continuous (these four on
              its first 9 layers, ``GEMMA_CUT``); (b)
              gemma3-27b at full width and 12 of its 62 layers, prompts of
-             1,000-1,100 tokens at max_seq 2,048 (chunked prefill, decode
-             past the 1,024 window): composed and int8 held to their ref
+             1,000-1,100 tokens and 16 new (``forms_phase.LONG_NEW``) at
+             max_seq 2,048 (chunked prefill, decode past the 1,024
+             window): composed and int8 held to their ref
              runs, continuous bitwise windowed, decode_fused launching #8 0
              times with the composed tokens; #1 and #2 at its shapes; (c)
-             musicgen-medium at full width and depth through
+             musicgen-medium at full width and 12 of its 48 layers
+             (``forms_phase.MUSIC_LAYERS``, the call's time) through
              make_prefill_step with 64 prefix rows and make_decode_step,
              composed and decode_fused at 8 slots, each held to its ref
              run, and a card-vs-CPU train step with prefix_embeds. A
@@ -3296,6 +3304,8 @@ CB_ENGINE = dict(max_slots=4, max_seq=128, sync_every=8)
 CB_PAGE = 16
 CB_GAMMA = 3
 CB_STARVED = dict(long_new=100, max_pages=10)  # two long requests need 14
+# run (g): 2 mask entries for the 4 slots, promotion after 2 waits
+CB_ENTRIES = dict(mask_pages=2, max_wait_waves=2)
 
 
 def skewed_requests(Request, vocab, n=12, *, seed=0, long_every=3,
@@ -3563,7 +3573,8 @@ def phase_continuous(torch, cfg=None):
     resumes > 0) vs the unstarved pool; (c) decode_fused; (d) int8; (e)
     the hetero bank (phase 6's bank_spec, P=8), each continuous vs
     windowed; (f) spec gamma=3 vs (a)'s continuous run, and under (b)'s
-    starved pool vs (b)."""
+    starved pool vs (b); (g) (a)'s continuous engine with 2 mask entries
+    for 4 slots and ``max_wait_waves=2`` vs (a)'s continuous run."""
     from repro_torch.configs import get_config
     from repro_torch.core import xpeft as XP
     from repro_torch.core.profiles import ProfileStore
@@ -3608,11 +3619,12 @@ def phase_continuous(torch, cfg=None):
         "e": run(h_cfg, h_params, h_store, True),
         "f": run(s_cfg, params, store, True),
         "f_starved": run(s_cfg, params, store, True, **CB_STARVED),
+        "g": run(cfg, params, store, True, **CB_ENTRIES),
     }
     # (run, its reference)
     pairs = (("a", "a_windowed"), ("b", "b_unstarved"), ("c", "c_windowed"),
              ("d", "d_windowed"), ("e", "e_windowed"), ("f", "a"),
-             ("f_starved", "b"))
+             ("f_starved", "b"), ("g", "a"))
 
     def expect(name, n, by_t, st, waves):
         """What each run must launch per drain (``by_t``: #2's launches by
@@ -3705,18 +3717,44 @@ def phase_continuous(torch, cfg=None):
             **{k: st[k] for k in (
                 "device_steps", "stranded_slot_steps", "slot_occupancy",
                 "committed_per_device_step", "preemptions", "resumes",
-                "pages")},
+                "pages", "mask_entries", "scheduler", "prefill_batches")},
             reference_device_steps=rst["device_steps"],
             reference_stranded_slot_steps=rst["stranded_slot_steps"],
             spec=spec or None)
+        if name == "g":
+            # fewer entries than slots: requests wait at the queue's head
+            # for an entry, so the drain takes at least (a)'s steps
+            me, sch = st["mask_entries"], st["scheduler"]
+            assert me["n_pages"] == CB_ENTRIES["mask_pages"], me
+            assert me["high_water"] <= CB_ENTRIES["mask_pages"], me
+            assert me["oom_events"] > 0 and sch["requeued"] > 0, st
+            assert st["device_steps"] >= rst["device_steps"], (st, rst)
+            pool = sum(v.numel() * v.element_size()
+                       for v in eng.masks["pool"].values())
+            ref_pool = sum(v.numel() * v.element_size()
+                           for v in ref["eng"].masks["pool"].values())
+            results[name].update(
+                tokens_bitwise=not agreement["flips"], mask_pool_bytes=pool,
+                reference_mask_pool_bytes=ref_pool,
+                entry_bytes=pool // me["n_pages"])
+            log(f"  (g) mask entries {me}; scheduler {sch}; tokens "
+                f"{'bitwise' if not agreement['flips'] else 'not bitwise'}"
+                f" (a)'s; {toks / out['dt']:.1f} tok/s, "
+                f"{st['device_steps']} device steps, "
+                f"{st['stranded_slot_steps']} stranded slot steps against "
+                f"(a)'s {toks / ref['dt']:.1f}, {rst['device_steps']}, "
+                f"{rst['stranded_slot_steps']}; entry pool "
+                f"{pool / 1e6:.3f} MB ({pool // me['n_pages']} B an entry) "
+                f"against (a)'s {ref_pool / 1e6:.3f} MB")
     results["c16"] = cb_sixteen(torch, cfg, params, store, counters)
     t_profile = time.perf_counter()
     for name in ("a", "c", "d", "e", "f"):
         results[name].update(cb_profile(torch, runs[name], f"({name})"))
-    # the starved runs are not profiled (their steps have (a)'s and (f)'s
-    # shapes): their host ms per step is the drain's wall over its steps,
-    # admission and swaps included; their device fields stay null
-    for name in ("b", "f_starved"):
+    # the starved runs (pages or entries) are not profiled (their steps
+    # have (a)'s and (f)'s shapes): their host ms per step is the drain's
+    # wall over its steps, admission and swaps included; their device
+    # fields stay null
+    for name in ("b", "f_starved", "g"):
         r = results[name]
         r.update({k: None for k in (
             "step_wall_ms", "step_device_ms", "step_kernels", "busy_share",
@@ -3733,8 +3771,8 @@ def phase_continuous(torch, cfg=None):
     results["profile_seconds"] = end - t_profile
     results["drain_seconds"] = sum(d["dt"] for d in done.values())
     log(f"phase 9: {results['seconds']:.1f}s ({results['drain_seconds']:.1f}"
-        f"s in the 12 timed drains, {results['profile_seconds']:.1f}s "
-        "profiling)")
+        f"s in the {len(done)} timed drains, "
+        f"{results['profile_seconds']:.1f}s profiling)")
     return results
 
 
@@ -4129,7 +4167,8 @@ def main():
     for row in kernels:
         row["launches_continuous"] = {
             run: continuous[run]["launches"][row["name"]]
-            for run in ("a", "b", "c", "d", "e", "f", "f_starved", "c16")}
+            for run in ("a", "b", "c", "d", "e", "f", "f_starved", "g",
+                        "c16")}
     # #8's 16-slot rows: launches on phase 9's 16-slot decode_fused drain
     for row in kernels[4]["other_shapes"]:
         if row["shape"].startswith("B=16"):

@@ -139,3 +139,16 @@ def bytes_per_profile(num_adapters: int, num_layers: int, mask_type: str) -> int
     if mask_type == "hard":
         return 2 * ((num_adapters + 7) // 8) * num_layers
     return 2 * num_adapters * num_layers * 4
+
+
+def adapter_bytes(d: int, b: int, num_layers: int, itemsize: int = 4) -> int:
+    """Bytes of one profile's own adapter (down and up projections in
+    every layer): what a profile costs without X-PEFT."""
+    return 2 * (d * b) * num_layers * itemsize
+
+
+def trainable_params_per_profile(num_adapters: int, bottleneck: int,
+                                 num_layers: int) -> int:
+    """A profile's trainables: two mask-logit rows of N and the LN affine
+    pair of b, per layer."""
+    return 2 * (num_adapters + bottleneck) * num_layers

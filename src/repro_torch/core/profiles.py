@@ -282,6 +282,9 @@ class ProfileStore:
             core += 2 * self.b * self.L * 2  # fp16 LN affine
         return core
 
+    def total_bytes(self, include_ln: bool = False) -> int:
+        return len(self._rec) * self.bytes_per_profile(include_ln)
+
     def record_nbytes(self, pid: int) -> int:
         """True byte size of one persisted record (masks, fp16 affines and
         heads, and a quantized store's aggregated payload)."""

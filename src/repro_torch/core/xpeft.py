@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core import adapters as A
 from repro_torch.core import masks as M
-from repro_torch.utils import generator
+from repro_torch.utils import generator, resolve_device
 
 
 # Entry keys each adapter family contributes to a hydrated (aggregated)
@@ -146,6 +146,23 @@ def precompute_effective_adapters_hetero(bank: dict, profile_params: dict,
             out["prefix_k"] = (num_k * inv).to(pk.dtype)
             out["prefix_v"] = (num_v * inv).to(pv.dtype)
     return out
+
+
+def init_xpeft_state(cfg, *, seed: int = 0, device=None) -> dict:
+    """Frozen bank + per-profile trainable table for a config, each drawn
+    from its own ``torch.Generator`` (the bank's seeded with ``seed``, the
+    table's with ``seed + 1``). ``device=None`` means the card."""
+    xp, dev = cfg.xpeft, resolve_device(device)
+    kw = dict(generator=generator(dev, seed), device=dev)
+    dtype = getattr(torch, cfg.dtype)
+    if xp.is_hetero:
+        bank = A.init_hetero_bank(cfg.num_layers, xp, cfg.d_model,
+                                  cfg.kv_dim, dtype, **kw)
+    else:
+        bank = A.init_adapter_bank(cfg.num_layers, xp.num_adapters,
+                                   cfg.d_model, xp.bottleneck, dtype, **kw)
+    return {"bank": bank,
+            "profiles": init_profile_table(cfg, seed=seed + 1, device=dev)}
 
 
 def init_profile_table(cfg, *, seed: int = 0, device="cpu") -> dict:

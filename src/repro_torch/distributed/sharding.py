@@ -525,6 +525,12 @@ def to_shardings(specs, mesh):
     return tree_map(lambda s: Sharding(mesh, s), specs)
 
 
+def param_shardings(params, mesh, **kw):
+    """``Sharding(mesh, spec)`` of every leaf of ``params`` under
+    ``param_specs(params, mesh, **kw)``."""
+    return to_shardings(param_specs(params, mesh, **kw), mesh)
+
+
 def sharding_of(x):
     """The ``Sharding`` a ``Sharded`` leaf is held under; None for a whole
     tensor."""

@@ -248,7 +248,9 @@ class ServeEngine:
                  precompute: bool = True, sync_every: int = 8,
                  cache_bytes: Optional[int] = 64 << 20,
                  continuous: bool = False, page_size: int = 16,
-                 max_pages: Optional[int] = None, mesh=None,
+                 max_pages: Optional[int] = None,
+                 mask_pages: Optional[int] = None,
+                 max_wait_waves: Optional[int] = None, mesh=None,
                  fault_plan=None,
                  retry_policy: Optional[RetryPolicy] = None,
                  obs: Optional[OBS.Observability] = None):
@@ -370,29 +372,44 @@ class ServeEngine:
         self.hydration_retries = 0
         self.slot_degraded: List[bool] = [False] * max_slots
         # continuous mode admits in small increments (1-2 freed slots), so
-        # largest-bucket-first keeps prefill launches full; promotion after
-        # 4 waits stops that from starving rare lengths. The windowed
-        # engine keeps strict head-first FIFO.
+        # largest-bucket-first keeps prefill launches full; max_wait_waves
+        # (default 4 there) stops that from starving rare lengths. The
+        # windowed engine keeps strict head-first FIFO (no promotion
+        # unless asked).
+        if max_wait_waves is None and continuous:
+            max_wait_waves = 4
         self.scheduler = Scheduler(
             cfg.block_pattern, policy="efficiency" if continuous else "fifo",
-            max_wait_waves=4 if continuous else None)
+            max_wait_waves=max_wait_waves)
         self.profile_cache = ProfileCache(cache_bytes)
         # re-graduation hook: a re-added profile never serves a stale
         # cached aggregate (the store holds this bound method weakly)
         store.subscribe(self.invalidate_profile)
-        # continuous mode: the mask records live in an ENTRY POOL (one
-        # entry = one request's record, one entry per slot) addressed
-        # through a per-slot table; on a mesh the entries split over
-        # "data" as the slots do (one entry per slot on each shard)
+        # continuous mode: the mask records live in an ENTRY POOL of
+        # ``mask_pages`` entries (one entry = one admitted request's
+        # record, the adapter-state analogue of a KV page; default one per
+        # slot) addressed through a per-slot table. On a mesh a pool of one
+        # entry per slot splits over "data" as the slots do; any other
+        # size is held whole on every rank, so its allocator decides as
+        # one device's does.
         self.n_mask_entries = max_slots
+        if continuous:
+            self.n_mask_entries = (mask_pages if mask_pages is not None
+                                   else max_slots)
+            if self.n_mask_entries < 1:
+                raise ValueError("mask_pages must be >= 1")
+        self._entry_shard = self._slot_shard \
+            and self.n_mask_entries == max_slots
+        self._entries_local = self._n_local if self._entry_shard \
+            else self.n_mask_entries
         self._entry_keys = self._entry_key_set()
-        self.masks = self._mask_buffers(self._n_local)
+        self.masks = self._mask_buffers(self._entries_local)
         self.mask_alloc = None
         self._masks_view = self._zero_view = None
         if continuous and self.masks is not None:
             self.mask_alloc = PG.PageAllocator(
                 self.n_mask_entries,
-                n_colors=self._D if self._slot_shard else 1)
+                n_colors=self._D if self._entry_shard else 1)
             self._mask_table_h = np.full((max_slots,), self.n_mask_entries,
                                          np.int32)
             self.masks = {"pool": self.masks,
@@ -464,6 +481,12 @@ class ServeEngine:
         j = i - self._lo
         return j if 0 <= j < self._n_local else None
 
+    def _mine_entry(self, e: int) -> Optional[int]:
+        """This rank's row of mask entry ``e`` (a windowed engine's entries
+        are its slots): every entry of a pool held whole, else the entries
+        of this rank's slots."""
+        return self._mine(e) if self._entry_shard else e
+
     def _color(self, slot: int) -> int:
         """The data shard of a slot: its pages' and entry's colour."""
         return slot // self._n_local if self._slot_shard else 0
@@ -472,8 +495,9 @@ class ServeEngine:
         """This rank's rows of the host entry table, as indices into its
         entry pool (the sentinel as the pool's size)."""
         t = table_h[self._lo:self._lo + self._n_local]
-        return np.where(t >= self.n_mask_entries, self._n_local,
-                        t - self._lo).astype(np.int32)
+        off = self._lo if self._entry_shard else 0
+        return np.where(t >= self.n_mask_entries, self._entries_local,
+                        t - off).astype(np.int32)
 
     def _local_pages(self, table_h):
         """Rows of the host page table as indices into this rank's pool
@@ -532,7 +556,13 @@ class ServeEngine:
                 "table": lead(self.cache["table"])}
         else:
             self._specs["cache"] = tree_map(dim1, self.cache)
-        if self.masks is not None:
+        if self.continuous and self.masks is not None:
+            pool = data if self._entry_shard else None
+            self._specs["masks"] = {
+                "pool": tree_map(lambda x: lead(x, pool),
+                                 self.masks["pool"]),
+                "table": lead(self.masks["table"])}
+        elif self.masks is not None:
             self._specs["masks"] = tree_map(lead, self.masks)
 
     def _entry_key_set(self) -> tuple:
@@ -1084,8 +1114,9 @@ class ServeEngine:
         """Claim a mask entry for ``uid`` going to ``slot`` (of the slot's
         shard on a mesh), if the engine pools entries."""
         if self.mask_alloc is not None:
-            self.mask_alloc.alloc(1, uid, color=self._color(slot),
-                                  strict=self._slot_shard)
+            self.mask_alloc.alloc(
+                1, uid, color=self._color(slot) if self._entry_shard else 0,
+                strict=self._entry_shard)
 
     def _alloc_pages(self, length: int, uid, slot: int) -> None:
         """Claim the pages covering ``length`` positions for ``uid`` going
@@ -1144,12 +1175,12 @@ class ServeEngine:
         rows = PG.extract_slot(self.cache["data"], row, mine or 0)
         mask_row = None
         if self.mask_alloc is not None:
-            entry = self._mine(self.mask_alloc.pages_of(r.uid)[0])
+            entry = self._mine_entry(self.mask_alloc.pages_of(r.uid)[0])
             mask_row = {k: v[entry or 0]
                         for k, v in self.masks["pool"].items()}
         if self._slot_shard:
             rows = self._from_owner(rows, self._color(slot))
-            if mask_row is not None:
+            if mask_row is not None and self._entry_shard:
                 mask_row = self._from_owner(mask_row, self._color(slot))
         # own host copies (on the CPU, .cpu() would hand back views of
         # pool rows the next owner overwrites)
@@ -1208,10 +1239,11 @@ class ServeEngine:
                 row = torch.from_numpy(self._local_pages(
                     self._page_table_h[slot])).to(self.device)
                 PG.restore_slot(self.cache["data"], snap["rows"], row, mine)
-                if snap["mask"] is not None:
-                    entry = self._mine(int(self._mask_table_h[slot]))
-                    for k, v in self.masks["pool"].items():
-                        v[entry] = snap["mask"][k].to(self.device)
+            entry = self._mine_entry(int(self._mask_table_h[slot])) \
+                if snap["mask"] is not None else None
+            if entry is not None:
+                for k, v in self.masks["pool"].items():
+                    v[entry] = snap["mask"][k].to(self.device)
             self.slots.restore([slot], [r.generated[-1]], [snap["len"]],
                                [len(r.generated)], [r.max_new_tokens])
             self.slot_req[slot] = r
@@ -1338,9 +1370,10 @@ class ServeEngine:
             else:
                 bufs, dest = self.masks, assigned
             # this rank's rows (all of them off a mesh)
-            sel = [i for i, e in enumerate(dest) if self._mine(e) is not None]
+            sel = [i for i, e in enumerate(dest)
+                   if self._mine_entry(e) is not None]
             if sel:
-                dest = torch.tensor([self._mine(dest[i]) for i in sel],
+                dest = torch.tensor([self._mine_entry(dest[i]) for i in sel],
                                     dtype=torch.long, device=self.device)
                 src = None if len(sel) == len(reqs) else torch.tensor(
                     sel, device=self.device)
@@ -1569,7 +1602,7 @@ class ServeEngine:
             if self.masks is not None and self._view_dirty:
                 self._view_dirty = False
                 idx = self.masks["table"].long().clamp(
-                    0, self._n_local - 1)
+                    0, self._entries_local - 1)
                 for k, v in self.masks["pool"].items():
                     self._masks_view[k] = v[idx]
         self._backlog = bool(self.scheduler.pending() or self._resume_q)

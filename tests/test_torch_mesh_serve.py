@@ -67,7 +67,17 @@ PATHS = {
     # the pool stays whole while the slots split
     "pool_whole": ("base", {}, {}, {},
                    {"continuous": True, "max_pages": 6}, 8, 50),
+    # mask-entry pools below the slot count, held whole on every rank: 2
+    # entries (a multiple of data=2) and 3 (not one)
+    "mask_pages_2": ("base", {}, {}, {},
+                     {"continuous": True, "mask_pages": 2}, 8, 20),
+    "mask_pages_3": ("base", {}, {}, {},
+                     {"continuous": True, "mask_pages": 3}, 8, 20),
 }
+# the serve_stats() keys a mesh engine's admissions must equal one
+# device's in
+STATS = ("device_steps", "prefill_batches", "stranded_slot_steps",
+         "mask_entries", "scheduler", "preemptions")
 
 
 # ``tests/test_torch_serve_continuous.py``'s workload: per-uid seeded
@@ -101,7 +111,7 @@ WORKER = REQUESTS + textwrap.dedent(r'''
     from repro_torch.serve import Request, ServeEngine
 
     data = torch.load(sys.argv[4], weights_only=False)
-    ENGINE, PATHS = data["engine"], data["paths"]
+    ENGINE, PATHS, STATS = data["engine"], data["paths"], data["stats"]
     mesh = make_test_mesh((2, 2), ("data", "model"))
 
     def drain(name, mesh):
@@ -128,9 +138,14 @@ WORKER = REQUESTS + textwrap.dedent(r'''
         got = dict(tokens={r.uid: list(map(int, r.generated)) for r in reqs},
                    prefix=[getattr(r, "prefix_len", 0) for r in reqs],
                    devices=st["devices"], preemptions=st.get("preemptions"),
-                   bytes=eng.resident_bytes_per_device()["total"])
+                   bytes=eng.resident_bytes_per_device()["total"],
+                   stats={k: st.get(k) for k in STATS},
+                   pool_rows=None if eng.mask_alloc is None else {
+                       k: v.shape[0] for k, v in eng.masks["pool"].items()})
         if rank == 0:
             one, one_reqs = drain(name, None)
+            one_st = one.serve_stats()
+            got["one_stats"] = {k: one_st.get(k) for k in STATS}
             got["one_tokens"] = {r.uid: list(map(int, r.generated))
                                  for r in one_reqs}
             got["one_bytes"] = one.resident_bytes_per_device()["total"]
@@ -177,7 +192,7 @@ def mesh_runs(tmp_path_factory):
     hcfg, hparams, hrows = _setup(HETERO)
     _craft_prefix(hrows, hcfg.xpeft)
     data = dict(
-        arch=ARCH, engine=ENGINE, paths=PATHS,
+        arch=ARCH, engine=ENGINE, paths=PATHS, stats=STATS,
         xpeft={"base": {}, "hetero": HETERO},
         params={k: bridge.to_torch(jax.tree.map(np.asarray, p))
                 for k, p in (("base", params), ("hetero", hparams))},
@@ -239,6 +254,23 @@ def test_mesh_whole_pool_preempts(mesh_runs):
     """With the pool whole on every rank and the slots split, a preempted
     slot's rows come from the rank that stepped it."""
     assert mesh_runs["ranks"][0]["pool_whole"]["preemptions"] > 0
+
+
+@pytest.mark.parametrize("path", ["mask_pages_2", "mask_pages_3"])
+def test_mesh_entry_pool_decides_as_one_device(mesh_runs, path):
+    """Entries fewer than slots: the pool is held whole on every rank and
+    its uncoloured allocator refuses, requeues and promotes exactly as
+    one device's does (a pool split by shard would refuse an admission
+    one device accepts)."""
+    ranks = mesh_runs["ranks"]
+    got, n = ranks[0][path], int(path[-1])
+    assert all(r[path]["stats"] == got["one_stats"] for r in ranks)
+    assert got["stats"]["mask_entries"]["n_pages"] == n
+    assert got["stats"]["mask_entries"]["oom_events"] > 0
+    assert got["stats"]["scheduler"]["requeued"] > 0
+    assert all(set(r[path]["pool_rows"].values()) == {n} for r in ranks)
+    # one entry per slot keeps the split layout: 2 of 4 slots a data rank
+    assert set(ranks[0]["continuous"]["pool_rows"].values()) == {2}
 
 
 def test_mesh_hetero_prefix_rows(mesh_runs):

@@ -6,9 +6,11 @@ the card, with phase 3b's row of #2 at the verify shape.
 
 Builds the kernels, turns TF32 off as ``chip_smoke.py`` does, checks and
 times #2 at B=4, T=gamma+1, d=1024, b=64 on layer slices, then runs its
-``phase_continuous`` with the same checks: runs (a)-(f) on qwen1.5-0.5b
-at full width, each held to its reference run token for token (first
-flips explained), launches counted per drain, one step of each profiled.
+``phase_continuous`` with the same checks: runs (a)-(g) on qwen1.5-0.5b
+at full width and all 24 layers ((g): 2 mask entries for 4 slots,
+``max_wait_waves=2``), each held to its reference run token for token
+(first flips explained), launches counted per drain, one step of each
+profiled but (b)'s, (f)'s starved run's and (g)'s.
 Prints one JSON line of its numbers last. Without a card it exits
 non-zero.
 """

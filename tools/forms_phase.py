@@ -28,12 +28,15 @@ k=50, in this order (each model freed before the next).
     by ``chip_smoke.drive_path`` (phase 4's E2E bounds); then continuous
     (pages of 16) against the windowed run, bitwise, and spec gamma 3
     against continuous, every flip explained.
-(b) gemma3-27b at full width and 12 of its 62 layers (two periods of 5
-    local : 1 global; the full 62 layers and their 21.8 GB bank do not fit
-    beside the run's other memory): #1 at its bank, #2 at d=5376, T=1
+(b) gemma3-27b at full width and GEMMA3_LAYERS = 12 of its 62 layers (two
+    periods of 5 local : 1 global; the full 62 layers and their 21.8 GB
+    bank do not fit beside the run's other memory; at one period the
+    adapters' share of the prefill logits falls under twice the kernel's
+    distance from its ref run): #1 at its bank, #2 at d=5376, T=1
     and 16, and #6 from int4 records there (the two-pass tile), timed; 8
-    requests of 1,000-1,100 prompt tokens, 32 new, 4 slots, max_seq
-    2,048, so decode positions pass 1,024 and the window masks keys, and
+    requests of 1,000-1,100 prompt tokens, LONG_NEW = 16 new, 4 slots,
+    max_seq 2,048, so decode positions pass 1,024 and the window masks
+    keys, and
     the prefills (T 1,024 or 2,048, S 2,048) take the chunked online
     softmax. Composed, int8 and int4 (#5 and #6) each held to its ref run
     (recorded logits: prefill and teacher-forced decode logits under
@@ -41,7 +44,7 @@ k=50, in this order (each model freed before the next).
     windowed run; ``decode_fused=True`` launches #8 0 times (sliding
     layers keep the composed route, as JAX decides it) with tokens
     bitwise the composed run's.
-(c) musicgen-medium at full width and MUSIC_LAYERS = 24 of its 48 layers
+(c) musicgen-medium at full width and MUSIC_LAYERS = 12 of its 48 layers
     (d=1536, 24 x 64 heads, d_ff 6,144, vocab 2,048; the call's time)
     with 64 conditioning frames:
     ``make_prefill_step`` with random ``prefix_embeds`` [B, 64, 1536],
@@ -71,6 +74,8 @@ import moe_phase  # noqa: E402
 
 GEMMA, GEMMA3, MUSICGEN = "gemma-2b", "gemma3-27b", "musicgen-medium"
 # gemma3-27b's depth here: two periods of its 5 local : 1 global layers
+# (at one, the composed prefill logits part from the ref run by 1.3x the
+# adapters' share, over phase 4's 0.5)
 GEMMA3_LAYERS = 12
 # the depth of gemma-2b's int8, int4, continuous and spec runs (composed
 # and decode_fused run all 18 layers): the call's time
@@ -80,14 +85,17 @@ TRAIN_ARGV = ["--arch", GEMMA, "--mode", "xpeft", "--steps", "10",
               "0", "--device", "cuda"]
 # engine shapes over phase 9's (4 slots, max_seq 128, sync_every 8)
 SHORT, LONG = {}, dict(max_seq=2048)
-LONG_NEW = 32
+# new tokens of (b)'s drained requests (the call's time: 16 of the 32
+# they had; every prompt of 1,025 tokens or more still decodes past the
+# window); the profiled engine's requests keep 32, as it steps 15 times
+LONG_NEW = 16
 DEC_SHAPES = ((GEMMA, 4), (GEMMA, 8), (MUSICGEN, 8), ("deepseek-7b", 8),
               ("llava-next-34b", 4), ("llava-next-34b", 8))
 DEC_LONG_POS = [2047, 0, 1000, 1500, 77, 1, 2048, 512]
 MUSIC_T, MUSIC_NEW = 16, 16
-# musicgen-medium's depth in (c): 24 of its 48 layers (full width), for
+# musicgen-medium's depth in (c): 12 of its 48 layers (full width), for
 # the call's time
-MUSIC_LAYERS = 24
+MUSIC_LAYERS = 12
 # the device the models of (a)-(c) live on (a CPU rehearsal sets "cpu")
 DEV = "cuda"
 
@@ -172,14 +180,14 @@ def drain(torch, cfg, params, store, counters, reqs, kw, continuous=False):
                        counters, reqs=reqs)
 
 
-def long_requests(Request, vocab, n=8):
-    """n requests of 1,000-1,100 prompt tokens from seed 0, LONG_NEW new
+def long_requests(Request, vocab, n=8, new=LONG_NEW):
+    """n requests of 1,000-1,100 prompt tokens from seed 0, ``new`` new
     each, profiles i % 4."""
     import numpy as np
     rng = np.random.default_rng(0)
     return [Request(uid=i, prompt=rng.integers(
         0, vocab, size=int(rng.integers(1000, 1101))), profile_id=i % 4,
-        max_new_tokens=LONG_NEW) for i in range(n)]
+        max_new_tokens=new) for i in range(n)]
 
 
 def held(torch, label, cfg, params, store, counters, make, eng_kw,
@@ -439,7 +447,7 @@ def phase_gemma3(torch, counters):
                                torch, ServeEngine, Request, cfg, params, store,
                                "gemma3 composed (~1,100 positions)", LONG,
                                reqs=long_requests(Request, cfg.vocab_size,
-                                                  n=4)))
+                                                  n=4, new=32)))
     out["runs"]["composed"] = a["launches"]
     c = drain(torch, cfg, params, store, counters, make(), LONG,
               continuous=True)
