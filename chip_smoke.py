@@ -335,6 +335,24 @@ Phases, in order; any failed check exits non-zero:
              ``{"mesh_train": ...}`` JSON line carries its numbers;
              ``launches_mesh_train`` in each kernel row.
 
+17. dry run — ``tools/dryrun_phase.py``: the dry run's resident bytes
+             against the allocator, its decode step's peak beside the
+             card's, ``cfg.remat`` none / full / dots bitwise.
+
+18. float8 cache — ``tools/kv_f8_phase.py``, run right after phase 9 on
+             phase 4's weights: (a) #8 on float8_e4m3fn caches against
+             its plain version (routes none, bf16, int8, int4 at S=128;
+             bf16 at S=2048; S=256's one split), its new K/V rows
+             byte-equal to the cast of its bf16-cache rows (also past
+             448: NaN bytes), timed beside the bf16 cache in turns; (b)
+             composed and decode_fused drains on a float8 cache at
+             CUT_LAYERS held to their ref runs, #8 L x decode steps, K/V
+             bytes half the bf16 engine's; (c) continuous on a pool that
+             preempts, bitwise windowed, and spec under the flip rule. A
+             ``{"kv_f8": ...}`` JSON line carries its numbers;
+             ``launches_kv_f8`` in each kernel row, and a kernel row of
+             its own for #8's float8 build.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; before that one JSON line of kernel numbers.
 """
@@ -1612,7 +1630,8 @@ def serve_once(torch, cfg, params, store, reqs, eng_kw=None):
 
 def drive_path(torch, label, cfg, params, store, counters, check_launches,
                check_runs=None, report_share=False, eng_kw=None,
-               ref_kw=None, own_prefill=False, profiles=4, witness=None):
+               ref_kw=None, own_prefill=False, profiles=4, witness=None,
+               profile=True):
     """One serving path end to end: a warm-up drain, then the 8 requests
     with every counter in ``counters`` set to 0 just before
     (``check_launches(launches, serve_stats, waves)`` asserts what must
@@ -1620,7 +1639,8 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
     ``check_runs(kernel_engine, ref_engine)`` compares what admission left
     in each), the prefill and teacher-forced decode-step logits held to
     the ref run, every greedy flip explained, and a profiled decode
-    step. ``eng_kw`` are the path's engine options, ``ref_kw`` the ref
+    step (unless ``profile`` is False). ``eng_kw`` are the path's engine
+    options, ``ref_kw`` the ref
     run's (default: the same); ``own_prefill`` holds the prefill logits
     the teacher-forced runs' own admission waves computed, in place of
     one padded bucket of all 8 requests. ``profiles``: the requests'
@@ -1734,7 +1754,7 @@ def drive_path(torch, label, cfg, params, store, counters, check_launches,
             f"(prefill keeps it): kernel vs ref max|d logit| "
             f"{extra['bare_decode_logit_err']:.4e}")
     step = profile_decode(torch, ServeEngine, Request, cfg, params, store,
-                          label, eng_kw, profiles=profiles)
+                          label, eng_kw, profiles=profiles) if profile else {}
     return eng, reqs, launches, dict(
         tok_s=toks / dt, ref_tok_s=ref_toks / ref_dt,
         greedy_agree_ref=agree / total, decode_logit_err=e2e["max_abs_err"],
@@ -4014,11 +4034,19 @@ def main():
     cut = get_config("qwen1.5-0.5b").with_(num_layers=CUT_LAYERS)
     continuous = phase_continuous(torch, cfg=cut)
     lap("9 continuous")
+    # 18. the float8_e4m3fn KV cache: #8 reading and writing it against
+    # its plain version, then windowed and continuous drains on phase 4's
+    # weights (views of their first CUT_LAYERS layers), each run with the
+    # counters set to 0 just before it
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import kv_f8_phase
+    kv_f8 = kv_f8_phase.phase_kv_f8(torch, params=base["params"])
+    lap("18 float8 cache")
     # 10. heterogeneous training forms, per-step heterogeneous serving,
     # fault plans with degraded admission, observability (each run with
     # the counters set to 0 just before it)
     torch.cuda.empty_cache()
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
     import resilience_phase
     resilience = resilience_phase.phase_resilience(torch, cfg=cut)
     lap("10 resilience")
@@ -4233,7 +4261,24 @@ def main():
             for run, n in mesh_train["runs"].items()}
         # phase 17 (a): the card's decode step beside the dry run's
         row["launches_dryrun"] = dryrun["a"]["launches"][row["name"]]
+        # phase 18: each float8-cache run
+        row["launches_kv_f8"] = {run: n.get(row["name"], 0)
+                                 for run, n in kv_f8["runs"].items()}
     kernels[8]["sequence_ms"] = hetero[0]["sequence_ms"]
+    # #8's float8-cache build (phase 18): its launches on the float8
+    # decode_fused drain; (a)'s rows, the path's own shape first
+    f8_rows = kv_f8["kernel_rows"]
+    f8_entry = {"name": "decode_block_fused (float8_e4m3fn cache)",
+                "route": "cuda", "source": kernels[4]["source"],
+                "replaces": kernels[4]["replaces"],
+                "launches": kv_f8["runs"]["b_decode_fused"][
+                    "decode_block_fused"]}
+    f8_entry.update({k: f8_rows[0][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape")})
+    f8_entry["other_shapes"] = f8_rows[1:]
+    f8_entry["launches_kv_f8"] = kernels[4]["launches_kv_f8"]
+    kernels.append(f8_entry)
     serve_hetero["launches"] = hetero_launches
     serve_fused["launches"] = fused_launches
     serve_quant = {}
@@ -4256,6 +4301,8 @@ def main():
     log(json.dumps({"mesh": mesh}, default=str))
     log(json.dumps({"mesh_train": mesh_train}, default=str))
     log(json.dumps({"dryrun": dryrun}, default=str))
+    log(json.dumps({"kv_f8": {k: v for k, v in kv_f8.items()
+                              if k != "kernel_rows"}}, default=str))
     log(json.dumps({"kernels": kernels, "serve": serve,
                     "serve_decode_fused": serve_fused,
                     "serve_quant": serve_quant,

@@ -17,7 +17,18 @@
 // and returns y and the new K/V rows (the caller scatters them into the
 // cache after the launch, so the cache read here is the old one). The
 // variants no served config uses (layernorm, a vanilla MLP, activations
-// other than silu and gelu, no RoPE, fp32) are refused by the wrapper.
+// other than silu and gelu, no RoPE, fp16/fp32 activations) are refused
+// by the wrapper.
+//
+// The cache holds bf16 or float8_e4m3fn values (JAX's cfg.cache_dtype; a
+// uniform runtime flag, p.f8, so the instantiations stay eight). On
+// float8 the new K/V rows are rounded from their bf16 values to e4m3 by
+// JAX's cast rule (f8_of: nearest even, no saturation, NaN past 448, as
+// ml_dtypes casts and utils/cache_cast.py), returned as bytes, and
+// attention reads every cached row and the rounded new row at pos as
+// their exact fp32 values: decode_block_row's k.astype(cache dtype) then
+// .astype(activation dtype). The cache's TMA boxes then hold 1-byte
+// values, half the bytes of a bf16 row, so a stage holds twice the rows.
 //
 // Numerics are decode_block_row's: fp32 sums, rounded to bf16 after each
 // norm, after each projection (q, k, v, o.Wo, g, u, m.Wd), at the bias add
@@ -179,8 +190,10 @@ struct Args {
   // [K / 16][16][N]) and of the K/V caches ([B*S, KV, hd])
   CUtensorMap tm_wq, tm_wk, tm_wv, tm_wo, tm_wg, tm_wu, tm_wd, tm_kc, tm_vc;
   bf16* y;             // [B, d]
-  bf16* k_row;         // [B, KV, hd]
-  bf16* v_row;
+  void* k_row;         // [B, KV, hd] in the cache's type
+  void* v_row;
+  int f8;              // the caches hold float8_e4m3fn bytes, else bf16
+  int kvb;             // bytes of a cache value (1 or 2)
   float* scratch;      // Layout below
   int B, d, H, KV, hd, ff, S, nb;
   int qkv_bias, adapter, gelu;
@@ -252,6 +265,43 @@ __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 // round to bf16 and back: the value a bf16 tensor would hold
 __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+// fp32 -> float8_e4m3fn byte by JAX's cast rule (ml_dtypes; the
+// arithmetic of PyTorch 2.11's c10::detail::fp8e4m3fn_from_fp32_value):
+// round to nearest even, a magnitude that is 480 or more, or that rounds
+// past 448, gives NaN (0x7f with the sign); subnormals by one fp32 add at
+// the 2^-9 step. No saturation: CUDA's __NV_SATFINITE conversion would
+// clamp to 448 instead.
+__device__ __forceinline__ uint8_t f8_of(float f) {
+  uint32_t bits = __float_as_uint(f);
+  const uint32_t sign = bits & 0x80000000u;
+  bits ^= sign;
+  uint32_t r;
+  if (bits >= (1087u << 20)) {  // 480.0f, and inf / NaN
+    r = 0x7fu;
+  } else if (bits < (121u << 23)) {  // below 2^-6, e4m3's least normal
+    const uint32_t denorm = 141u << 23;  // 2^14: its fp32 ulp is 2^-9
+    r = __float_as_uint(__fadd_rn(__uint_as_float(bits),
+                                  __uint_as_float(denorm))) - denorm;
+  } else {
+    const uint32_t odd = (bits >> 20) & 1u;  // ties to even
+    bits += (static_cast<uint32_t>(7 - 127) << 23) + 0x7ffffu + odd;
+    r = bits >> 20;
+  }
+  return static_cast<uint8_t>(r | (sign >> 24));
+}
+// a float8_e4m3fn byte's exact fp32 value (0x7f / 0xff: NaN)
+__device__ __forceinline__ float f8_val(uint32_t v) {
+  const uint32_t e = (v >> 3) & 0xfu, m = v & 7u;
+  float mag;
+  if (e == 15 && m == 7) mag = __uint_as_float(0x7fc00000u);
+  else if (e) mag = __uint_as_float(((e + 120u) << 23) | (m << 20));
+  else mag = static_cast<float>(m) * 0.001953125f;  // m * 2^-9
+  return v & 0x80u ? -mag : mag;
+}
+// a new K/V value (a bf16 value) as the cache holds it, read back
+__device__ __forceinline__ float kv_round(const Args& p, float v) {
+  return p.f8 ? f8_val(f8_of(v)) : v;
 }
 // a word of scratch written by another block in this launch (L2, not L1)
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
@@ -848,7 +898,7 @@ __device__ void copy_task(const Args& p, int ph, int t, int ch,
   if (ph == kAttnK || ph == kAttnV) {
     const Item it = item_of(p, t, s_pos);
     const int boxes = (it.nrows + kKVBox - 1) / kKVBox;
-    const int kvh = it.h / (p.H / p.KV), box_bytes = kKVBox * p.hd * 2;
+    const int kvh = it.h / (p.H / p.KV), box_bytes = kKVBox * p.hd * p.kvb;
     const bool both = ph == kAttnK && p.nsplit == 1;
     mbar_arrive_tx(bar, boxes * box_bytes * (both ? 2 : 1));
     const int r0 = it.b * p.S + it.s0;
@@ -857,8 +907,8 @@ __device__ void copy_task(const Args& p, int ph, int t, int ch,
       tma_3d(dst + i * box_bytes, ph == kAttnK ? &p.tm_kc : &p.tm_vc, 0, kvh,
              r, bar);
       if (both)
-        tma_3d(dst + p.sc * p.hd * 2 + i * box_bytes, &p.tm_vc, 0, kvh, r,
-               bar);
+        tma_3d(dst + p.sc * p.hd * p.kvb + i * box_bytes, &p.tm_vc, 0, kvh,
+               r, bar);
     }
     return;
   }
@@ -898,7 +948,8 @@ __device__ void issue(const Args& p, int i, unsigned char* ring,
 }
 
 // sq, sk: q and the new k of item `it` after RoPE (bf16 values); sv the
-// new v; from the finished q|k|v rows. Threads < hd; synced.
+// new v; from the finished q|k|v rows, k and v read back through the
+// cache's type (kv_round). Threads < hd; synced.
 __device__ void item_qkv(const Args& p, const Item& it, int pos,
                          const float* g_qkv, float* sq, float* sk,
                          float* sv) {
@@ -922,25 +973,39 @@ __device__ void item_qkv(const Args& p, const Item& it, int pos,
       kr = __fadd_rn(__fmul_rn(k1, sn), __fmul_rn(k2, cs));
     }
     sq[tid] = rnd(qr);
-    sk[tid] = rnd(kr);
-    sv[tid] = v;
+    sk[tid] = kv_round(p, rnd(kr));
+    sv[tid] = kv_round(p, v);
   }
   csync();
 }
 
-// The logits of item `it` against its K rows (k_tile; the new row at pos),
-// scaled and capped, into lg[r]; then m = their max and the sum of
-// exp(lg - m). Every thread calls it.
-__device__ void item_logits(const Args& p, const Item& it, int pos,
-                            const bf16* k_tile, const float* sq,
-                            const float* sk, float* lg, float* red,
-                            float& m, float& sum) {
+// Cache value i of a tile of rows as fp32: bf16, or float8_e4m3fn bytes
+// (exact either way). The loops below take it as a template argument, so
+// each cache type has its own loop and the bf16 one is what it was.
+struct Bf16Vals {
+  const bf16* t;
+  __device__ __forceinline__ float operator()(int i) const { return bf(t[i]); }
+};
+struct F8Vals {
+  const uint8_t* t;
+  __device__ __forceinline__ float operator()(int i) const {
+    return f8_val(t[i]);
+  }
+};
+
+// The logits of item `it` against its K rows (k_tile, in the cache's type;
+// the new row at pos), scaled and capped, into lg[r]; then m = their max
+// and the sum of exp(lg - m). Every thread calls it.
+template <typename V>
+__device__ __forceinline__ void item_dots(const Args& p, const Item& it,
+                                          int pos, V k_val, const float* sq,
+                                          const float* sk, float* lg) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, hd = p.hd;
   for (int r = warp; r < it.nrows; r += kWarps) {
     const bool at_pos = it.s0 + r == pos;
     float acc = 0.0f;
     for (int c = lane; c < hd; c += 32)
-      acc = fmaf(sq[c], at_pos ? sk[c] : bf(k_tile[r * hd + c]), acc);
+      acc = fmaf(sq[c], at_pos ? sk[c] : k_val(r * hd + c), acc);
     acc = warp_sum(acc);
     if (lane == 0) {
       float l = __fmul_rn(acc, p.scale);
@@ -948,24 +1013,46 @@ __device__ void item_logits(const Args& p, const Item& it, int pos,
       lg[r] = l;
     }
   }
+}
+__device__ void item_logits(const Args& p, const Item& it, int pos,
+                            const unsigned char* k_tile, const float* sq,
+                            const float* sk, float* lg, float* red,
+                            float& m, float& sum) {
+  if (p.f8)
+    item_dots(p, it, pos, F8Vals{k_tile}, sq, sk, lg);
+  else
+    item_dots(p, it, pos, Bf16Vals{reinterpret_cast<const bf16*>(k_tile)},
+              sq, sk, lg);
   csync();
   const int tid = threadIdx.x;
   m = block_max(tid < it.nrows ? lg[tid] : kNegInf, red);
   sum = block_sum(tid < it.nrows ? expf(__fsub_rn(lg[tid], m)) : 0.0f, red);
 }
 
-// sum over the item's rows of w[r] * V[r] (v_tile; the new row at pos) for
-// column tid % hd, the row groups added in order -> returned to threads <
-// hd. Every thread calls it.
-__device__ float item_wv(const Args& p, const Item& it, int pos,
-                         const bf16* v_tile, const float* sv, const float* w,
-                         float* ored) {
+// sum over the item's rows of w[r] * V[r] (v_tile, in the cache's type;
+// the new row at pos) for column tid % hd, the row groups added in order
+// -> returned to threads < hd. Every thread calls it.
+template <typename V>
+__device__ __forceinline__ float item_wv_rows(const Args& p, const Item& it,
+                                              int pos, V v_val,
+                                              const float* sv,
+                                              const float* w) {
   const int tid = threadIdx.x, hd = p.hd, groups = kThreads / hd;
   const int jd = tid % hd;
   float acc = 0.0f;
   for (int r = tid / hd; r < it.nrows; r += groups)
-    acc = fmaf(w[r], it.s0 + r == pos ? sv[jd] : bf(v_tile[r * hd + jd]),
-               acc);
+    acc = fmaf(w[r], it.s0 + r == pos ? sv[jd] : v_val(r * hd + jd), acc);
+  return acc;
+}
+__device__ float item_wv(const Args& p, const Item& it, int pos,
+                         const unsigned char* v_tile, const float* sv,
+                         const float* w, float* ored) {
+  const int tid = threadIdx.x, hd = p.hd, groups = kThreads / hd;
+  const float acc =
+      p.f8 ? item_wv_rows(p, it, pos, F8Vals{v_tile}, sv, w)
+           : item_wv_rows(p, it, pos,
+                          Bf16Vals{reinterpret_cast<const bf16*>(v_tile)}, sv,
+                          w);
   ored[tid] = acc;
   csync();
   float s = 0.0f;
@@ -1236,20 +1323,23 @@ __global__ void __launch_bounds__(kBlock, 1)
       if (it.sp == 0 && it.h % (p.H / p.KV) == 0 && tid < hd) {
         const long long r =
             (static_cast<long long>(it.b) * p.KV + it.h / (p.H / p.KV)) * hd;
-        p.k_row[r + tid] = __float2bfloat16_rn(sk[tid]);
-        p.v_row[r + tid] = __float2bfloat16_rn(sv[tid]);
+        if (p.f8) {  // sk, sv hold e4m3 values: f8_of gives their bytes
+          static_cast<uint8_t*>(p.k_row)[r + tid] = f8_of(sk[tid]);
+          static_cast<uint8_t*>(p.v_row)[r + tid] = f8_of(sv[tid]);
+        } else {
+          static_cast<bf16*>(p.k_row)[r + tid] = __float2bfloat16_rn(sk[tid]);
+          static_cast<bf16*>(p.v_row)[r + tid] = __float2bfloat16_rn(sv[tid]);
+        }
       }
       float m, sum;
-      item_logits(p, it, pos, reinterpret_cast<const bf16*>(tile), sq, sk,
-                  lg, s_red, m, sum);
+      item_logits(p, it, pos, tile, sq, sk, lg, s_red, m, sum);
       if (p.nsplit == 1) {
         // the whole row is here: weights, w.V, done
         if (tid < it.nrows)
           lg[tid] = rnd(__fdiv_rn(expf(__fsub_rn(lg[tid], m)), sum));
         csync();
-        const float o = item_wv(
-            p, it, pos,
-            reinterpret_cast<const bf16*>(tile + sc * hd * 2), sv, lg, ored);
+        const float o =
+            item_wv(p, it, pos, tile + sc * hd * p.kvb, sv, lg, ored);
         if (tid < hd) g_o[it.b * nq + it.h * hd + tid] = rnd(o);
       } else {
         if (tid < it.nrows)
@@ -1302,8 +1392,9 @@ __global__ void __launch_bounds__(kBlock, 1)
         }
       }
       if (tid < hd && pos >= it.s0 && pos < it.s0 + it.nrows)
-        sv[tid] = ldcg(g_qkv + static_cast<long long>(it.b) * nqkv + nq +
-                       nkv + it.h / (p.H / p.KV) * hd + tid);
+        sv[tid] = kv_round(
+            p, ldcg(g_qkv + static_cast<long long>(it.b) * nqkv + nq + nkv +
+                    it.h / (p.H / p.KV) * hd + tid));
       csync();
       if (tid < it.nrows)
         lg[tid] = rnd(__fdiv_rn(
@@ -1311,8 +1402,7 @@ __global__ void __launch_bounds__(kBlock, 1)
                            s_ml[0])),
             s_ml[1]));
       csync();
-      const float o = item_wv(p, it, pos, reinterpret_cast<const bf16*>(tile),
-                              sv, lg, ored);
+      const float o = item_wv(p, it, pos, tile, sv, lg, ored);
       if (tid < hd) g_op[static_cast<long long>(t) * hd + tid] = o;
       if (arrive_last(cnt + p.c_v + it.bh, p.nsplit, s_flag) && tid < hd) {
         // the splits' partial o added in split order, 8 loads in flight
@@ -1610,8 +1700,9 @@ int kin_of(const Args& a) { return in_width(slot_bucket(a.B), kmax_of(a)); }
 
 // The shapes the kernel is built for (the wrapper's plan returns nothing
 // else): widths multiples of 16, hd a power of two in [16, 256], the
-// attention split's rows (sc) within one stage (its K and V rows when one
-// split covers S), the per-block buffers within the input rows' space and
+// attention split's rows (sc) within one stage at the cache's bytes a
+// value (its K and V rows when one split covers S), the per-block buffers
+// within the input rows' space and
 // the shared memory within the card's 227 KB (rows wider than that come
 // in windows of kin depth rows).
 bool valid(const Args& a) {
@@ -1620,11 +1711,11 @@ bool valid(const Args& a) {
   if (!nb_slots || a.H < 1 || a.KV < 1 || a.H % a.KV || !is_pow2(a.hd) ||
       a.hd < 16 || a.hd > 256 || a.d % 16 || (a.H * a.hd) % 16 ||
       (a.KV * a.hd) % 16 || a.ff % 16 || a.S < 1 || a.adapter < kNone ||
-      a.adapter > kInt4)
+      a.adapter > kInt4 || (a.f8 != 0 && a.f8 != 1))
     return false;
   const int splits = (a.S + a.sc - 1) / a.sc;
   if (a.sc < 16 || a.sc % 16 || a.sc > 256 ||
-      (splits == 1 ? 4 : 2) * a.sc * a.hd > kStage)
+      (splits == 1 ? 2 : 1) * a.kvb * a.sc * a.hd > kStage)
     return false;
   if (a.adapter && (a.nb % 16 || a.nb > 256)) return false;
   if (quant && (a.a_groups < 1 || a.b_groups < 1 || a.nb % a.a_groups ||
@@ -1662,12 +1753,15 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, byte strides of the outer
-// ones) with the given box; out-of-bounds rows read as zeros.
+// A bf16 (or, with bytes, 1-byte) tensor of `rank` dims (innermost first,
+// byte strides of the outer ones) with the given box; out-of-bounds rows
+// read as zeros.
 bool encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
+            const cuuint64_t* strides, const cuuint32_t* box,
+            bool bytes = false) {
   const cuuint32_t ones[3] = {1, 1, 1};
-  return encode_fn()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encode_fn()(m, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                      const_cast<void*>(ptr), dims, strides, box, ones,
                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1687,22 +1781,25 @@ bool map_weight(CUtensorMap* m, const void* w, int K, int N, int cols) {
   return encode(m, w, 3, dims, strides, box);
 }
 
-// A cache [rows = B*S, KV, hd] in boxes of kKVBox rows of one head.
-bool map_cache(CUtensorMap* m, const void* c, int rows, int KV, int hd) {
+// A cache [rows = B*S, KV, hd] of kvb-byte values (bf16, or float8 as
+// bytes) in boxes of kKVBox rows of one head.
+bool map_cache(CUtensorMap* m, const void* c, int rows, int KV, int hd,
+               int kvb) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(KV),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(KV) * hd * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(hd) * kvb,
+                                 static_cast<cuuint64_t>(KV) * hd * kvb};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(hd), 1, kKVBox};
-  return encode(m, c, 3, dims, strides, box);
+  return encode(m, c, 3, dims, strides, box, kvb == 1);
 }
 
 Args shape_args(int B, int d, int H, int KV, int hd, int ff, int S, int nb,
-                int adapter, int a_groups, int b_groups, int sc) {
+                int adapter, int a_groups, int b_groups, int sc, int f8) {
   Args a = {};
   a.B = B, a.d = d, a.H = H, a.KV = KV, a.hd = hd, a.ff = ff, a.S = S;
   a.nb = nb, a.adapter = adapter, a.sc = sc;
+  a.f8 = f8, a.kvb = f8 ? 1 : 2;
   a.a_groups = a_groups, a.b_groups = b_groups;
   if (slot_bucket(B)) a.kin = kin_of(a);
   return a;
@@ -1726,7 +1823,7 @@ extern "C" const void* XPEFT_DEC_FN(XPEFT_DEC_PART)(int NB) {
 // without cooperative launch).
 extern "C" int xpeft_decode_block_config(int B, int d, int H, int hd, int ff,
                                          int* grid) {
-  Args a = shape_args(B, d, H, H, hd, ff, 1, 16, kNone, 0, 0, 16);
+  Args a = shape_args(B, d, H, H, hd, ff, 1, 16, kNone, 0, 0, 16, 0);
   const int nb_slots = slot_bucket(B);
   if (!nb_slots) return cudaErrorInvalidValue;
   const long long smem = smem_bytes(nb_slots, a.kin);
@@ -1737,12 +1834,14 @@ extern "C" int xpeft_decode_block_config(int B, int d, int H, int hd, int ff,
 }
 
 // The fp32 scratch words a launch at these shapes needs (<= 0 for a
-// configuration the kernel refuses); sc: cache rows per attention split.
+// configuration the kernel refuses); sc: cache rows per attention split;
+// f8: the caches hold float8_e4m3fn, else bf16.
 extern "C" int xpeft_decode_block_scratch(int B, int d, int H, int KV, int hd,
                                           int ff, int S, int nb, int adapter,
-                                          int a_groups, int b_groups, int sc) {
+                                          int a_groups, int b_groups, int sc,
+                                          int f8) {
   Args a = shape_args(B, d, H, KV, hd, ff, S, nb, adapter, a_groups,
-                      b_groups, sc);
+                      b_groups, sc, f8);
   if (!valid(a)) return -1;
   const long long words = fill_layout(a);
   return words > 0x7fffffff ? -1 : static_cast<int>(words);
@@ -1756,7 +1855,8 @@ extern "C" int xpeft_decode_block_scratch(int B, int d, int H, int KV, int hd,
 // row; dequant.cuh has the layouts); ln_s/ln_b on routes 1-3. gelu: the
 // adapter's activation, 0 = identity, 1 = gelu (tanh form); mlp_gelu: the
 // MLP's gate activation, 0 = silu, 1 = gelu (tanh form); cap <= 0 turns
-// the softcap off. Every
+// the softcap off; f8: kc/vc and k_row/v_row hold float8_e4m3fn bytes,
+// else bf16. Every
 // bf16 matrix has 16-byte aligned rows, every quantized row 8-byte
 // aligned; the wrapper checks shapes, strides and alignment. Returns the
 // launch's cudaError_t.
@@ -1773,9 +1873,9 @@ extern "C" int xpeft_decode_block(
     const void* a_s,
     const void* b_q, const void* b_s, long long aq_bs, long long as_bs,
     long long bq_bs, long long bs_bs, int a_groups, int b_groups, int sc,
-    int grid, void* stream) {
+    int f8, int grid, void* stream) {
   Args a = shape_args(B, d, H, KV, hd, ff, S, nb, adapter, a_groups,
-                      b_groups, sc);
+                      b_groups, sc, f8);
   if (grid < 1 || !valid(a)) return cudaErrorInvalidValue;
   fill_layout(a);
   a.x = static_cast<const bf16*>(x);
@@ -1799,8 +1899,8 @@ extern "C" int xpeft_decode_block(
   a.aq_bs = aq_bs, a.as_bs = as_bs, a.bq_bs = bq_bs, a.bs_bs = bs_bs;
   a.inv_freq = static_cast<const float*>(inv_freq);
   a.y = static_cast<bf16*>(y);
-  a.k_row = static_cast<bf16*>(k_row);
-  a.v_row = static_cast<bf16*>(v_row);
+  a.k_row = k_row;
+  a.v_row = v_row;
   a.scratch = static_cast<float*>(scratch);
   a.qkv_bias = qkv_bias, a.gelu = gelu;
   a.cap = cap, a.scale = scale;
@@ -1813,8 +1913,8 @@ extern "C" int xpeft_decode_block(
       !map_weight(&a.tm_wg, wg, d, ff, kNT / 2) ||
       !map_weight(&a.tm_wu, wu, d, ff, kNT / 2) ||
       !map_weight(&a.tm_wd, wd, ff, d, kNT) ||
-      !map_cache(&a.tm_kc, kc, B * S, KV, hd) ||
-      !map_cache(&a.tm_vc, vc, B * S, KV, hd))
+      !map_cache(&a.tm_kc, kc, B * S, KV, hd, a.kvb) ||
+      !map_cache(&a.tm_vc, vc, B * S, KV, hd, a.kvb))
     return cudaErrorInvalidValue;
   const int nb_slots = slot_bucket(B);
   const long long smem = smem_bytes(nb_slots, a.kin);

@@ -46,10 +46,10 @@ SIGNATURES = {
     "xpeft_ia3_apply_batched":
         [_P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P],
     "xpeft_decode_block_config": [_I] * 5 + [ctypes.POINTER(_I)],
-    "xpeft_decode_block_scratch": [_I] * 12,
+    "xpeft_decode_block_scratch": [_I] * 13,
     "xpeft_decode_block":
         [_P] * 20 + [_LL] * 3 + [_P] * 5 + [_I] * 12 + [_F, _F]
-        + [_P] * 4 + [_LL] * 4 + [_I] * 4 + [_P],
+        + [_P] * 4 + [_LL] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -36,6 +36,14 @@ and dequantize each value once (the shared ``csrc/dequant.cuh``); their
 adapter stays fp32 from x2 to one rounding of x2 + y, as
 ``decode_block_row``'s quantized branch does.
 
+The cache holds bf16 or float8_e4m3fn values (JAX's ``cfg.cache_dtype``):
+on float8 the kernel rounds the new K/V rows from their bf16 values by
+JAX's cast rule (nearest even, NaN past 448, no saturation: the rule
+``utils/cache_cast.py`` gives the plain version), returns
+them as float8, and attends every cached row and the rounded new row at
+their exact values, as ``decode_block_row`` does; its cache boxes are
+bytes, so a stage holds twice the rows (``plan``).
+
 The kernel is instantiated for 1 to ``MAX_SLOTS`` slots (one block holds
 a phase's input rows of every slot). A call with more slots launches it
 once per group of at most ``MAX_SLOTS`` consecutive slots
@@ -68,6 +76,8 @@ from repro_torch.kernels.mask_aggregate_quant import check_rows
 from repro_torch.utils import PLAIN_DEVICES
 
 MAX_SLOTS = 8
+# the cache types the kernel reads and writes, by bytes a value
+_CACHE_BYTES = {torch.bfloat16: 2, torch.float8_e4m3fn: 1}
 _ROUTES = {"none": 0, "bf16": 1, "int8": 2, "int4": 3}
 _ADAPTER_ACTS = {"identity": 0, "gelu": 1}
 _MLP_ACTS = {"silu": 0, "gelu": 1}
@@ -99,6 +109,19 @@ def _unsupported(norm, use_rope, mlp_type, act_name, adapter, adapter_act):
         return (f"norm {norm!r}, mlp {mlp_type!r}, act {act_name!r}, "
                 f"rope {use_rope}: only RMSNorm, GLU-SiLU/GELU and RoPE are "
                 "built (ROADMAP queue 2, item 1)")
+    return None
+
+
+def _unbuilt_dtypes(x_dtype, k_dtype, v_dtype):
+    """A reason the kernel does not take these activation / cache dtypes
+    (bf16 activations over two bf16 or two float8_e4m3fn caches), or
+    None."""
+    if x_dtype != torch.bfloat16:
+        return (f"x dtype {x_dtype}; only bfloat16 activations are built "
+                "(ROADMAP queue 2, item 1)")
+    if k_dtype not in _CACHE_BYTES or v_dtype != k_dtype:
+        return (f"k/v cache dtypes {k_dtype}/{v_dtype}; built for two "
+                "bfloat16 or two float8_e4m3fn caches")
     return None
 
 
@@ -143,31 +166,35 @@ def smem_bytes(B, d, H, hd, ff) -> int:
     return _smem(4 if B <= 4 else 8, in_width(B, d, H, hd, ff))
 
 
-def plan(B, d, H, KV, hd, ff, S, nb, adapter):
-    """Cache rows per attention split at these shapes. One split where a
-    stage holds the K and V rows of the whole cache (S <= 128 at hd 64):
-    the item then needs no exchange with other blocks. Otherwise splits of
-    as many rows as a stage holds of K (256 at hd 64), ceil(S / rows) of
-    them, and at least two (a stage holds one split's K rows only: S=128
-    at hd 128 takes two splits of 64). Raises ValueError on what the
-    kernel does not build."""
+def plan(B, d, H, KV, hd, ff, S, nb, adapter, cache_dtype=torch.bfloat16):
+    """Cache rows per attention split at these shapes and cache type. One
+    split where a stage holds the K and V rows of the whole cache (S <= 128
+    at hd 64 in bf16, S <= 256 in float8): the item then needs no exchange
+    with other blocks. Otherwise splits of as many rows as a stage holds of
+    K (256 at most), ceil(S / rows) of them, and at least two (a stage
+    holds one split's K rows only: S=128 at hd 128 in bf16 takes two splits
+    of 64). Raises ValueError on what the kernel does not build."""
+    eb = _CACHE_BYTES.get(cache_dtype)
     if not 1 <= B <= MAX_SLOTS or H < 1 or KV < 1 or H % KV \
             or hd not in (16, 32, 64, 128, 256) \
-            or any(n % 16 for n in (d, H * hd, KV * hd, ff)) or S < 1:
+            or any(n % 16 for n in (d, H * hd, KV * hd, ff)) or S < 1 \
+            or eb is None:
         raise ValueError(f"decode megakernel shapes B={B} d={d} H={H} "
-                         f"KV={KV} hd={hd} ff={ff} S={S}")
+                         f"KV={KV} hd={hd} ff={ff} S={S} with a "
+                         f"{cache_dtype} cache (built for "
+                         "bfloat16 and float8_e4m3fn)")
     if adapter != "none" and (nb % 16 or not 0 < nb <= 256):
         raise ValueError(f"decode megakernel bottleneck {nb}")
     whole = -(-S // 16) * 16
-    sc = whole if 4 * whole * hd <= STAGE_BYTES \
-        else min(256, STAGE_BYTES // (2 * hd), -(-S // 32) * 16)
+    sc = whole if whole <= 256 and 2 * eb * whole * hd <= STAGE_BYTES \
+        else min(256, STAGE_BYTES // (eb * hd), -(-S // 32) * 16)
     # the attention item's and the adapter's fp32 buffers use the input
     # rows' space
     kin = in_width(B, d, H, hd, ff)
     floats = (4 if B <= 4 else 8) * (kin + ROW_PAD) // 2
     if kin < CHUNK or floats < max(d, nb, 3 * hd + sc + THREADS):
         raise ValueError(f"decode megakernel: input rows of {kin} at d={d}"
-                         f" ff={ff}")
+                         f" ff={ff} with a {cache_dtype} cache")
     return sc
 
 
@@ -187,16 +214,17 @@ def _grid(device_index: int, B, d, H, hd, ff):
 
 @functools.lru_cache(maxsize=64)
 def _launch_plan(device_index: int, B, d, H, KV, hd, ff, S, nb, adapter,
-                 groups):
+                 groups, cache_dtype):
     """(grid, rows per attention split, scratch words) for one shape."""
-    sc = plan(B, d, H, KV, hd, ff, S, nb, adapter)
+    sc = plan(B, d, H, KV, hd, ff, S, nb, adapter, cache_dtype)
     grid = _grid(device_index, B, d, H, hd, ff)
     words = load_library().xpeft_decode_block_scratch(
-        B, d, H, KV, hd, ff, S, nb, _ROUTES[adapter], *groups, sc)
+        B, d, H, KV, hd, ff, S, nb, _ROUTES[adapter], *groups, sc,
+        int(cache_dtype == torch.float8_e4m3fn))
     if words <= 0:
         raise NotImplementedError(f"decode megakernel refuses B={B} d={d} "
                                   f"H={H} KV={KV} hd={hd} ff={ff} S={S} "
-                                  f"b={nb} {adapter}")
+                                  f"b={nb} {adapter} {cache_dtype} cache")
     return grid, sc, words
 
 
@@ -292,10 +320,11 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
                        theta: float, cap: float, mlp_type: str,
                        act_name: str, adapter: str, adapter_act: str):
     """x [B, 1, d] bf16, pos [B] int32, block one layer's params, k/v_cache
-    [B, S, KV, hd] bf16 (read, not written), masks_l the slots' adapter
-    leaves of route ``adapter`` ("none", "bf16", or "int8"/"int4": the
-    quantized records a_q/a_scale/b_q/b_scale) -> (y [B, 1, d], k_rows
-    [B, KV, hd], v_rows [B, KV, hd])."""
+    [B, S, KV, hd] both bf16 or both float8_e4m3fn (read, not written),
+    masks_l the slots' adapter leaves of route ``adapter`` ("none", "bf16",
+    or "int8"/"int4": the quantized records a_q/a_scale/b_q/b_scale) ->
+    (y [B, 1, d], k_rows [B, KV, hd], v_rows [B, KV, hd]), the rows in the
+    cache's dtype."""
     kw = dict(norm=norm, qkv_bias=qkv_bias, use_rope=use_rope, theta=theta,
               cap=cap, mlp_type=mlp_type, act_name=act_name,
               adapter=adapter, adapter_act=adapter_act)
@@ -305,18 +334,12 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     why = _unsupported(norm, use_rope, mlp_type, act_name, adapter,
-                       adapter_act)
+                       adapter_act) \
+        or _unbuilt_dtypes(x.dtype, k_cache.dtype, v_cache.dtype)
     if why:
         raise NotImplementedError(f"decode megakernel: {why}")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
-    if torch.float8_e4m3fn in (k_cache.dtype, v_cache.dtype):
-        raise NotImplementedError(
-            "decode megakernel: a float8_e4m3fn cache is not built "
-            "(ROADMAP queue 2, item 1)")
-    if x.dtype != bf16 or k_cache.dtype != bf16 or v_cache.dtype != bf16:
-        raise NotImplementedError(
-            f"decode megakernel: x/cache dtypes {x.dtype}/{k_cache.dtype}; "
-            "only bfloat16 is built (ROADMAP queue 1, item 2)")
+    kv_dt = k_cache.dtype
     if x.ndim != 3 or x.shape[1] != 1:
         raise ValueError(f"x must be [B, 1, d], got {tuple(x.shape)}")
     B, _, d = x.shape
@@ -327,8 +350,8 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
     ff = mlp["wg"].shape[1]
     _need(x, "x", (B, 1, d), bf16, dev)
     _need(pos, "pos", (B,), torch.int32, dev)
-    _need(k_cache, "k_cache", (B, S, KV, hd), bf16, dev)
-    _need(v_cache, "v_cache", (B, S, KV, hd), bf16, dev)
+    _need(k_cache, "k_cache", (B, S, KV, hd), kv_dt, dev)
+    _need(v_cache, "v_cache", (B, S, KV, hd), kv_dt, dev)
     for name, shape in (("wq", (d, H, hd)), ("wk", (d, KV, hd)),
                         ("wv", (d, KV, hd)), ("wo", (H, hd, d))):
         _need(attn[name], name, shape, bf16, dev)
@@ -353,8 +376,8 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
                               if k in _ADAPTER_LEAVES}, adapter, x[g])
            for g in groups]
     y = torch.empty_like(x)
-    k_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
-    v_rows = torch.empty((B, KV, hd), dtype=bf16, device=dev)
+    k_rows = torch.empty((B, KV, hd), dtype=kv_dt, device=dev)
+    v_rows = torch.empty((B, KV, hd), dtype=kv_dt, device=dev)
     freqs = _inv_freq(hd, float(theta), dev)
     lib = load_library()
     index = dev.index if dev.index is not None \
@@ -363,7 +386,7 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
         n = g.stop - g.start
         nb = ad["nb"]
         grid, sc, words = _launch_plan(index, n, d, H, KV, hd, ff, S, nb,
-                                       adapter, tuple(ad["groups"]))
+                                       adapter, tuple(ad["groups"]), kv_dt)
         scratch = torch.empty(words, dtype=f32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
@@ -382,7 +405,8 @@ def decode_block_fused(x, pos, block, k_cache, v_cache, masks_l, *,
                 _ADAPTER_ACTS.get(adapter_act, 0), _MLP_ACTS[act_name],
                 float(cap or 0.0),
                 ref.attn_scale(hd), *(t.data_ptr() for t in ad["quant"]),
-                *ad["quant_strides"], *ad["groups"], sc, grid, stream)
+                *ad["quant_strides"], *ad["groups"], sc,
+                int(kv_dt == torch.float8_e4m3fn), grid, stream)
         if err:
             raise RuntimeError(f"decode_block_fused launch failed: CUDA "
                                f"error {err}")

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant.schemes import dequant_block
+from repro_torch.utils.cache_cast import to_cache_dtype
 
 NEG_INF = -2.0e38
 
@@ -276,8 +277,8 @@ def decode_block_row(x, pos, n1, n2, attn, mlp, kc, vc, ad, *, norm: str,
 
     # --- cached attention: the new row substituted at `pos`, after its
     # round trip through the cache dtype -----------------------------------
-    k_row = k[0].to(kc.dtype)                              # [KV, hd]
-    v_row = v[0].to(vc.dtype)
+    k_row = to_cache_dtype(k[0], kc.dtype)                 # [KV, hd]
+    v_row = to_cache_dtype(v[0], vc.dtype)
     at_pos = (torch.arange(S, device=dev) == pos)[:, None, None]
     keys = torch.where(at_pos, k_row.to(dt)[None], kc.to(dt))
     vals = torch.where(at_pos, v_row.to(dt)[None], vc.to(dt))

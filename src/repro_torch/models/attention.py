@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import apply_rope, dense_init, softcap
+from repro_torch.utils.cache_cast import to_cache_dtype
 
 NEG_INF = -2.0e38
 
@@ -141,7 +142,7 @@ def write_cache(buf, new, cache_pos):
     keeps clear of every position this call really writes."""
     B, T = new.shape[:2]
     S = buf.shape[1]
-    new = new.to(buf.dtype)
+    new = to_cache_dtype(new, buf.dtype)
     if not torch.is_tensor(cache_pos) or cache_pos.ndim == 0:
         start = min(max(int(cache_pos), 0), S - T)
         buf[:, start:start + T] = new

@@ -13,8 +13,13 @@ Tolerances: float32 at rtol = atol = 1e-5 (the frameworks sum in other
 orders; inputs are O(1)). bfloat16 at rtol = atol = 2**-6 (two bf16
 steps): both sides round at the same points, but an fp32 sum taken in
 another order can land a rounding one step apart, and XLA may keep
-excess precision between fused bf16 ops.
+excess precision between fused bf16 ops. On a float8_e4m3fn cache y
+takes the same tolerances and each new K/V row value is JAX's or one
+e4m3 step from it (a value the frameworks compute within those bounds of
+an e4m3 rounding midpoint may round to either neighbour); the cast into
+the cache is held bitwise to ml_dtypes' (JAX's) on a table of edge values.
 """
+import ml_dtypes
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,7 @@ from repro.kernels import ops as jops
 from repro.quant import schemes as JQS
 from repro_torch.kernels import decode_fused as KD
 from repro_torch.kernels import ops
+from repro_torch.utils.cache_cast import to_cache_dtype
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2.0 ** -6, atol=2.0 ** -6)
@@ -99,8 +105,10 @@ def _block_inputs(variant, adapter, seed, B=4, S=16, d=64, hd=16, ff=96,
     return (x, pos, block, kc, vc, masks_l), kw
 
 
-def _run_jax(args, kw, impls, dtype):
-    """JAX's decode block under each of ``impls``, jitted together."""
+def _run_jax(args, kw, impls, dtype, cache_dtype=None):
+    """JAX's decode block under each of ``impls``, jitted together; the
+    caches in ``cache_dtype`` (cast from float32), else the working
+    dtype."""
     def cast(a):
         a = jnp.asarray(a)
         return a.astype(dtype) if a.dtype == jnp.float32 and a.ndim > 1 \
@@ -115,10 +123,12 @@ def _run_jax(args, kw, impls, dtype):
           for k, w in masks_l.items()}
     fn = jax.jit(lambda *a: [jops.decode_block_fused(*a, impl=impl, **kw)
                              for impl in impls])
-    return fn(cast(x), jnp.asarray(pos), jb, cast(kc), cast(vc), jm)
+    kc, vc = ((jnp.asarray(c).astype(cache_dtype) if cache_dtype else
+               cast(c)) for c in (kc, vc))
+    return fn(cast(x), jnp.asarray(pos), jb, kc, vc, jm)
 
 
-def _run_port(args, kw, dtype, impl="auto"):
+def _run_port(args, kw, dtype, impl="auto", cache_dtype=None):
     x, pos, block, kc, vc, masks_l = args
 
     def t(a, cast):
@@ -128,9 +138,10 @@ def _run_port(args, kw, dtype, impl="auto"):
     tb = {g: {k: t(w, k.startswith("w")) for k, w in sub.items()}
           for g, sub in block.items()}
     tm = {k: t(w, k.endswith("_hat")) for k, w in masks_l.items()}
+    kc, vc = ((to_cache_dtype(t(c, False), cache_dtype) if cache_dtype
+               else t(c, True)) for c in (kc, vc))
     return ops.decode_block_fused(t(x, True), torch.from_numpy(pos), tb,
-                                  t(kc, True), t(vc, True), tm, impl=impl,
-                                  **kw)
+                                  kc, vc, tm, impl=impl, **kw)
 
 
 def _f32(a):
@@ -167,6 +178,152 @@ def test_plain_decode_block_matches_jax_bf16(adapter):
                                    **BF16_TOL)
 
 
+def _e4m3_ordinal(b):
+    """float8_e4m3fn bytes (no NaN) as their place among the finite values
+    in order, +0 and -0 at 0: neighbouring values differ by 1."""
+    b = np.asarray(b).astype(np.int32)
+    assert not ((b & 0x7F) == 0x7F).any()
+    return np.where(b & 0x80, -(b & 0x7F), b & 0x7F)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("adapter", ["none", "bf16", "int8", "int4"])
+def test_plain_decode_block_float8_cache_matches_jax(adapter, dtype,
+                                                     monkeypatch):
+    """The plain decode block over float8_e4m3fn caches (x, weights and Â/B̂
+    in ``dtype``) against JAX's ``decode_block_ref``: the cached rows read
+    back exactly, the new K/V rows returned in float8 and substituted at
+    pos after their round trip through it. Each K/V row value is JAX's or
+    one e4m3 step from it (the count is printed): in bf16 the two
+    frameworks' k and v may lie a bf16 step apart (within BF16_TOL), and
+    where that step straddles an e4m3 rounding midpoint the float8 values
+    part by one e4m3 step (2^-3 of the value), which moves that slot's
+    attention at pos by more than BF16_TOL. So y is held to the dtype's
+    tolerance on a second run of the port with JAX's float8 rows in place
+    of its own (``ref.to_cache_dtype`` fed them): every other operation of
+    the block is checked there. At float32 the rows are equal and the
+    port's own run is held to F32_TOL too. The inputs are
+    ``test_plain_decode_block_matches_jax_bf16``'s (seed 1), only the cache
+    dtype differs."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    f8 = torch.float8_e4m3fn
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    args, kw = _block_inputs("gqa_bias", adapter, seed=1)
+    got = _run_port(args, kw, tdt, cache_dtype=f8)
+    want, = _run_jax(args, kw, ("ref",), jdt, cache_dtype=jnp.float8_e4m3fn)
+    assert got[0].dtype == tdt
+    apart = 0
+    for g, w, name in zip(got[1:], want[1:], ("k_rows", "v_rows")):
+        assert g.dtype == f8 and w.dtype == jnp.float8_e4m3fn
+        steps = np.abs(_e4m3_ordinal(g.view(torch.uint8).numpy())
+                       - _e4m3_ordinal(np.asarray(w).view(np.uint8)))
+        assert steps.max() <= 1, name
+        apart += int(steps.sum())
+    print(f"{adapter} {dtype}: {apart} K/V row values one e4m3 step apart")
+    if dtype == "float32":
+        assert apart == 0
+        np.testing.assert_allclose(_f32(got[0]), _f32(want[0]),
+                                   err_msg="y", **tol)
+    # JAX's rows in the port's slot order: k then v of each slot
+    jax_rows = iter([torch.from_numpy(np.array(w[i]).view(np.uint8))
+                     .view(f8) for i in range(want[1].shape[0])
+                     for w in want[1:]])
+    monkeypatch.setattr(KD.ref, "to_cache_dtype",
+                        lambda t, dtype: next(jax_rows))
+    fed = _run_port(args, kw, tdt, cache_dtype=f8)
+    np.testing.assert_allclose(_f32(fed[0]), _f32(want[0]), err_msg="y",
+                               **tol)
+
+
+# (value, why): the edges of float8_e4m3fn's cast
+E4M3_EDGES = (
+    (448.0, "the largest finite value"), (-448.0, "its negative"),
+    (432.0, "the tie between 416 and 448: to 448, the even"),
+    (440.0, "between 432 and 448"), (463.9, "just under 464: 448"),
+    (464.0, "the tie between 448 and 480 (NaN's code): to 448"),
+    (464.0625, "just past 464: NaN"), (-464.0625, "its negative: -NaN"),
+    (479.0, "NaN"), (480.0, "NaN"), (1.0e6, "NaN"), (np.inf, "NaN"),
+    (-np.inf, "-NaN"), (np.nan, "NaN"), (-np.nan, "-NaN"),
+    (2.0 ** -9, "the least subnormal"), (-(2.0 ** -9), "its negative"),
+    (2.0 ** -10, "the tie between 0 and 2^-9: to 0"),
+    (3 * 2.0 ** -10, "the tie between 2^-9 and 2^-8: to 2^-8, the even"),
+    (5 * 2.0 ** -10, "the tie between 2^-8 and 3 * 2^-9: to 2^-8"),
+    (2.0 ** -6 - 2.0 ** -10, "rounds up to 2^-6, the least normal"),
+    (2.0 ** -6, "the least normal"), (2.0 ** -11, "under half the least "
+                                      "subnormal: 0"),
+    (0.0, "+0"), (-0.0, "-0"), (1.0625, "the tie between 1 and 1.125: 1"),
+    (1.1875, "the tie between 1.125 and 1.25: 1.25"),
+    (3.0, "exact"), (-17.5, "the tie between -17 and -18: -18"),
+    (240.0, "exact"), (248.0, "the tie between 240 and 256: 256"))
+
+
+def _f8_of_twin(f):
+    """numpy twin of the decode megakernel's ``f8_of``
+    (csrc/decode_fused.cu): fp32 -> e4m3fn byte by bit arithmetic, the
+    subnormals by one fp32 add."""
+    f = np.asarray(f, np.float32)
+    bits = f.view(np.uint32).astype(np.uint64)
+    sign = bits & 0x80000000
+    mag = bits ^ sign
+    denorm = np.float32(2.0 ** 14)
+    with np.errstate(invalid="ignore", over="ignore"):  # NaN, inf lanes
+        sub = ((mag.astype(np.uint32).view(np.float32) + denorm)
+               .view(np.uint32).astype(np.uint64) - (141 << 23))
+    odd = (mag >> 20) & 1
+    normal = ((mag - (120 << 23) + 0x7FFFF + odd) >> 20) & 0xFF
+    r = np.where(mag >= (1087 << 20), 0x7F,
+                 np.where(mag < (121 << 23), sub, normal))
+    return (r | (sign >> 24)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("src", ["float32", "bfloat16"])
+def test_cache_cast_edges_match_ml_dtypes(src):
+    """The port's cast into a float8_e4m3fn cache (``to_cache_dtype``,
+    which ``write_cache`` and the plain decode block use) is ml_dtypes'
+    (JAX's ``astype``) bit for bit at every edge of E4M3_EDGES, from float32
+    and from bfloat16 (the edges the bf16 grid holds), NaN with its sign
+    included: no saturation, whatever the installed PyTorch's own ``.to``
+    does. The megakernel's bit arithmetic (its numpy twin here, the
+    source's constants checked) agrees too; on the card chip_smoke's phase
+    18 holds the kernel's bytes to this cast."""
+    vals = np.array([v for v, _ in E4M3_EDGES], np.float32)
+    t = torch.from_numpy(vals).to(getattr(torch, src))
+    exact = t.float().numpy()  # the values the source dtype holds
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = exact.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
+    got = to_cache_dtype(t, torch.float8_e4m3fn).view(torch.uint8).numpy()
+    for (v, why), g, w in zip(E4M3_EDGES, got, want):
+        assert g == w, (v, why, hex(g), hex(w))
+    np.testing.assert_array_equal(_f8_of_twin(exact), want)
+
+
+def test_kernel_cast_twin_matches_ml_dtypes_everywhere():
+    """The twin of the kernel's ``f8_of`` against ml_dtypes over 2^20
+    float32 values spread over every exponent the cast meets (both signs,
+    subnormal inputs, past 480, NaN and inf), and the kernel source holds
+    the twin's constants."""
+    from repro_torch.kernels._build import CSRC
+    src = (CSRC / "decode_fused.cu").read_text()
+    for const in ("1087u << 20", "121u << 23", "141u << 23",
+                  "static_cast<uint32_t>(7 - 127) << 23) + 0x7ffffu + odd"):
+        assert const in src, const
+    rng = np.random.default_rng(7)
+    bits = rng.integers(0, 2 ** 32, size=2 ** 20, dtype=np.uint64)
+    # exponents 100..140 (2^-27 .. 2^13) where the cast changes, and the
+    # rest at random
+    exp = rng.integers(100, 141, size=bits.size, dtype=np.uint64)
+    near = (bits & 0x807FFFFF) | (exp << 23)
+    vals = np.where(rng.random(bits.size) < 0.9, near, bits).astype(
+        np.uint32).view(np.float32)
+    vals = np.concatenate([vals, np.array([np.inf, -np.inf, np.nan],
+                                          np.float32)])
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = vals.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
+    got = _f8_of_twin(vals)
+    # NaN bytes: ml_dtypes keeps the input's sign, as the kernel does
+    np.testing.assert_array_equal(got, want)
+
+
 def test_plain_decode_block_dispatch_and_past_the_end():
     """``auto`` on a CPU tensor and ``ref`` give the same result; a slot at
     pos >= S substitutes no row and attends every cache row (the new row
@@ -190,8 +347,9 @@ def test_plain_decode_block_dispatch_and_past_the_end():
 
 def test_kernel_refuses_unbuilt_variants():
     """The CUDA path builds RMSNorm, GLU-SiLU and GLU-GELU and RoPE with
-    routes none, bf16, int8 and int4; the wrapper names everything else
-    before touching the card."""
+    routes none, bf16, int8 and int4, bf16 activations over two bf16 or two
+    float8_e4m3fn caches; the wrapper names everything else before
+    touching the card."""
     base = dict(norm="rmsnorm", use_rope=True, mlp_type="glu",
                 act_name="silu", adapter="bf16", adapter_act="gelu")
     assert KD._unsupported(**base) is None
@@ -205,6 +363,18 @@ def test_kernel_refuses_unbuilt_variants():
                    dict(adapter="int2"), dict(adapter_act="relu"),
                    dict(adapter="int8", adapter_act="relu")):
         assert KD._unsupported(**dict(base, **change)), change
+    bf16, f8 = torch.bfloat16, torch.float8_e4m3fn
+    for x, k, v in ((bf16, bf16, bf16), (bf16, f8, f8)):
+        assert KD._unbuilt_dtypes(x, k, v) is None, (x, k, v)
+    for x, k, v in ((bf16, f8, bf16), (bf16, bf16, f8),
+                    (bf16, torch.float8_e5m2, torch.float8_e5m2),
+                    (bf16, torch.float16, torch.float16),
+                    (torch.float16, bf16, bf16), (torch.float32, bf16, bf16),
+                    (torch.float32, f8, f8)):
+        why = KD._unbuilt_dtypes(x, k, v)
+        assert why, (x, k, v)
+        if x != bf16:
+            assert "ROADMAP queue 2, item 1" in why
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -300,6 +470,38 @@ def test_decode_plan(S):
     assert KD.plan(4, S=100, adapter="bf16", **QWEN_SHAPES) == 112
 
 
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_decode_plan_float8_cache(hd):
+    """On a float8_e4m3fn cache a stage holds twice the rows of one head
+    (1-byte values): one split where K and V of the whole cache fit (S <=
+    256 at hd 64, 128 at hd 128), else splits of a stage's K rows, at most
+    256; every split within one stage at the cache's bytes, as the kernel's
+    ``valid`` requires. The bf16 plan is unchanged."""
+    f8 = torch.float8_e4m3fn
+    shapes = dict(QWEN_SHAPES, H=1024 // hd, KV=1024 // hd, hd=hd)
+    for S in (1, 16, 100, 128, 200, 256, 300, 1000, 2048, 4096):
+        for dt, eb in ((torch.bfloat16, 2), (f8, 1)):
+            sc = KD.plan(4, S=S, adapter="bf16", cache_dtype=dt, **shapes)
+            splits = -(-S // sc)
+            assert sc % 16 == 0 and sc <= 256 and (splits - 1) * sc < S
+            assert (2 if splits == 1 else 1) * eb * sc * hd <= KD.STAGE_BYTES
+        if hd == 64:
+            assert KD.plan(4, S=S, adapter="bf16", **shapes) == \
+                KD.plan(4, S=S, adapter="bf16", cache_dtype=torch.bfloat16,
+                        **shapes)
+    at = lambda S: KD.plan(4, S=S, adapter="bf16",  # noqa: E731
+                           cache_dtype=f8, **shapes)
+    if hd == 64:
+        assert (at(128), at(256), at(2048)) == (128, 256, 256)
+        assert KD.plan(4, S=256, adapter="bf16", **shapes) == 128
+    if hd == 128:
+        assert (at(128), at(256)) == (128, 128)
+        assert KD.plan(4, S=128, adapter="bf16", **shapes) == 64
+    with pytest.raises(ValueError, match="float8_e5m2"):
+        KD.plan(4, S=128, adapter="bf16", cache_dtype=torch.float8_e5m2,
+                **shapes)
+
+
 def test_decode_plan_refusals():
     """Shapes the kernel does not build raise before anything launches."""
     base = dict(B=4, S=128, adapter="bf16", **QWEN_SHAPES)
@@ -336,3 +538,6 @@ def test_decode_plan_matches_the_kernel():
             in src)
     assert "return static_cast<int>((room / (2 * NB) - kPad) / kChunk * " \
         "kChunk);" in src
+    # an attention split's rows in one stage at the cache's bytes a value
+    assert "(splits == 1 ? 2 : 1) * a.kvb * a.sc * a.hd > kStage" in src
+    assert "a.f8 = f8, a.kvb = f8 ? 1 : 2;" in src
